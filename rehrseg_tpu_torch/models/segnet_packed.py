@@ -1,0 +1,403 @@
+"""Space-to-depth packed SegModel forward for the sliding-window eval path
+(``rehrseg_tpu.models.segnet_packed`` in PyTorch).
+
+Consumes standard SegModel parameters in the flax layout (a ``{"params":
+...}`` tree of tensors, :func:`rehrseg_tpu_torch.models.convert.
+flax_tree_from_module` gives one for a module) and computes the
+mathematically identical forward with the high-resolution low-channel
+stages in packed 2x2 layout (:mod:`rehrseg_tpu_torch.ops.pack2d`): layout
+changes ride inside convs, parities alternate through a stage so each
+encoder stage ends ALIGNED, and offset-parity tensors carry a one-pixel rim
+masked to zero around each offset conv's norm and activation.
+
+``pallas_conv="cat"`` routes the decoder skip concat of kd=1 stages through
+K1 (:func:`rehrseg_tpu_torch.ops.pconv.pconv_pad11_cat`), whose output is
+stored at an 8-aligned width with the true width tracked beside it; the
+next VALID conv reads only the true columns.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP entry):
+``pallas_conv=True`` (K3/K4/K5), ``pallas_conv="fused"`` (K6), ``remat``
+and ``return_skips`` (training, ROADMAP queue 1 item 8).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import pconv
+from ..ops.bspline import upsample_axis_linear
+from ..ops.pack2d import (
+    space_to_depth_hw, depth_to_space_hw, offset_to_unpacked_hw,
+    pack_conv_weights, pack_conv_weights_from_unpacked,
+    pack_transpconv_weights, pack_pointwise_weights, pack_bias,
+    conv_general, conv_packed, conv_packing, pointwise_packed_transpconv,
+    instance_norm_packed, offset_rim_mask,
+    pack_conv_weights_cell4, pack_bias_cell4, conv_packed_s2_cell4,
+    depth_to_space_cell,
+    pack_conv_weights_cell4z2, conv_packed_s2_cell4z2, unpack_cell4z2,
+    pack_bias_cell4z2, fused_upsample_conv1,
+)
+
+
+def _to3(v):
+    return (v, v, v) if isinstance(v, int) else tuple(v)
+
+
+def _instance_norm(x, scale, bias, eps):
+    """Statistics in fp32 whatever the compute dtype; the normalize stays
+    in x.dtype (the JAX package's bf16 serving numerics)."""
+    spatial = tuple(range(1, x.ndim - 1))
+    x32 = x.float()
+    m = x32.mean(spatial, keepdim=True)
+    v = x32.var(spatial, correction=0, keepdim=True)
+    y = (x - m.to(x.dtype)) * torch.rsqrt(v + eps).to(x.dtype)
+    if scale is not None:
+        y = y * scale + bias
+    return y
+
+
+def _conv_std(x, w, b, strides):
+    pad = tuple((k // 2, k // 2) for k in w.shape[:3])
+    y = conv_general(x, w, strides, pad)
+    return y + b if b is not None else y
+
+
+def _transpconv_std(x, wt, b, strides):
+    """Stride == kernel transposed conv; wt in the flax transpose_kernel
+    layout (*K, O, I), direct spatial indexing (= torch's (I, O, *K))."""
+    xc = x.permute(0, 4, 1, 2, 3)
+    y = F.conv_transpose3d(xc, wt.permute(4, 3, 0, 1, 2), None,
+                           stride=tuple(strides))
+    y = y.permute(0, 2, 3, 4, 1)
+    return y + b if b is not None else y
+
+
+def _unpack(x, layout, tw=None):
+    if layout == "a":
+        return depth_to_space_hw(x)
+    if layout == "o":
+        if tw is not None and tw != x.shape[3]:
+            x = x[:, :, :, :tw]      # strip K1's pad columns
+        return offset_to_unpacked_hw(x)
+    return x
+
+
+def _true_hw(x, layout, tw=None):
+    if layout == "a":
+        return x.shape[2] * 2, x.shape[3] * 2
+    if layout == "o":
+        w = x.shape[3] if tw is None else tw
+        return (x.shape[2] - 1) * 2, (w - 1) * 2
+    return x.shape[2], x.shape[3]
+
+
+def _packable(kernel, h, w, feats, pack_max_channels):
+    return (feats <= pack_max_channels and kernel[1] == 3 and kernel[2] == 3
+            and h % 2 == 0 and w % 2 == 0)
+
+
+def _mask_offset(y, c, tw=None):
+    return y * offset_rim_mask(y.shape[2], y.shape[3], c, y.dtype, y.device,
+                               true_w=tw)
+
+
+def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
+                   pack_max_channels, want_out="a", in_splits=None,
+                   tw=None, pallas=False):
+    """One ConvNormAct. x in layout 'u'/'a'/'o'; returns (y, layout', tw').
+
+    x may be a PAIR (xa, xb) of aligned-packed tensors standing for their
+    channel concat (the decoder skip concat, in_splits giving the unpacked
+    channel sizes). With pallas="cat" a covered kd=1 pair feeds K1 and the
+    concat is never built; every other path concatenates here.
+    tw: the TRUE offset width when layout == 'o' and x is stored wider."""
+    pallas_cat = bool(pallas)
+    pair = isinstance(x, (tuple, list))
+    if pair and (layout != "a" or len(x) != 2 or not pallas_cat):
+        x = torch.cat(list(x), dim=-1)
+        pair = False
+    x0 = x[0] if pair else x
+
+    w = cp["conv"]["kernel"]
+    b = cp["conv"].get("bias")
+    scale = cp["norm"]["scale"] if a["norm_affine"] else None
+    nbias = cp["norm"]["bias"] if a["norm_affine"] else None
+    eps, slope = a["norm_eps"], a["nonlin_slope"]
+
+    h, wd = _true_hw(x0, layout, tw)
+    strided = stride[1] == 2 and stride[2] == 2
+    otw = tw if tw is not None else (x0.shape[3] if layout == "o" else None)
+
+    # the packed dispatch implements (1,1,1) and (d,2,2) with the D-stride
+    # carried by a kd>1 conv; any other stride takes the standard path
+    packed_stride_ok = (tuple(stride) == (1, 1, 1)
+                        or (strided and (kernel[0] > 1 or stride[0] == 1)))
+    # a strided conv emits unpacked output either way, so a packed input is
+    # consumed packed whatever the channel threshold
+    strided_packable = (strided and layout in ("a", "o")
+                        and kernel[1] == 3 and kernel[2] == 3)
+    take_packed = packed_stride_ok and (
+        strided_packable or _packable(kernel, h, wd, feats,
+                                      pack_max_channels))
+
+    if take_packed:
+        if strided and layout != "u":
+            if pair:
+                x = torch.cat(list(x), dim=-1)
+                pair = False
+            if layout == "a":
+                wp = pack_conv_weights(w, in_splits=in_splits,
+                                       packed_out=False,
+                                       aligned_in_strided=True)
+                y = conv_packed(x, wp, b, d_stride=stride[0], hw_pad="pad10")
+            else:
+                wp = pack_conv_weights(w, in_splits=in_splits,
+                                       packed_out=False)
+                y = conv_packed(x, wp, b, d_stride=stride[0], in_w=otw)
+            y = _instance_norm(y, scale, nbias, eps)
+            return F.leaky_relu(y, slope), "u", None
+
+        if not strided:
+            kd = int(kernel[0])
+            out_tw = None
+            if layout == "u":
+                w4 = pack_conv_weights_from_unpacked(w)
+                out = want_out
+                y = conv_packing(x, w4, pack_bias(b) if b is not None
+                                 else None, offset_out=(want_out == "o"))
+            elif layout == "a":
+                wp = pack_conv_weights(w, in_splits=in_splits)
+                pb = pack_bias(b) if b is not None else None
+                out = "o"
+                out_tw = x0.shape[3] + 1
+                y = None
+                if pair and kd == 1:
+                    bsz, d = x0.shape[0], x0.shape[1]
+                    r = pconv.pconv_pad11_cat(
+                        x[0].reshape(bsz * d, *x[0].shape[2:]).contiguous(),
+                        x[1].reshape(bsz * d, *x[1].shape[2:]).contiguous(),
+                        wp[0], pb)
+                    if r is not None:
+                        y = r.reshape(bsz, d, *r.shape[1:])
+                if y is None:
+                    if pair:
+                        x = torch.cat(list(x), dim=-1)
+                        pair = False
+                    y = conv_packed(x, wp, pb, hw_pad="pad11")
+                    out_tw = None
+            else:  # offset -> aligned
+                wp = pack_conv_weights(w, in_splits=in_splits)
+                pb = pack_bias(b) if b is not None else None
+                out = "a"
+                # a widened offset input: the conv reads only its true
+                # columns
+                y = conv_packed(x, wp, pb, in_w=otw)
+            if out == "o":
+                y = _mask_offset(y, feats, tw=out_tw)
+                y = instance_norm_packed(y, scale, nbias, eps,
+                                         offset_parity=True, true_w=out_tw)
+                y = _mask_offset(F.leaky_relu(y, slope), feats, tw=out_tw)
+            else:
+                y = F.leaky_relu(instance_norm_packed(y, scale, nbias, eps),
+                                 slope)
+            return y, out, out_tw
+
+    # ---------------- standard path
+    if pair:
+        x = torch.cat(list(x), dim=-1)
+    x = _unpack(x, layout, otw)
+    y = _conv_std(x, w, b, stride)
+    y = _instance_norm(y, scale, nbias, eps)
+    return F.leaky_relu(y, slope), "u", None
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
+                          upscale: int = 4, pack_max_channels: int = 128,
+                          dual: bool = False, return_skips: bool = False,
+                          remat: bool = False, plane_out: bool = False,
+                          sr_head_form: str = "auto",
+                          pallas_conv=False):
+    """Forward identical to SegModel's with packed high-res stages.
+
+    params: flax-layout tree ``{"params": ...}`` of tensors; x (B, D, H, W,
+    C) channels-last. Returns lr_logits, or (lr_logits, hr_logits) when
+    ``dual``. plane_out: logits as per-class planes (B, C, D, H, W), the
+    layout K2 consumes. pallas_conv: False (plain convs) or "cat" (K1 at
+    the decoder skip concat). sr_head_form: "auto" (fused upsample/conv1 +
+    z-paired stride-2 conv2), "cell4" or "legacy" (explicit z-upsample).
+    Input and params are promoted to a common dtype first."""
+    if pallas_conv not in (False, "cat"):
+        raise NotImplementedError(
+            f"pallas_conv={pallas_conv!r}: only False and 'cat' are ported; "
+            f"True needs K3/K4/K5 and 'fused' needs K6 (ROADMAP queue 2)")
+    if remat or return_skips:
+        raise NotImplementedError(
+            "remat and return_skips serve training, still to be ported "
+            "(ROADMAP queue 1, item 8)")
+    if sr_head_form not in ("auto", "cell4", "legacy"):
+        raise ValueError(f"unknown sr_head_form {sr_head_form!r}")
+    a = dict(arch)
+    n = a["n_stages"]
+    feats = a["features_per_stage"]
+    kernels = [_to3(k) for k in a["kernel_sizes"]]
+    strides = [_to3(s) for s in a["strides"]]
+    p = params["params"] if "params" in params else params
+    leaf = next(_leaves(p))
+    common = torch.promote_types(x.dtype, leaf.dtype)
+    x = x.to(common)
+    p = _map(p, lambda t: t.to(common))
+    penc, pdec = p["encoder"], p["decoder"]
+
+    # ---------------- encoder: each stage ends ALIGNED (or unpacked)
+    cur, layout, cur_tw = x, "u", None
+    skips = []  # (tensor, layout, true offset width or None)
+    for s in range(n):
+        sp = penc[f"stage_{s}"]
+        for i in range(a["n_conv_per_stage"][s]):
+            st = strides[s] if i == 0 else (1, 1, 1)
+            remaining = a["n_conv_per_stage"][s] - i
+            want = ("o" if remaining >= 2 else "a") if layout == "u" else "a"
+            cur, layout, cur_tw = _conv_norm_act(
+                cur, layout, sp[f"conv_{i}"], kernels[s], st, feats[s], a,
+                pack_max_channels=pack_max_channels, want_out=want,
+                tw=cur_tw, pallas=pallas_conv)
+        skips.append((cur, layout, cur_tw))
+
+    # ---------------- decoder
+    lres, lres_layout, lres_tw = skips[-1]
+    seg_logits = None
+    features, features_layout, features_tw = None, "u", None
+    for s in range(n - 1):
+        ridx = n - 2 - s
+        stride = strides[n - 1 - s]
+        out_ch = feats[ridx]
+        tp, sp = pdec[f"transpconv_{s}"], pdec[f"stage_{s}"]
+        wt, bt = tp["kernel"], tp.get("bias")
+        skip, skip_layout, skip_tw = skips[ridx]
+
+        h_t, w_t = _true_hw(skip, skip_layout, skip_tw)
+        pack_here = (_packable(kernels[ridx], h_t, w_t, out_ch,
+                               pack_max_channels)
+                     and stride[1] == 2 and stride[2] == 2
+                     and skip_layout in ("a", "u"))
+
+        lres = _unpack(lres, lres_layout, lres_tw)
+        tw = None
+        if pack_here:
+            up = pointwise_packed_transpconv(
+                lres, pack_transpconv_weights(wt),
+                pack_bias(bt) if bt is not None else None)   # ALIGNED
+            skip_p = (skip if skip_layout == "a"
+                      else space_to_depth_hw(skip))
+            # conv_0 receives the PAIR: K1 fuses the concat, or
+            # _conv_norm_act concatenates
+            y = (up, skip_p)
+            lay = "a"
+            skip_ch = (skip.shape[-1] // 4 if skip_layout == "a"
+                       else skip.shape[-1])
+            splits = [out_ch, skip_ch]
+            for i in range(a["n_conv_per_stage_decoder"][s]):
+                y, lay, tw = _conv_norm_act(
+                    y, lay, sp[f"conv_{i}"], kernels[ridx], (1, 1, 1),
+                    out_ch, a, pack_max_channels=pack_max_channels,
+                    in_splits=splits if i == 0 else None, want_out="a",
+                    tw=tw, pallas=pallas_conv)
+        else:
+            up = _transpconv_std(lres, wt, bt, stride)
+            y = torch.cat([up, _unpack(skip, skip_layout, skip_tw)], dim=-1)
+            lay = "u"
+            for i in range(a["n_conv_per_stage_decoder"][s]):
+                y, lay, tw = _conv_norm_act(
+                    y, lay, sp[f"conv_{i}"], kernels[ridx], (1, 1, 1),
+                    out_ch, a, pack_max_channels=pack_max_channels,
+                    want_out="a", tw=tw, pallas=pallas_conv)
+        cur, layout, cur_tw = y, lay, tw
+
+        if s == n - 2:
+            wseg = pdec[f"seg_layer_{s}"]["kernel"]
+            bseg = pdec[f"seg_layer_{s}"]["bias"]
+            n_cls = wseg.shape[-1]
+            if layout in ("a", "o"):
+                # pointwise seg head in packed space; unpack only the
+                # num_classes-channel logits
+                wp = pack_pointwise_weights(wseg[0, 0, 0].to(cur.dtype))
+                lg = torch.matmul(cur, wp) + pack_bias(bseg)
+                if layout == "o":
+                    lg = _mask_offset(lg, n_cls, tw=cur_tw)
+                if plane_out:
+                    # packed channel order is (cell, class)
+                    seg_logits = torch.stack(
+                        [_unpack(lg[..., c::n_cls], layout, cur_tw)[..., 0]
+                         for c in range(n_cls)], dim=1)
+                else:
+                    seg_logits = _unpack(lg, layout, cur_tw)
+            else:
+                seg_logits = _conv_std(cur, wseg, bseg, (1, 1, 1))
+                if plane_out:
+                    seg_logits = torch.movedim(seg_logits, -1, 1)
+            features, features_layout, features_tw = cur, layout, cur_tw
+        lres, lres_layout, lres_tw = cur, layout, cur_tw
+
+    if not dual:
+        return seg_logits
+
+    w1, b1 = p["sr_head_conv1"]["kernel"], p["sr_head_conv1"]["bias"]
+    w2, b2 = p["sr_head_conv2"]["kernel"], p["sr_head_conv2"]["bias"]
+    hr = _sr_head(features, features_layout, features_tw, w1, b1, w2, b2,
+                  upscale, plane_out, sr_head_form)
+    return seg_logits, hr
+
+
+def _sr_head(feats_in, layout, tw, w1, b1, w2, b2, upscale, plane_out,
+             sr_head_form):
+    if layout == "a":
+        # SR head fully packed (D-upsampling commutes with in-plane packing)
+        if w1.shape[0] == 3 and sr_head_form != "legacy":
+            h1 = fused_upsample_conv1(feats_in, w1, b1, upscale)
+        else:
+            up = upsample_axis_linear(feats_in, upscale, axis=1,
+                                      align_corners=True)
+            h1 = conv_packed(up, pack_conv_weights(w1), pack_bias(b1),
+                             hw_pad="pad11")
+        h1 = _mask_offset(torch.relu(h1), w1.shape[-1])
+        ncl = w2.shape[-1]
+        if ((h1.shape[2] - 1) % 2 == 0 and (h1.shape[3] - 1) % 2 == 0
+                and sr_head_form != "legacy"):
+            if h1.shape[1] % 2 == 0 and sr_head_form != "cell4":
+                out = conv_packed_s2_cell4z2(
+                    h1, pack_conv_weights_cell4z2(w2), pack_bias_cell4z2(b2))
+                planes = unpack_cell4z2(out, ncl)
+                return torch.stack(planes, dim=1 if plane_out else -1)
+            out = conv_packed_s2_cell4(h1, pack_conv_weights_cell4(w2),
+                                       pack_bias_cell4(b2))
+            if plane_out:
+                return torch.stack(
+                    [depth_to_space_cell(out[..., c::ncl], 4)[..., 0]
+                     for c in range(ncl)], dim=1)
+            return depth_to_space_cell(out, 4)
+        out = conv_packed(h1, pack_conv_weights(w2), pack_bias(b2))
+        if plane_out:
+            return torch.stack(
+                [depth_to_space_hw(out[..., c::ncl])[..., 0]
+                 for c in range(ncl)], dim=1)
+        return depth_to_space_hw(out)
+    f = _unpack(feats_in, layout, tw)
+    up = upsample_axis_linear(f, upscale, axis=1, align_corners=True)
+    h1 = torch.relu(_conv_std(up, w1, b1, (1, 1, 1)))
+    hr = _conv_std(h1, w2, b2, (1, 1, 1))
+    return torch.movedim(hr, -1, 1) if plane_out else hr

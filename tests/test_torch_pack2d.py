@@ -1,0 +1,153 @@
+"""The port's packed layout ops (ops/pack2d.py) against the JAX package's,
+on the same numpy inputs, fp32, on the CPU."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from rehrseg_tpu.ops import pack2d as jp
+from rehrseg_tpu_torch.ops import pack2d as tp
+
+torch.set_num_threads(2)
+
+
+def _x(shape, seed=0):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _close(got, want, tol=2e-5):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("name", ["space_to_depth_hw", "offset_pack_hw"])
+def test_layout_ops(name):
+    x = _x((2, 3, 8, 12, 5))
+    _close(getattr(tp, name)(torch.from_numpy(x)),
+           getattr(jp, name)(jnp.asarray(x)), 0)
+
+
+@pytest.mark.parametrize("name", ["depth_to_space_hw",
+                                  "offset_to_unpacked_hw",
+                                  "aligned_to_offset_hw"])
+def test_inverse_layout_ops(name):
+    x = _x((2, 3, 4, 6, 20))
+    _close(getattr(tp, name)(torch.from_numpy(x)),
+           getattr(jp, name)(jnp.asarray(x)), 0)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(in_splits=[3, 5]), dict(packed_out=False),
+    dict(packed_out=False, aligned_in_strided=True),
+], ids=["packed", "splits", "strided", "strided_aligned"])
+def test_pack_conv_weights(kw):
+    w = _x((3, 3, 3, 8, 6))
+    _close(tp.pack_conv_weights(torch.from_numpy(w), **kw),
+           jp.pack_conv_weights(jnp.asarray(w), **kw), 0)
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("pack_conv_weights", (1, 5, 5, 4, 3)),
+    ("pack_conv_weights_cell4", (1, 5, 5, 4, 3)),
+    ("pack_conv_weights_cell4z2", (5, 5, 5, 4, 3)),
+    ("pack_conv_weights_from_unpacked", (3, 3, 3, 4, 3)),
+    ("pack_transpconv_weights", (2, 2, 2, 3, 4)),
+])
+def test_other_weight_packs(name, shape):
+    w = _x(shape)
+    _close(getattr(tp, name)(torch.from_numpy(w)),
+           getattr(jp, name)(jnp.asarray(w)), 0)
+
+
+def test_pointwise_weights():
+    w = _x((6, 2))
+    _close(tp.pack_pointwise_weights(torch.from_numpy(w)),
+           jp.pack_pointwise_weights(jnp.asarray(w)), 0)
+
+
+@pytest.mark.parametrize("true_w", [None, 5])
+def test_offset_rim_mask(true_w):
+    got = tp.offset_rim_mask(5, 8, 3, torch.float32, true_w=true_w)
+    _close(got, jp.offset_rim_mask(5, 8, 3, jnp.float32, true_w=true_w), 0)
+
+
+@pytest.mark.parametrize("hw_pad,kd,in_w", [
+    ("pad11", 1, None), ("pad11", 3, None), ("valid", 1, None),
+    ("valid", 3, 5), ("pad10", 3, None),
+])
+def test_conv_packed(hw_pad, kd, in_w):
+    """The packed conv classes, including the widened offset input read
+    through its true width (negative right padding in JAX)."""
+    x = _x((2, 4, 6, 8, 12))
+    w = _x((kd, 2, 2, 12, 8), 1) * 0.3
+    b = _x((8,), 2)
+    kw = dict(hw_pad=hw_pad, in_w=in_w)
+    d_stride = 2 if hw_pad == "pad10" else 1
+    _close(tp.conv_packed(torch.from_numpy(x), torch.from_numpy(w),
+                          torch.from_numpy(b), d_stride=d_stride, **kw),
+           jp.conv_packed(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                          d_stride=d_stride, **kw))
+
+
+@pytest.mark.parametrize("kd,offset_out", [(1, False), (1, True), (3, True)])
+def test_conv_packing(kd, offset_out):
+    x = _x((1, 4, 8, 10, 3))
+    w4 = _x((kd, 4, 4, 3, 8), 1) * 0.3
+    _close(tp.conv_packing(torch.from_numpy(x), torch.from_numpy(w4), None,
+                           offset_out=offset_out),
+           jp.conv_packing(jnp.asarray(x), jnp.asarray(w4), None,
+                           offset_out=offset_out))
+
+
+@pytest.mark.parametrize("kd", [1, 2])
+def test_pointwise_packed_transpconv(kd):
+    x = _x((1, 3, 4, 5, 6))
+    w = _x((kd, 6, 8), 1)
+    b = _x((8,), 2)
+    _close(tp.pointwise_packed_transpconv(torch.from_numpy(x),
+                                          torch.from_numpy(w),
+                                          torch.from_numpy(b)),
+           jp.pointwise_packed_transpconv(jnp.asarray(x), jnp.asarray(w),
+                                          jnp.asarray(b)))
+
+
+@pytest.mark.parametrize("offset_parity,true_w", [(False, None),
+                                                  (True, None), (True, 6)])
+def test_instance_norm_packed(offset_parity, true_w):
+    x = _x((2, 3, 5, 8, 12))
+    if offset_parity:
+        m = np.asarray(jp.offset_rim_mask(5, 8, 3, jnp.float32,
+                                          true_w=true_w))
+        x = x * m
+    s, b = _x((3,), 1), _x((3,), 2)
+    _close(tp.instance_norm_packed(torch.from_numpy(x), torch.from_numpy(s),
+                                   torch.from_numpy(b), 1e-5,
+                                   offset_parity=offset_parity,
+                                   true_w=true_w),
+           jp.instance_norm_packed(jnp.asarray(x), jnp.asarray(s),
+                                   jnp.asarray(b), 1e-5,
+                                   offset_parity=offset_parity,
+                                   true_w=true_w), 1e-4)
+
+
+def test_fused_upsample_conv1_and_cell4z2_head():
+    """The dual SR head's two packed pieces: fused z-upsample + conv1, and
+    the z-paired stride-2 cell4 conv2 with its unpacking."""
+    feats = _x((1, 4, 4, 6, 8))
+    w1, b1 = _x((3, 3, 3, 2, 3), 1) * 0.3, _x((3,), 2)
+    h1_t = tp.fused_upsample_conv1(torch.from_numpy(feats),
+                                   torch.from_numpy(w1), torch.from_numpy(b1),
+                                   4)
+    h1_j = jp.fused_upsample_conv1(jnp.asarray(feats), jnp.asarray(w1),
+                                   jnp.asarray(b1), 4)
+    _close(h1_t, h1_j)
+    w2, b2 = _x((5, 5, 5, 3, 2), 3) * 0.3, _x((2,), 4)
+    o_t = tp.conv_packed_s2_cell4z2(h1_t, tp.pack_conv_weights_cell4z2(
+        torch.from_numpy(w2)), tp.pack_bias_cell4z2(torch.from_numpy(b2)))
+    o_j = jp.conv_packed_s2_cell4z2(h1_j, jp.pack_conv_weights_cell4z2(
+        jnp.asarray(w2)), jp.pack_bias_cell4z2(jnp.asarray(b2)))
+    _close(o_t, o_j, 1e-4)
+    for a, b in zip(tp.unpack_cell4z2(o_t, 2), jp.unpack_cell4z2(o_j, 2)):
+        _close(a, b, 1e-4)

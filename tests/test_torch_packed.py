@@ -1,0 +1,168 @@
+"""The port's packed SegModel forward against the JAX package's packed
+forward and unpacked SegModel, on the same numpy-made params and input,
+fp32, on the CPU. K1 engages at the decoder concat where the packed lanes
+are 128-multiples (features (32, 32, 32, 32)); a spy on the port's K1
+wrapper proves it (a silent fallback to the concat cannot pass)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from rehrseg_tpu.models import SegModel as JaxSegModel
+from rehrseg_tpu.models.segnet_packed import (
+    segmodel_apply_packed as jax_packed)
+from rehrseg_tpu_torch.models import convert
+from rehrseg_tpu_torch.models.segnet import SegModel
+from rehrseg_tpu_torch.models.segnet_packed import segmodel_apply_packed
+from rehrseg_tpu_torch.ops import pconv
+from tests.test_packed_segmodel import ARCH_SMALL
+
+torch.set_num_threads(2)
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+ARCH_CAT = dict(ARCH_SMALL, features_per_stage=(32, 32, 32, 32))
+
+
+def _setup(arch, shape=(2, 8, 32, 48, 1), num_classes=2, seed=0):
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    params = convert.random_flax_params(arch, seed, num_classes=num_classes)
+    return params, x
+
+
+@pytest.fixture
+def k1_spy(monkeypatch):
+    """Records, per call of the port's K1 wrapper, whether it covered the
+    shape (returned a tensor)."""
+    engaged = []
+    orig = pconv.pconv_pad11_cat
+
+    def spy(*a, **k):
+        y = orig(*a, **k)
+        engaged.append(y is not None)
+        return y
+
+    monkeypatch.setattr(pconv, "pconv_pad11_cat", spy)
+    return engaged
+
+
+def _port(arch, params, x, **kw):
+    with torch.no_grad():
+        return segmodel_apply_packed(arch, convert.tree_to_torch(params),
+                                     torch.from_numpy(x), **kw)
+
+
+def _unpacked(arch, params, x, num_classes=2):
+    model = SegModel(num_classes, 4, arch=arch)
+    convert.load_flax_params(model, params)
+    with torch.no_grad():
+        return model(torch.from_numpy(x))
+
+
+@pytest.mark.parametrize("pallas_conv", [False, "cat"])
+def test_packed_dual_matches_jax(k1_spy, pallas_conv):
+    """The serving configuration (pack_max_channels=64, dual) against JAX
+    segmodel_apply_packed(pallas_conv="cat") and SegModel.apply."""
+    params, x = _setup(ARCH_CAT)
+    kw = dict(pack_max_channels=64, dual=True, upscale=4)
+    j_lr, j_hr = jax.jit(lambda p, v: jax_packed(
+        ARCH_CAT, p, v, pallas_conv="cat", **kw))(params, jnp.asarray(x))
+    jm = JaxSegModel(num_classes=2, upscale=4, arch=dict(ARCH_CAT))
+    r_lr, r_hr = jax.jit(jm.apply)(params, jnp.asarray(x))
+
+    lr, hr = _port(ARCH_CAT, params, x, pallas_conv=pallas_conv, **kw)
+    assert k1_spy == ([True] if pallas_conv else [])
+    for got, want in ((lr, j_lr), (hr, j_hr), (lr, r_lr), (hr, r_hr)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_packed_plane_out_matches_jax(k1_spy):
+    """plane_out (the aligned engine's emission) with K1 engaged."""
+    params, x = _setup(ARCH_CAT)
+    kw = dict(pack_max_channels=64, dual=True, upscale=4, plane_out=True,
+              pallas_conv="cat")
+    j_lr, j_hr = jax.jit(lambda p, v: jax_packed(ARCH_CAT, p, v, **kw))(
+        params, jnp.asarray(x))
+    lr, hr = _port(ARCH_CAT, params, x, **kw)
+    assert k1_spy == [True]
+    assert lr.shape == (2, 2, 8, 32, 48) and hr.shape == (2, 2, 32, 32, 48)
+    np.testing.assert_allclose(lr.numpy(), np.asarray(j_lr), **TOL)
+    np.testing.assert_allclose(hr.numpy(), np.asarray(j_hr), **TOL)
+
+
+def test_packed_uncovered_arch_concatenates(k1_spy):
+    """At 8/16 features K1 never covers the concat: "cat" is exactly the
+    plain packed path."""
+    params, x = _setup(ARCH_SMALL)
+    base = _port(ARCH_SMALL, params, x, pack_max_channels=64)
+    cat = _port(ARCH_SMALL, params, x, pack_max_channels=64,
+                pallas_conv="cat")
+    assert not any(k1_spy)
+    torch.testing.assert_close(cat, base, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("form", ["auto", "cell4", "legacy"])
+def test_sr_head_forms_match_unpacked(form):
+    params, x = _setup(ARCH_SMALL)
+    lr, hr = _port(ARCH_SMALL, params, x, pack_max_channels=64, dual=True,
+                   upscale=4, sr_head_form=form)
+    r_lr, r_hr = _unpacked(ARCH_SMALL, params, x)
+    torch.testing.assert_close(lr, r_lr, **TOL)
+    torch.testing.assert_close(hr, r_hr, **TOL)
+
+
+@pytest.mark.parametrize("pack_max", [0, 16, 64])
+def test_pack_thresholds_match_unpacked(pack_max):
+    params, x = _setup(ARCH_SMALL)
+    lr = _port(ARCH_SMALL, params, x, pack_max_channels=pack_max)
+    torch.testing.assert_close(lr, _unpacked(ARCH_SMALL, params, x)[0],
+                               **TOL)
+
+
+@pytest.mark.parametrize("case", ["three_convs", "odd_spatial",
+                                  "unusual_strides", "three_classes"])
+def test_packed_variants_match_unpacked(case):
+    """The parity cycle u->o->a->o (stages ending OFFSET), odd in-plane
+    dims falling back per stage, strides the packed dispatch routes to the
+    standard path, and a 3-class head layout."""
+    arch, shape, ncls = ARCH_SMALL, (1, 8, 32, 48, 1), 2
+    if case == "three_convs":
+        arch = dict(ARCH_SMALL, n_conv_per_stage=(3, 3, 3, 3),
+                    n_conv_per_stage_decoder=(3, 3, 3))
+    elif case == "odd_spatial":
+        shape = (1, 8, 40, 56, 1)
+    elif case == "unusual_strides":
+        arch = dict(ARCH_SMALL,
+                    kernel_sizes=((1, 3, 3), (1, 3, 3), (1, 3, 3),
+                                  (3, 3, 3)),
+                    strides=((1, 1, 1), (2, 1, 1), (2, 2, 2), (1, 2, 2)))
+    else:
+        ncls = 3
+    params, x = _setup(arch, shape, num_classes=ncls)
+    lr, hr = _port(arch, params, x, pack_max_channels=64, dual=True,
+                   upscale=4)
+    r_lr, r_hr = _unpacked(arch, params, x, num_classes=ncls)
+    torch.testing.assert_close(lr, r_lr, **TOL)
+    torch.testing.assert_close(hr, r_hr, **TOL)
+
+
+def test_mixed_dtypes_promote():
+    """A bf16 batch with fp32 params promotes to fp32, like flax."""
+    params, x = _setup(ARCH_SMALL)
+    with torch.no_grad():
+        out = segmodel_apply_packed(
+            ARCH_SMALL, convert.tree_to_torch(params),
+            torch.from_numpy(x).to(torch.bfloat16), pack_max_channels=64)
+    assert out.dtype == torch.float32
+
+
+@pytest.mark.parametrize("kw", [dict(pallas_conv=True),
+                                dict(pallas_conv="fused"),
+                                dict(remat=True), dict(return_skips=True)],
+                         ids=["pallas_all", "fused", "remat", "skips"])
+def test_unported_options_raise(kw):
+    params, x = _setup(ARCH_SMALL)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _port(ARCH_SMALL, params, x, **kw)
