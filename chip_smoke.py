@@ -11,12 +11,24 @@ and nothing of the JAX package. Phases, each printing one JSON line:
   k1, k2   each kernel against its plain PyTorch version at the serving
            path's shapes (max error against the stated tolerance), with
            kernel / plain / library times from CUDA events and the bound;
+  k3, k4, k5  the same for the pallas_conv=True kernels (pconv_valid,
+           pconv_pad11, pconv3_valid) at that forward's shapes, bf16, and
+           at a small fp32 shape; the VALID kernels' inputs carry garbage
+           in their pad columns;
   tile     one full-width DEFAULT_ARCH tile: the packed forward with K1
            against the unpacked SegModel, fp32 (TF32 off);
+  tile_pallas  the same tile through pallas_conv=True (K1, K3, K5), and
+           again with a 3-conv encoder stage 0 (K3, K4, K5), each with its
+           kernels' launch counts asserted;
   main     the served path: Segmenter (bf16, patch (16, 320, 384)) on
            seeded (20, 455, 633) volumes, aligned grid with the HR head,
            parity grid, segment_many of two volumes; launch counts of K1
            and K2 from these calls only, seconds per volume, voxels/s;
+  main_pallas  one dual aligned volume through the engine with the
+           pallas_conv=True forward: launch counts of K1, K2, K3, K5
+           (asserted against the tile count), seconds, voxels/s, one 8-way
+           dual tile forward under True and under "cat", and label
+           agreement with the "cat" Segmenter (printed, not gated);
   kernels  every ported kernel with launches, error, times and bound.
 
 Then the card's name and power limit, and last the result line
@@ -130,7 +142,9 @@ def phase_k1(gen, dev):
             rec["library_ms"] = cuda_ms(
                 lambda: F.conv2d(cat, wl, b, padding=1))
             del cat
-            flops = 2 * n * (h + 1) * (w + 1) * 4 * (ca + cb) * co
+            # each input pixel meets each of the 4 taps once; the taps
+            # that land on the pad rim do no work
+            flops = 2 * n * h * w * 4 * (ca + cb) * co
             rec["bound_ms"], rec["bound_by"] = bound(
                 nbytes(xa, xb, wt, b, y), flops, BF16_FLOPS)
             rec["tflops"] = flops / 1e12
@@ -181,6 +195,115 @@ def phase_k2(gen, dev):
     return out
 
 
+def _pconv_case(kernel, shape, dtype, gen, dev):
+    """Operands of one K3/K4/K5 check: (args, kwargs, plain version,
+    library call factory, FLOP, input bytes the function must read)."""
+    import torch.nn.functional as F
+    from rehrseg_tpu_torch.ops import pconv
+
+    def randn(*s):
+        return torch.randn(*s, generator=gen, device=dev)
+
+    kd = 3 if kernel == "k5" else 1
+    *lead, hp, wd, ci, co = shape
+    x = randn(*lead, hp, wd, ci).to(dtype)
+    w = (randn(*((3,) if kd == 3 else ()), 2, 2, ci, co)
+         / (4 * kd * ci) ** 0.5).to(dtype)
+    b = (0.1 * randn(co)).to(dtype)
+    if kernel == "k4":
+        # rim taps read the zero pad and do no work (as for K1)
+        flops = 2 * lead[0] * hp * wd * 4 * ci * co
+
+        def library():
+            xl = x.permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            wl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            return lambda: F.conv2d(xl, wl, b, padding=1)
+        return ((x, w, b), {}, pconv.pconv_pad11_plain, library, flops,
+                nbytes(x, w, b))
+    # an offset input stored 8-aligned wide: garbage in the pad columns,
+    # which the function never reads (only columns 0..w_out count)
+    w_out = wd - 8
+    x[..., w_out + 1:, :] = 1e3
+    in_bytes = nbytes(x[..., :w_out + 1, :], w, b)
+    # K5's z taps outside [0, D) are zero fills: of each batch element's
+    # 3D (output z, z tap) pairs, 3D - 2 do work
+    planes = lead[0] * (3 * lead[1] - 2) if kd == 3 else lead[0]
+    flops = 2 * planes * (hp - 1) * w_out * 4 * ci * co
+    if kernel == "k3":
+        def library():
+            xl = x[:, :, :w_out + 1].permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            wl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            return lambda: F.conv2d(xl, wl, b)
+        return ((x, w, b), dict(w_out=w_out),
+                lambda *a: pconv.pconv_valid_plain(*a, w_out), library, flops,
+                in_bytes)
+
+    def library():
+        xl = x[:, :, :, :w_out + 1].permute(0, 4, 1, 2, 3).contiguous(
+            memory_format=torch.channels_last_3d)
+        wl = w.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        return lambda: F.conv3d(xl, wl, b, padding=(1, 0, 0))
+    return ((x, w, b), dict(w_out=w_out),
+            lambda *a: pconv.pconv3_valid_plain(*a, w_out), library, flops,
+            in_bytes)
+
+
+# the pallas_conv=True forward's shapes for an 8-way TTA batch of
+# (16, 320, 384) tiles at DEFAULT_ARCH (K3: encoder stage 0 conv_1; K4: the
+# 3-conv variant's stage 0 conv_2; K5: the 64-feature decoder stage's
+# conv_1), then a small fp32 shape; (lead..., h or hp, w or wp8, Ci, Co)
+PCONV_SHAPES = {
+    "k3": ((128, 161, 200, 128, 128), (4, 17, 40, 128, 128)),
+    "k4": ((128, 160, 192, 128, 128), (4, 16, 32, 128, 128)),
+    "k5": ((8, 16, 81, 104, 256, 256), (2, 3, 17, 40, 128, 256)),
+}
+PCONV_FNS = {"k3": "pconv_valid", "k4": "pconv_pad11",
+             "k5": "pconv3_valid"}
+
+
+def phase_pconv(kernel, gen, dev):
+    """One of K3/K4/K5 against its plain version (fp32 on the same
+    operands), bf16 at the path's shape and fp32 at a small one, with
+    kernel / plain / library times and the bound at the path's shape."""
+    from rehrseg_tpu_torch.ops import pconv
+
+    fn = getattr(pconv, PCONV_FNS[kernel])
+    out = {}
+    for label, shape, dtype, tol in (
+            ("bf16_main", PCONV_SHAPES[kernel][0], torch.bfloat16, 0.04),
+            ("fp32_small", PCONV_SHAPES[kernel][1], torch.float32, 2e-5)):
+        args, kw, plain, library, flops, in_bytes = _pconv_case(
+            kernel, shape, dtype, gen, dev)
+        y = fn(*args, **kw)
+        torch.cuda.synchronize()
+        ref = plain(*(a.float() for a in args))
+        max_err = check_close(f"{kernel} {label}", y, ref, tol, tol)
+        del ref
+        if kernel == "k4" and bool((y[:, :, shape[2] + 1:] != 0).any()):
+            raise AssertionError("K4: columns > w are not exact zeros")
+        rec = dict(shape=list(shape), dtype=str(dtype), max_abs_err=max_err,
+                   tolerance=tol)
+        if label == "bf16_main":
+            rec["ms"] = cuda_ms(lambda: fn(*args, **kw))
+            rec["plain_ms"] = cuda_ms(lambda: plain(*args))
+            rec["library_ms"] = cuda_ms(library())
+            n_bytes = in_bytes + nbytes(y)
+            rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops,
+                                                     BF16_FLOPS)
+            rec["tflops"] = flops / 1e12
+            rec["gbytes"] = n_bytes / 1e9
+        out[label] = rec
+        del args, y
+        torch.cuda.empty_cache()
+    emit({"phase": kernel, **out})
+    return out["bf16_main"]
+
+
 def phase_tile(params, dev):
     """One full-width tile: packed forward with K1 against the unpacked
     SegModel, both fp32 with TF32 off."""
@@ -213,6 +336,62 @@ def phase_tile(params, dev):
     if not rec["finite"]:
         raise AssertionError("tile logits not finite")
     emit({"phase": "tile", **rec})
+
+
+def phase_tile_pallas(params, dev):
+    """One full-width tile through pallas_conv=True against the unpacked
+    SegModel, both fp32 with TF32 off: at DEFAULT_ARCH (K1 once, K3 twice,
+    K5 once) and with a 3-conv encoder stage 0 (K4 at stage 0 conv_2 and at
+    the last decoder stage's conv_1, K3 once, K5 once, K1 never: that
+    stage's offset skip sends the last decoder stage down the unpacked
+    concat). Returns the launch counts of both forwards."""
+    from rehrseg_tpu_torch.models import convert
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH, SegModel
+    from rehrseg_tpu_torch.models.segnet_packed import segmodel_apply_packed
+    from rehrseg_tpu_torch.ops import pconv
+
+    names = ("pconv_pad11_cat", "pconv_valid", "pconv_pad11", "pconv3_valid")
+    arch3 = dict(DEFAULT_ARCH, n_conv_per_stage=(3, 2, 2, 2, 2, 2))
+    x = torch.from_numpy(np.random.default_rng(SEED + 1).normal(
+        size=(1, *PATCH, 1)).astype(np.float32)).to(dev)
+    out = {}
+    for label, arch, p, want in (
+            ("default_arch", DEFAULT_ARCH, params,
+             dict(pconv_pad11_cat=1, pconv_valid=2, pconv_pad11=0,
+                  pconv3_valid=1)),
+            ("stage0_3conv", arch3, convert.random_flax_params(arch3, SEED),
+             dict(pconv_pad11_cat=0, pconv_valid=1, pconv_pad11=2,
+                  pconv3_valid=1))):
+        model = SegModel(2, 4, arch=arch)
+        convert.load_flax_params(model, p)
+        model = model.to(dev).eval()
+        with torch.no_grad():
+            ref_lr, ref_hr = model(x)
+            for n in names:
+                getattr(pconv, n).launches = 0
+            lr, hr = segmodel_apply_packed(
+                arch, convert.flax_tree_from_module(model), x,
+                pack_max_channels=64, dual=True, upscale=4, pallas_conv=True)
+            torch.cuda.synchronize()
+            got = {n: getattr(pconv, n).launches for n in names}
+        if got != want:
+            raise AssertionError(f"tile_pallas {label}: launches {got}, "
+                                 f"the dispatch gives {want}")
+        tol = 2e-3
+        out[label] = dict(
+            lr_max_abs_err=check_close(f"tile_pallas {label} lr", lr,
+                                       ref_lr, tol, tol),
+            hr_max_abs_err=check_close(f"tile_pallas {label} hr", hr,
+                                       ref_hr, tol, tol),
+            tolerance=tol, launches=got,
+            finite=bool(torch.isfinite(lr).all()
+                        and torch.isfinite(hr).all()))
+        if not out[label]["finite"]:
+            raise AssertionError(f"tile_pallas {label}: logits not finite")
+        del model, ref_lr, ref_hr, lr, hr
+        torch.cuda.empty_cache()
+    emit({"phase": "tile_pallas", **out})
+    return out
 
 
 def phase_main(params, dev, gpu):
@@ -290,6 +469,63 @@ def phase_main(params, dev, gpu):
     return launches
 
 
+def phase_main_pallas(params, dev, gpu):
+    """One dual aligned volume through the engine with the pallas_conv=True
+    forward (the JAX A/B harness's configuration), bf16."""
+    from rehrseg_tpu_torch.infer import sliding_window as sw
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH
+    from rehrseg_tpu_torch.ops import pconv
+    from rehrseg_tpu_torch.ops.tail import accumulate_tta_tile
+    from rehrseg_tpu_torch.serve import Segmenter
+
+    vol = np.random.default_rng(SEED).normal(size=VOLUME).astype(np.float32)
+    segs = {p: Segmenter.from_flax(params, DEFAULT_ARCH, patch_size=PATCH,
+                                   compute_dtype=torch.bfloat16, device=dev,
+                                   tile_grid="aligned", pallas_conv=p)
+            for p in (True, "cat")}
+    # VOLUME is at least PATCH on every axis: no padding before the grid
+    n_tiles = len(sw.aligned_sliding_window_starts(VOLUME, PATCH, 0.5)[0])
+    segs[True].segment(vol, hr=True)      # warm-up, not counted
+    counters = {"pconv_pad11_cat": pconv.pconv_pad11_cat,
+                "accumulate_tta_tile": accumulate_tta_tile,
+                "pconv_valid": pconv.pconv_valid,
+                "pconv_pad11": pconv.pconv_pad11,
+                "pconv3_valid": pconv.pconv3_valid}
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t = time.perf_counter()
+    lr, hr = segs[True].segment(vol, hr=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = {n: c.launches for n, c in counters.items()}
+    want = {"pconv_pad11_cat": n_tiles, "accumulate_tta_tile": 2 * n_tiles,
+            "pconv_valid": 2 * n_tiles, "pconv_pad11": 0,
+            "pconv3_valid": n_tiles}
+    if launches != want:
+        raise AssertionError(f"main_pallas: launches {launches}, the "
+                             f"dispatch gives {want} over {n_tiles} tiles")
+    d, h, w = VOLUME
+    for name, arr, shape in (("lr", lr, VOLUME), ("hr", hr, (4 * d, h, w))):
+        if arr.shape != shape or arr.dtype != np.uint8 or arr.max() > 1:
+            raise AssertionError(f"main_pallas {name}: {arr.shape} "
+                                 f"{arr.dtype}")
+    cat_lr, cat_hr = segs["cat"].segment(vol, hr=True)
+    tile = torch.randn(8, *PATCH, 1, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        ms = {f"tile_dual_forward_ms_{k}": cuda_ms(
+                  lambda: segs[p]._fn(True, True)(tile), iters=3, warmup=1)
+              for k, p in (("true", True), ("cat", "cat"))}
+    lr_vox, hr_vox = d * h * w, 4 * d * h * w
+    emit({"phase": "main_pallas", "card": gpu, "volume": list(VOLUME),
+          "patch": list(PATCH), "dtype": "bf16", "tiles": n_tiles,
+          "seconds": secs, "lr_voxps": lr_vox / secs,
+          "lr_hr_voxps": (lr_vox + hr_vox) / secs, "launches": launches,
+          **ms, "lr_agree_with_cat": float(np.mean(lr == cat_lr)),
+          "hr_agree_with_cat": float(np.mean(hr == cat_hr))})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -329,11 +565,15 @@ def main() -> int:
     k1 = phase_k1(gen, dev)
     k2 = phase_k2(gen, dev)
     torch.cuda.empty_cache()
+    kp = {k: phase_pconv(k, gen, dev) for k in ("k3", "k4", "k5")}
 
     params = convert.random_flax_params(DEFAULT_ARCH, SEED)
     phase_tile(params, dev)
     torch.cuda.empty_cache()
+    tile_pallas = phase_tile_pallas(params, dev)
     launches = phase_main(params, dev, gpu)
+    torch.cuda.empty_cache()
+    launches_pallas = phase_main_pallas(params, dev, gpu)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -349,6 +589,23 @@ def main() -> int:
              launches=launches["accumulate_tta_tile"],
              **{k: k2["lr"][k] for k in keys},
              hr={k: k2["hr"][k] for k in keys}),
+        dict(name="pconv_valid", route="cuda",
+             source="rehrseg_tpu_torch/csrc/pconv_valid.cu",
+             replaces="rehrseg_tpu/ops/pallas_pconv.py:519",
+             launches=launches_pallas["pconv_valid"],
+             **{k: kp["k3"][k] for k in keys}),
+        # K4's path is the 3-conv stage-0 variant (tile_pallas)
+        dict(name="pconv_pad11", route="cuda",
+             source="rehrseg_tpu_torch/csrc/pconv_pad11_cat.cu",
+             replaces="rehrseg_tpu/ops/pallas_pconv.py:576",
+             launches=tile_pallas["stage0_3conv"]["launches"]["pconv_pad11"],
+             launches_in="tile_pallas stage0_3conv",
+             **{k: kp["k4"][k] for k in keys}),
+        dict(name="pconv3_valid", route="cuda",
+             source="rehrseg_tpu_torch/csrc/pconv_valid.cu",
+             replaces="rehrseg_tpu/ops/pallas_pconv.py:1117",
+             launches=launches_pallas["pconv3_valid"],
+             **{k: kp["k5"][k] for k in keys}),
     ]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -28,6 +28,12 @@
 // the one rounding to bf16. wgmma and TMA are later work.
 //
 // fp32 inputs take a plain FMA kernel (64 x 64 tiles, one tap per step).
+//
+// K4, pconv_pad11 (rehrseg_tpu/ops/pallas_pconv.py:576, body _pad11_kernel
+// :272), is the same conv on one input: the pconv_pad11_* entry points run
+// these kernels with CAT = false and Cb = 0, so every K step reads xa (the
+// K loop runs over Ca / 32 chunks and never reaches xb). The template
+// argument only gives K4's launches their own kernel name.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -80,6 +86,7 @@ constexpr int SMEM = STAGES * (A_STAGE + B_STAGE) * (int)sizeof(bf16);
 constexpr int MI = BM / 4 / 16;           // warp tile rows / 16
 constexpr int LOADS = ((BM + 1) * 4 + THREADS - 1) / THREADS;
 
+template <bool CAT>
 __global__ void __launch_bounds__(THREADS, 1)
 pad11_cat_bf16_kernel(const bf16* __restrict__ xa,
                       const bf16* __restrict__ xb,
@@ -123,7 +130,7 @@ pad11_cat_bf16_kernel(const bf16* __restrict__ xa,
     const int c0 = (kt / 2) * BK;
     const bf16* src;
     int cs, coff;
-    if (c0 < g.ca) {
+    if (!CAT || c0 < g.ca) {
       src = xa; cs = g.ca; coff = c0;
     } else {
       src = xb; cs = g.cb; coff = c0 - g.ca;
@@ -231,32 +238,27 @@ pad11_cat_bf16_kernel(const bf16* __restrict__ xa,
   }
 }
 
-}  // namespace
-
-extern "C" int pconv_pad11_cat_bf16(const void* xa, const void* xb,
-                                    const void* w, const void* b, void* y,
-                                    int n, int h, int w_in, int ca, int cb,
-                                    int co, int wp8, void* stream) {
+template <bool CAT>
+int launch_bf16(const void* xa, const void* xb, const void* w, const void* b,
+                void* y, Geo g, cudaStream_t stream) {
   // above 48 KB, dynamic shared memory has to be asked for
   cudaError_t e = cudaFuncSetAttribute(
-      pad11_cat_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pad11_cat_bf16_kernel<CAT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM);
   if (e != cudaSuccess) return (int)e;
-  Geo g{n, h, w_in, ca, cb, co, wp8};
-  const int64_t M = (int64_t)n * (h + 1) * wp8;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(co / BN));
-  pad11_cat_bf16_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
+  const int64_t M = (int64_t)g.n * (g.h + 1) * g.wp8;
+  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(g.co / BN));
+  pad11_cat_bf16_kernel<CAT><<<grid, THREADS, SMEM, stream>>>(
       (const bf16*)xa, (const bf16*)xb, (const bf16*)w, (const bf16*)b,
       (bf16*)y, g);
   return (int)cudaGetLastError();
 }
 
-namespace {
-
 // ------------------------------------------------------------ fp32 / FMA
 
 constexpr int FBM = 64, FBN = 64, FBK = 16;
 
+template <bool CAT>
 __global__ void __launch_bounds__(256)
 pad11_cat_f32_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                      const float* __restrict__ W,
@@ -295,7 +297,7 @@ pad11_cat_f32_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
     const int c0 = (kt % kchunks) * FBK;
     const float* src;
     int cs, coff;
-    if (c0 < g.ca) {
+    if (!CAT || c0 < g.ca) {
       src = xa; cs = g.ca; coff = c0;
     } else {
       src = xb; cs = g.cb; coff = c0 - g.ca;
@@ -341,17 +343,48 @@ pad11_cat_f32_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   }
 }
 
+template <bool CAT>
+int launch_f32(const void* xa, const void* xb, const void* w, const void* b,
+               void* y, Geo g, cudaStream_t stream) {
+  const int64_t M = (int64_t)g.n * (g.h + 1) * g.wp8;
+  dim3 grid((unsigned)((M + FBM - 1) / FBM), (unsigned)(g.co / FBN));
+  pad11_cat_f32_kernel<CAT><<<grid, 256, 0, stream>>>(
+      (const float*)xa, (const float*)xb, (const float*)w, (const float*)b,
+      (float*)y, g);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// K1: xa (n, h, w_in, ca), xb (n, h, w_in, cb), w (2, 2, ca+cb, co), b (co)
+// -> y (n, h+1, wp8, co). Returns cudaGetLastError() after the launch.
+extern "C" int pconv_pad11_cat_bf16(const void* xa, const void* xb,
+                                    const void* w, const void* b, void* y,
+                                    int n, int h, int w_in, int ca, int cb,
+                                    int co, int wp8, void* stream) {
+  return launch_bf16<true>(xa, xb, w, b, y, Geo{n, h, w_in, ca, cb, co, wp8},
+                           (cudaStream_t)stream);
+}
 
 extern "C" int pconv_pad11_cat_f32(const void* xa, const void* xb,
                                    const void* w, const void* b, void* y,
                                    int n, int h, int w_in, int ca, int cb,
                                    int co, int wp8, void* stream) {
-  Geo g{n, h, w_in, ca, cb, co, wp8};
-  const int64_t M = (int64_t)n * (h + 1) * wp8;
-  dim3 grid((unsigned)((M + FBM - 1) / FBM), (unsigned)(co / FBN));
-  pad11_cat_f32_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)xa, (const float*)xb, (const float*)w, (const float*)b,
-      (float*)y, g);
-  return (int)cudaGetLastError();
+  return launch_f32<true>(xa, xb, w, b, y, Geo{n, h, w_in, ca, cb, co, wp8},
+                          (cudaStream_t)stream);
+}
+
+// K4: x (n, h, w_in, ci), w (2, 2, ci, co), b (co) -> y (n, h+1, wp8, co).
+extern "C" int pconv_pad11_bf16(const void* x, const void* w, const void* b,
+                                void* y, int n, int h, int w_in, int ci,
+                                int co, int wp8, void* stream) {
+  return launch_bf16<false>(x, x, w, b, y, Geo{n, h, w_in, ci, 0, co, wp8},
+                            (cudaStream_t)stream);
+}
+
+extern "C" int pconv_pad11_f32(const void* x, const void* w, const void* b,
+                               void* y, int n, int h, int w_in, int ci,
+                               int co, int wp8, void* stream) {
+  return launch_f32<false>(x, x, w, b, y, Geo{n, h, w_in, ci, 0, co, wp8},
+                           (cudaStream_t)stream);
 }

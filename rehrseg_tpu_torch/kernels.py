@@ -24,6 +24,7 @@ from pathlib import Path
 SOURCES = {
     "pconv_pad11_cat": "pconv_pad11_cat.cu",
     "accumulate_tta_tile": "accumulate_tta_tile.cu",
+    "pconv_valid": "pconv_valid.cu",
 }
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \

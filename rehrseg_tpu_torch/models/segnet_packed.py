@@ -13,11 +13,16 @@ masked to zero around each offset conv's norm and activation.
 ``pallas_conv="cat"`` routes the decoder skip concat of kd=1 stages through
 K1 (:func:`rehrseg_tpu_torch.ops.pconv.pconv_pad11_cat`), whose output is
 stored at an 8-aligned width with the true width tracked beside it; the
-next VALID conv reads only the true columns.
+next VALID conv reads only the true columns. ``pallas_conv=True`` routes
+every covered stride-1 packed conv through a kernel of
+:mod:`rehrseg_tpu_torch.ops.pconv`: K4 at kd=1 aligned->offset convs, K3
+(kd=1) and K5 (kd=3) at offset->aligned convs, K1 at the concat; every
+offset tensor is then emitted 8-aligned wide (by the kernels, or by a
+widened cuDNN conv whose pad columns the rim mask zeroes).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP entry):
-``pallas_conv=True`` (K3/K4/K5), ``pallas_conv="fused"`` (K6), ``remat``
-and ``return_skips`` (training, ROADMAP queue 1 item 8).
+``pallas_conv="fused"`` (K6), ``remat`` and ``return_skips`` (training,
+ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -102,6 +107,10 @@ def _mask_offset(y, c, tw=None):
                                true_w=tw)
 
 
+def _round8(v):
+    return -(-v // 8) * 8
+
+
 def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                    pack_max_channels, want_out="a", in_splits=None,
                    tw=None, pallas=False):
@@ -111,7 +120,10 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
     channel concat (the decoder skip concat, in_splits giving the unpacked
     channel sizes). With pallas="cat" a covered kd=1 pair feeds K1 and the
     concat is never built; every other path concatenates here.
-    tw: the TRUE offset width when layout == 'o' and x is stored wider."""
+    tw: the TRUE offset width when layout == 'o' and x is stored wider.
+    pallas=True routes every covered stride-1 packed conv through K1/K3/K4/
+    K5, with offset outputs emitted 8-aligned wide."""
+    pallas_all = pallas is True
     pallas_cat = bool(pallas)
     pair = isinstance(x, (tuple, list))
     if pair and (layout != "a" or len(x) != 2 or not pallas_cat):
@@ -164,8 +176,13 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
             if layout == "u":
                 w4 = pack_conv_weights_from_unpacked(w)
                 out = want_out
-                y = conv_packing(x, w4, pack_bias(b) if b is not None
-                                 else None, offset_out=(want_out == "o"))
+                pb = pack_bias(b) if b is not None else None
+                if out == "o" and pallas_all:
+                    out_tw = x.shape[3] // 2 + 1
+                    y = conv_packing(x, w4, pb, offset_out=True,
+                                     out_w=_round8(out_tw))
+                else:
+                    y = conv_packing(x, w4, pb, offset_out=(out == "o"))
             elif layout == "a":
                 wp = pack_conv_weights(w, in_splits=in_splits)
                 pb = pack_bias(b) if b is not None else None
@@ -180,19 +197,45 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                         wp[0], pb)
                     if r is not None:
                         y = r.reshape(bsz, d, *r.shape[1:])
-                if y is None:
-                    if pair:
-                        x = torch.cat(list(x), dim=-1)
-                        pair = False
+                if y is None and pair:
+                    x = torch.cat(list(x), dim=-1)
+                    pair = False
+                if y is None and pallas_all and kd == 1:
+                    bsz, d = x.shape[0], x.shape[1]
+                    r = pconv.pconv_pad11(
+                        x.reshape(bsz * d, *x.shape[2:]).contiguous(),
+                        wp[0], pb)
+                    if r is not None:
+                        y = r.reshape(bsz, d, *r.shape[1:])
+                if y is None and pallas_all:
+                    # kd=3 (or uncovered): the cuDNN conv emits the
+                    # widened layout; its pad columns hold the bias until
+                    # the rim mask below zeroes them
+                    y = conv_packed(x, wp, pb, hw_pad="pad11",
+                                    out_w=_round8(out_tw))
+                elif y is None:
                     y = conv_packed(x, wp, pb, hw_pad="pad11")
                     out_tw = None
             else:  # offset -> aligned
                 wp = pack_conv_weights(w, in_splits=in_splits)
                 pb = pack_bias(b) if b is not None else None
                 out = "a"
-                # a widened offset input: the conv reads only its true
-                # columns
-                y = conv_packed(x, wp, pb, in_w=otw)
+                y = None
+                if pallas_all and otw is not None and (otw - 1) % 8 == 0:
+                    if kd == 1:
+                        bsz, d = x.shape[0], x.shape[1]
+                        r = pconv.pconv_valid(
+                            x.reshape(bsz * d, *x.shape[2:]).contiguous(),
+                            wp[0], pb, w_out=otw - 1)
+                        if r is not None:
+                            y = r.reshape(bsz, d, *r.shape[1:])
+                    else:
+                        y = pconv.pconv3_valid(x.contiguous(), wp, pb,
+                                               w_out=otw - 1)
+                if y is None:
+                    # a widened offset input: the conv reads only its
+                    # true columns
+                    y = conv_packed(x, wp, pb, in_w=otw)
             if out == "o":
                 y = _mask_offset(y, feats, tw=out_tw)
                 y = instance_norm_packed(y, scale, nbias, eps,
@@ -237,14 +280,15 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
     params: flax-layout tree ``{"params": ...}`` of tensors; x (B, D, H, W,
     C) channels-last. Returns lr_logits, or (lr_logits, hr_logits) when
     ``dual``. plane_out: logits as per-class planes (B, C, D, H, W), the
-    layout K2 consumes. pallas_conv: False (plain convs) or "cat" (K1 at
-    the decoder skip concat). sr_head_form: "auto" (fused upsample/conv1 +
+    layout K2 consumes. pallas_conv: False (plain convs), "cat" (K1 at
+    the decoder skip concat) or True (every covered stride-1 packed conv
+    through K1/K3/K4/K5). sr_head_form: "auto" (fused upsample/conv1 +
     z-paired stride-2 conv2), "cell4" or "legacy" (explicit z-upsample).
     Input and params are promoted to a common dtype first."""
-    if pallas_conv not in (False, "cat"):
+    if pallas_conv not in (False, "cat", True):
         raise NotImplementedError(
-            f"pallas_conv={pallas_conv!r}: only False and 'cat' are ported; "
-            f"True needs K3/K4/K5 and 'fused' needs K6 (ROADMAP queue 2)")
+            f"pallas_conv={pallas_conv!r}: only False, 'cat' and True are "
+            f"ported; 'fused' needs K6 (ROADMAP queue 2)")
     if remat or return_skips:
         raise NotImplementedError(
             "remat and return_skips serve training, still to be ported "

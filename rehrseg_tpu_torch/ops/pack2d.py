@@ -290,12 +290,22 @@ def pack_conv_weights_from_unpacked(w: torch.Tensor) -> torch.Tensor:
 
 
 def conv_packing(x: torch.Tensor, w4: torch.Tensor, b, *,
-                 offset_out: bool = False) -> torch.Tensor:
+                 offset_out: bool = False,
+                 out_w: int | None = None) -> torch.Tensor:
     """Unpacked (B, D, H, W, Ci) -> packed (B, D, H/2[+1], W/2[+1], 4Co)
     via the (kd, 4, 4) stride-(2,2) kernel of
-    :func:`pack_conv_weights_from_unpacked`. kd==1 folds D into the batch."""
+    :func:`pack_conv_weights_from_unpacked`. kd==1 folds D into the batch.
+
+    out_w (offset_out only): emit the offset tensor out_w cells wide (the
+    8-aligned layout the pconv kernels read); the extra columns convolve
+    zero input, so they hold the bias until the caller's
+    ``offset_rim_mask(true_w=W/2+1)`` zeroes them."""
     kd = w4.shape[0]
     hw = ((2, 2), (2, 2)) if offset_out else ((1, 1), (1, 1))
+    if offset_out and out_w is not None:
+        extra = out_w - (x.shape[3] // 2 + 1)
+        assert extra >= 0, (out_w, x.shape)
+        hw = (hw[0], (2, 2 + 2 * extra))
     if kd == 1:
         bsz, d = x.shape[:2]
         y = conv_general(x.reshape(bsz * d, *x.shape[2:]), w4[0], (2, 2), hw)
@@ -347,15 +357,26 @@ _HW_PADS = {
 
 def conv_packed(xp: torch.Tensor, wp: torch.Tensor, b, *,
                 d_stride: int = 1, hw_pad: str = "valid",
+                out_w: int | None = None,
                 in_w: int | None = None) -> torch.Tensor:
     """Packed 2x2-cell conv. xp (B, D, h', w', 4Ci); wp (kd, S, S, 4Ci,
     Cout'). kd==1 folds D into the batch; kd==3 is a 5D conv, SAME along D.
     Bias b is in the output layout or None.
 
+    out_w ('pad11' only): emit the offset output out_w columns wide (the
+    8-aligned layout); the extra columns convolve zero input and hold the
+    bias until the caller's ``offset_rim_mask(true_w=w'+1)`` zeroes them.
+    The one-sided pad is a symmetric conv pad plus an explicit right pad
+    (:func:`conv_general`).
+
     in_w ('valid' only): the TRUE width of an offset input stored wider
-    (K1's 8-aligned layout); only those columns are read."""
+    (the 8-aligned layout); only those columns are read."""
     kd = wp.shape[0]
     hw = _HW_PADS[hw_pad]
+    if hw_pad == "pad11" and out_w is not None:
+        extra = out_w - (xp.shape[3] + 1)
+        assert extra >= 0, (out_w, xp.shape)
+        hw = (hw[0], (1, 1 + extra))
     if hw_pad == "valid" and wp.shape[1] == 4:
         hw = ((1, 1), (1, 1))
     if hw_pad == "valid" and in_w is not None and in_w != xp.shape[3]:

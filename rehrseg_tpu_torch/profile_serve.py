@@ -1,23 +1,27 @@
 """Where a served volume's time goes on the card.
 
-    python -m rehrseg_tpu_torch.profile_serve
+    python -m rehrseg_tpu_torch.profile_serve [--pallas-conv cat|true]
 
 Runs ``Segmenter.segment(volume, hr=True)`` on the aligned grid at the bench
 geometry (full-width DEFAULT_ARCH with seeded random weights, patch
 (16, 320, 384), volume (20, 455, 633), bf16) once to warm up, then once
-under ``torch.profiler`` with CPU and CUDA activities. Prints one JSON line:
+under ``torch.profiler`` with CPU and CUDA activities. ``--pallas-conv
+true`` profiles the same dual aligned volume through the engine with the
+``pallas_conv=True`` forward instead (``Segmenter(pallas_conv=True)``: K1,
+K3 and K5 on every tile). Prints one JSON line:
 the profiled call's wall time, the device's busy time (sum of kernel
 times) and idle share, CUDA time by kernel class, the 25 kernels with
 the most CUDA time, and the convolutions with the most, by shape (input
 shapes are recorded, which adds host time to the profiled call, not device
-time). A second line times one 8-way dual tile forward (CUDA
-events) under each ``sr_head_form`` (the same math, emitted as different
-convs), with cuDNN's algorithm search off (the default) and on. Needs a
-CUDA card.
+time). With ``cat``, a second line times one 8-way dual tile forward
+(CUDA events) under each ``sr_head_form`` (the same math, emitted as
+different convs), with cuDNN's algorithm search off (the default) and on.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -25,9 +29,14 @@ import time
 import numpy as np
 import torch
 
-# kernel-name fragments -> class, first match wins
+# kernel-name fragments -> class, first match wins (K4 runs K1's kernels
+# with the template argument false; K3 and K5 are one kernel at kd 1 and 3)
 _CLASSES = (
+    ("k4_pconv_pad11", ("pad11_cat_bf16_kernel<false>",
+                        "pad11_cat_f32_kernel<false>")),
     ("k1_pconv_pad11_cat", ("pad11_cat",)),
+    ("k3_pconv_valid", ("valid_bf16_kernel<1>", "valid_f32_kernel<1>")),
+    ("k5_pconv3_valid", ("valid_bf16_kernel<3>", "valid_f32_kernel<3>")),
     ("k2_accumulate_tta_tile", ("accumulate_kernel",)),
     ("conv_and_gemm", ("conv", "gemm", "xmma", "cutlass", "sm90_", "sm80_",
                        "cudnn", "implicit")),
@@ -45,7 +54,11 @@ def _classify(name: str) -> str:
     return "other"
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--pallas-conv", choices=("cat", "true"), default="cat",
+                    help="the packed forward's kernel routing to profile")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 2
@@ -59,15 +72,20 @@ def main() -> int:
     seg = Segmenter.from_flax(convert.random_flax_params(DEFAULT_ARCH, 0),
                               DEFAULT_ARCH, (16, 320, 384),
                               compute_dtype=torch.bfloat16,
-                              tile_grid="aligned")
+                              tile_grid="aligned",
+                              pallas_conv=(True if args.pallas_conv == "true"
+                                           else "cat"))
     vol = np.random.default_rng(0).normal(size=(20, 455, 633)).astype(
         np.float32)
-    seg.segment(vol, hr=True)
+
+    def volume():
+        return seg.segment(vol, hr=True)
+    volume()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t = time.perf_counter()
-        seg.segment(vol, hr=True)
+        volume()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
 
@@ -82,6 +100,7 @@ def main() -> int:
     kernels.sort(key=lambda k: -k[1])
     print(json.dumps({
         "phase": "profile", "card": torch.cuda.get_device_name(0),
+        "pallas_conv": args.pallas_conv,
         "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
         "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
@@ -89,8 +108,10 @@ def main() -> int:
                         for n, ms, c in kernels[:25]],
         "top_convs": _top_convs(prof),
     }), flush=True)
-    print(json.dumps({"phase": "sr_head_forms",
-                      "tile_dual_forward_ms": _head_forms(seg)}), flush=True)
+    if args.pallas_conv == "cat":
+        print(json.dumps({"phase": "sr_head_forms",
+                          "tile_dual_forward_ms": _head_forms(seg)}),
+              flush=True)
     return 0
 
 

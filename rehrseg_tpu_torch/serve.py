@@ -3,7 +3,8 @@
 
 Load SegModel weights once, then segment volumes: z-score, pad to at least
 the patch, gaussian-weighted sliding window with mirror TTA through the
-packed SegModel forward (K1 at the decoder concat), fp32 accumulation
+packed SegModel forward (K1 at the decoder concat; with
+``pallas_conv=True`` also K3/K4/K5 at the stride-1 packed convs), fp32 accumulation
 (K2 on the aligned grid), argmax, crop. ``segment(hr=True)`` also returns
 the z-upscaled HR mask from the same pass.
 
@@ -39,7 +40,9 @@ class Segmenter:
     tile_grid: "parity" (the reference tile grid) or "aligned" (starts
     snapped to H % 8, W % 128 and K2 accumulation; needs packed_eval and
     mirror). A volume the aligned grid cannot cover is served on the
-    parity grid, as in the JAX package."""
+    parity grid, as in the JAX package. pallas_conv: the packed forward's
+    kernel routing, "cat" (served: K1 at the decoder concat) or True (every
+    covered stride-1 packed conv through K1/K3/K4/K5)."""
 
     model: SegModel
     patch_size: tuple
@@ -53,6 +56,7 @@ class Segmenter:
     num_classes: int = 2
     compute_dtype: torch.dtype = torch.bfloat16
     device: object = None
+    pallas_conv: str | bool = "cat"
 
     def __post_init__(self):
         if self.mesh is not None or self.streaming:
@@ -96,7 +100,7 @@ class Segmenter:
             return unpacked
         arch = dict(self.model.arch)
         kw = dict(num_classes=self.num_classes, pack_max_channels=64,
-                  plane_out=plane_out, pallas_conv="cat")
+                  plane_out=plane_out, pallas_conv=self.pallas_conv)
         if dual:
             kw.update(dual=True, upscale=self.model.upscale)
 

@@ -2,7 +2,8 @@
 same numpy-made weights and volumes, on the CPU: the parity engine
 (fp32 logits, labels), and the aligned engine (its grid, and its LR and
 dual labels against the JAX aligned engine, whose Pallas accumulate runs
-in interpret mode)."""
+in interpret mode; once more with the pallas_conv=True forward on both
+sides)."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from rehrseg_tpu.models.segnet_packed import (
 from rehrseg_tpu_torch.infer import sliding_window as tsw
 from rehrseg_tpu_torch.models import convert
 from rehrseg_tpu_torch.models.segnet_packed import segmodel_apply_packed
+from rehrseg_tpu_torch.ops import pconv
 from tests.test_aligned_engine import _blob_volume
 from tests.test_models import SMALL_ARCH
 
@@ -30,17 +32,17 @@ def params():
     return convert.random_flax_params(SMALL_ARCH, 1)
 
 
-def _fns(params, **kw):
+def _fns(params, arch=SMALL_ARCH, **kw):
     """The same packed forward as a JAX model_fn(p, batch) and a port
     model_fn(batch)."""
     kw = dict(pack_max_channels=64, **kw)
     tparams = convert.tree_to_torch(params)
 
     def jfn(p, b):
-        return jax_packed(SMALL_ARCH, p, b, **kw)
+        return jax_packed(arch, p, b, **kw)
 
     def tfn(b):
-        return segmodel_apply_packed(SMALL_ARCH, tparams, b, **kw)
+        return segmodel_apply_packed(arch, tparams, b, **kw)
 
     return jfn, tfn
 
@@ -152,6 +154,42 @@ def test_aligned_dual_labels_match_jax(params):
     _labels_agree(got_hr, want_hr,
                   np.moveaxis(lhr.numpy(), 0, -1)[:24, :27, :190])
     assert got_hr.shape == (24, 27, 190)
+
+
+def test_aligned_dual_pallas_all_matches_jax(monkeypatch):
+    """The aligned dual engine with pallas_conv=True on both sides (the
+    JAX A/B harness's forward): at features (32, 64, ...) the port's
+    forward runs K1 once, K3 twice and K5 twice on every tile."""
+    arch = dict(SMALL_ARCH, features_per_stage=(32, 64, 64, 64))
+    params = convert.random_flax_params(arch, 1)
+    engaged = []
+    for name in ("pconv_pad11_cat", "pconv_valid", "pconv3_valid"):
+        orig = getattr(pconv, name)
+
+        def spy(*a, _orig=orig, _name=name, **k):
+            y = _orig(*a, **k)
+            engaged.append(_name if y is not None else None)
+            return y
+
+        monkeypatch.setattr(pconv, name, spy)
+    jfn, tfn = _fns(params, arch, plane_out=True, dual=True, upscale=4,
+                    pallas_conv=True)
+    vol = _blob_volume((6, 24, 128), np.random.default_rng(4))[..., None]
+    patch = (4, 16, 128)
+    want_lr, want_hr = jsw.predict_sliding_window_dual_labels_aligned(
+        jfn, params, vol, patch, slice_separation=4)
+    got_lr, got_hr = tsw.predict_sliding_window_dual_labels_aligned(
+        tfn, vol, patch, slice_separation=4, **CPU)
+    tiles = engaged.count("pconv_pad11_cat")
+    assert tiles > 0 and None not in engaged
+    assert engaged.count("pconv_valid") == 2 * tiles
+    assert engaged.count("pconv3_valid") == 2 * tiles
+    llr, lhr = tsw._aligned_logits(tfn, vol, patch, slice_separation=4,
+                                   device="cpu")
+    _labels_agree(got_lr, want_lr,
+                  np.moveaxis(llr.numpy(), 0, -1)[:6, :24, :128])
+    _labels_agree(got_hr, want_hr,
+                  np.moveaxis(lhr.numpy(), 0, -1)[:24, :24, :128])
 
 
 def test_engines_refuse_a_missing_card(monkeypatch):

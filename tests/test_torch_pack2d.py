@@ -101,6 +101,35 @@ def test_conv_packing(kd, offset_out):
                            offset_out=offset_out))
 
 
+@pytest.mark.parametrize("kd", [1, 3])
+def test_conv_packing_out_w(kd):
+    """The widened offset emission: extra columns of zero input, which
+    hold the bias (pallas_conv=True's unpacked -> offset convs)."""
+    x = _x((1, 4, 8, 10, 3))
+    w4 = _x((kd, 4, 4, 3, 8), 1) * 0.3
+    b = _x((8,), 2)
+    got = tp.conv_packing(torch.from_numpy(x), torch.from_numpy(w4),
+                          torch.from_numpy(b), offset_out=True, out_w=8)
+    assert got.shape == (1, 4, 5, 8, 8)
+    _close(got, jp.conv_packing(jnp.asarray(x), jnp.asarray(w4),
+                                jnp.asarray(b), offset_out=True, out_w=8))
+    _close(got[:, :, :, 6:], np.broadcast_to(b, (1, 4, 5, 2, 8)))
+
+
+@pytest.mark.parametrize("kd", [1, 3])
+def test_conv_packed_pad11_out_w(kd):
+    """The widened pad11 emission (an aligned -> offset conv K4 does not
+    cover), against JAX's one-sided pad."""
+    x = _x((2, 4, 6, 5, 12))
+    w = _x((kd, 2, 2, 12, 8), 1) * 0.3
+    b = _x((8,), 2)
+    got = tp.conv_packed(torch.from_numpy(x), torch.from_numpy(w),
+                         torch.from_numpy(b), hw_pad="pad11", out_w=8)
+    assert got.shape == (2, 4, 7, 8, 8)
+    _close(got, jp.conv_packed(jnp.asarray(x), jnp.asarray(w),
+                               jnp.asarray(b), hw_pad="pad11", out_w=8))
+
+
 @pytest.mark.parametrize("kd", [1, 2])
 def test_pointwise_packed_transpconv(kd):
     x = _x((1, 3, 4, 5, 6))

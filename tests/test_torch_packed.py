@@ -2,7 +2,11 @@
 forward and unpacked SegModel, on the same numpy-made params and input,
 fp32, on the CPU. K1 engages at the decoder concat where the packed lanes
 are 128-multiples (features (32, 32, 32, 32)); a spy on the port's K1
-wrapper proves it (a silent fallback to the concat cannot pass)."""
+wrapper proves it (a silent fallback to the concat cannot pass). Under
+pallas_conv=True spies on both packages' K1/K3/K4/K5 entry points show
+that the port engages the same kernels at the same sites as JAX."""
+
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -24,12 +28,34 @@ torch.set_num_threads(2)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 ARCH_CAT = dict(ARCH_SMALL, features_per_stage=(32, 32, 32, 32))
+# pallas_conv=True: 128/256 packed lanes at the packed stages
+ARCH_ALL = dict(ARCH_SMALL, features_per_stage=(32, 64, 64, 64))
+# a 3-conv stage 0 ends offset: K4 engages there and at the last decoder
+# stage, whose offset skip sends it down the unpacked concat
+ARCH_ALL3 = dict(ARCH_ALL, n_conv_per_stage=(3, 2, 2, 2))
+KERNELS = ("pconv_pad11_cat", "pconv_valid", "pconv_pad11", "pconv3_valid")
 
 
 def _setup(arch, shape=(2, 8, 32, 48, 1), num_classes=2, seed=0):
     x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
     params = convert.random_flax_params(arch, seed, num_classes=num_classes)
     return params, x
+
+
+def _spy_kernels(monkeypatch, module):
+    """Records (entry point, covered) for every call of the K1/K3/K4/K5
+    entry points of ``module``."""
+    calls = []
+    for name in KERNELS:
+        orig = getattr(module, name)
+
+        def spy(*a, _orig=orig, _name=name, **k):
+            y = _orig(*a, **k)
+            calls.append((_name, y is not None))
+            return y
+
+        monkeypatch.setattr(module, name, spy)
+    return calls
 
 
 @pytest.fixture
@@ -88,6 +114,48 @@ def test_packed_plane_out_matches_jax(k1_spy):
     lr, hr = _port(ARCH_CAT, params, x, **kw)
     assert k1_spy == [True]
     assert lr.shape == (2, 2, 8, 32, 48) and hr.shape == (2, 2, 32, 32, 48)
+    np.testing.assert_allclose(lr.numpy(), np.asarray(j_lr), **TOL)
+    np.testing.assert_allclose(hr.numpy(), np.asarray(j_hr), **TOL)
+
+
+@pytest.mark.parametrize("arch,counts", [
+    (ARCH_ALL, dict(pconv_pad11_cat=1, pconv_valid=2, pconv3_valid=2)),
+    (ARCH_ALL3, dict(pconv_pad11=2, pconv_valid=1, pconv3_valid=2)),
+], ids=["two_convs", "three_convs_stage0"])
+def test_pallas_all_matches_jax(monkeypatch, arch, counts):
+    """pallas_conv=True (every covered stride-1 packed conv through a
+    kernel, offset tensors 8-aligned wide) against JAX pallas_conv=True
+    (Pallas in interpret mode) and SegModel.apply; both engage the same
+    kernels in the same order."""
+    from rehrseg_tpu.ops import pallas_pconv
+    j_calls = _spy_kernels(monkeypatch, pallas_pconv)
+    t_calls = _spy_kernels(monkeypatch, pconv)
+    params, x = _setup(arch, shape=(2, 8, 32, 64, 1))
+    kw = dict(pack_max_channels=64, dual=True, upscale=4, pallas_conv=True)
+    j_lr, j_hr = jax.jit(lambda p, v: jax_packed(arch, p, v, **kw))(
+        params, jnp.asarray(x))
+    jm = JaxSegModel(num_classes=2, upscale=4, arch=dict(arch))
+    r_lr, r_hr = jax.jit(jm.apply)(params, jnp.asarray(x))
+
+    lr, hr = _port(arch, params, x, **kw)
+    assert t_calls == j_calls
+    assert all(covered for _, covered in t_calls)
+    assert Counter(name for name, _ in t_calls) == counts
+    for got, want in ((lr, j_lr), (hr, j_hr), (lr, r_lr), (hr, r_hr)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_pallas_all_plane_out_matches_jax(monkeypatch):
+    """pallas_conv=True with plane_out, the aligned engine's emission."""
+    t_calls = _spy_kernels(monkeypatch, pconv)
+    params, x = _setup(ARCH_ALL, shape=(1, 8, 32, 64, 1))
+    kw = dict(pack_max_channels=64, dual=True, upscale=4, plane_out=True,
+              pallas_conv=True)
+    j_lr, j_hr = jax.jit(lambda p, v: jax_packed(ARCH_ALL, p, v, **kw))(
+        params, jnp.asarray(x))
+    lr, hr = _port(ARCH_ALL, params, x, **kw)
+    assert len(t_calls) == 5 and all(c for _, c in t_calls)
+    assert lr.shape == (1, 2, 8, 32, 64) and hr.shape == (1, 2, 32, 32, 64)
     np.testing.assert_allclose(lr.numpy(), np.asarray(j_lr), **TOL)
     np.testing.assert_allclose(hr.numpy(), np.asarray(j_hr), **TOL)
 
@@ -158,10 +226,9 @@ def test_mixed_dtypes_promote():
     assert out.dtype == torch.float32
 
 
-@pytest.mark.parametrize("kw", [dict(pallas_conv=True),
-                                dict(pallas_conv="fused"),
+@pytest.mark.parametrize("kw", [dict(pallas_conv="fused"),
                                 dict(remat=True), dict(return_skips=True)],
-                         ids=["pallas_all", "fused", "remat", "skips"])
+                         ids=["fused", "remat", "skips"])
 def test_unported_options_raise(kw):
     params, x = _setup(ARCH_SMALL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

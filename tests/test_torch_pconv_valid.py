@@ -1,0 +1,201 @@
+"""K3 (pconv_valid), K4 (pconv_pad11) and K5 (pconv3_valid): the port's
+plain PyTorch versions against the JAX Pallas kernels in interpret mode, on
+the same numpy inputs; and, on a machine with a card, each CUDA kernel
+against its plain version.
+
+JAX is imported inside the tests that compare with it: the card's machine
+has no JAX, and runs the ``cuda``-marked tests of this file with
+``pytest --noconftest -m cuda``."""
+
+import numpy as np
+import pytest
+import torch
+
+from rehrseg_tpu_torch.ops import pconv
+
+torch.set_num_threads(2)
+
+C = 128     # the smallest covered packed channel count
+
+
+def _jax():
+    import jax.numpy as jnp
+    from rehrseg_tpu.ops import pallas_pconv
+    return jnp, pallas_pconv
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _offset(lead, hp, wp8, w_out, seed=0):
+    """An offset tensor stored wp8 wide whose pad columns (> w_out) hold
+    garbage: the kernels must read only the true columns 0..w_out."""
+    x = _rng(seed).normal(size=(*lead, hp, wp8, C)).astype(np.float32)
+    x[..., w_out + 1:, :] = 1e3 * _rng(seed + 1).normal(
+        size=x[..., w_out + 1:, :].shape)
+    return x
+
+
+def _weights(kd, seed=1, c_out=C):
+    shape = (2, 2, C, c_out) if kd == 1 else (3, 2, 2, C, c_out)
+    w = _rng(seed).normal(size=shape) / np.sqrt(4 * kd * C)
+    b = 0.1 * _rng(seed + 1).normal(size=(c_out,))
+    return w.astype(np.float32), b.astype(np.float32)
+
+
+def _t(a, dtype=torch.float32):
+    return torch.tensor(np.asarray(a, np.float32)).to(dtype)
+
+
+DTYPES = {"fp32": (torch.float32, "float32", 2e-5),
+          "bf16": (torch.bfloat16, "bfloat16", 0.04)}
+
+
+def _run_both(name, dt, x, w, b, **kw):
+    jnp, pp = _jax()
+    tdt, jdt, tol = DTYPES[dt]
+    want = getattr(pp, name)(jnp.asarray(x, jdt), jnp.asarray(w, jdt),
+                             jnp.asarray(b, jdt), interpret=True, **kw)
+    got = getattr(pconv, name)(_t(x, tdt), _t(w, tdt), _t(b, tdt), **kw)
+    assert got.dtype == tdt
+    want = np.asarray(want, np.float32)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("wp8,w_out", [(32, None), (32, 16), (24, 16)],
+                         ids=["default_w_out", "w_out_below", "odd8_wide"])
+def test_k3_plain_matches_pallas(dt, wp8, w_out):
+    x = _offset((2,), 9, wp8, 24 if w_out is None else w_out)
+    w, b = _weights(1)
+    got = _run_both("pconv_valid", dt, x, w, b, w_out=w_out)
+    assert got.shape == (2, 8, 24 if w_out is None else w_out, C)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_k4_plain_matches_pallas(dt):
+    x = _rng(0).normal(size=(2, 8, 16, C)).astype(np.float32)
+    w, b = _weights(1)
+    got = _run_both("pconv_pad11", dt, x, w, b)
+    assert got.shape == (2, 9, 24, C)
+    assert torch.all(got[:, :, 17:] == 0)       # columns > w: exact zeros
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("d,w_out", [(3, None), (3, 8), (1, None)],
+                         ids=["default_w_out", "w_out_below", "single_z"])
+def test_k5_plain_matches_pallas(dt, d, w_out):
+    x = _offset((1, d), 9, 32, 24 if w_out is None else w_out)
+    w, b = _weights(3)
+    got = _run_both("pconv3_valid", dt, x, w, b, w_out=w_out)
+    assert got.shape == (1, d, 8, 24 if w_out is None else w_out, C)
+
+
+def _uncovered(case):
+    """(wrapper name, x, w, kw) for shapes the kernels do not cover."""
+    rng = _rng(0)
+    w1, _ = _weights(1)
+    w3, _ = _weights(3)
+
+    def x(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    return {
+        "k3_wp8_not_8": ("pconv_valid", x(1, 5, 20, C), w1, dict(w_out=8)),
+        "k3_w_out_not_8": ("pconv_valid", x(1, 5, 24, C), w1,
+                           dict(w_out=12)),
+        "k3_w_out_too_wide": ("pconv_valid", x(1, 5, 24, C), w1,
+                              dict(w_out=24)),
+        "k3_default_w_out_odd": ("pconv_valid", x(1, 5, 24, C), w1, {}),
+        "k3_ci_not_128": ("pconv_valid", x(1, 5, 24, 64), w1[:, :, :64],
+                          dict(w_out=16)),
+        "k3_co_not_128": ("pconv_valid", x(1, 5, 24, C), w1[..., :64],
+                          dict(w_out=16)),
+        "k4_w_not_8": ("pconv_pad11", x(1, 4, 12, C), w1, {}),
+        "k4_ci_not_128": ("pconv_pad11", x(1, 4, 16, 64), w1[:, :, :64], {}),
+        "k4_co_not_128": ("pconv_pad11", x(1, 4, 16, C), w1[..., :64], {}),
+        "k5_w_out_not_8": ("pconv3_valid", x(1, 2, 5, 24, C), w3,
+                           dict(w_out=12)),
+        "k5_co_not_128": ("pconv3_valid", x(1, 2, 5, 24, C), w3[..., :64],
+                          dict(w_out=16)),
+        "k5_kd_not_3": ("pconv3_valid", x(1, 2, 5, 24, C),
+                        np.stack([w1] * 5), dict(w_out=16)),
+    }[case]
+
+
+@pytest.mark.parametrize("case", [
+    "k3_wp8_not_8", "k3_w_out_not_8", "k3_w_out_too_wide",
+    "k3_default_w_out_odd", "k3_ci_not_128", "k3_co_not_128",
+    "k4_w_not_8", "k4_ci_not_128", "k4_co_not_128",
+    "k5_w_out_not_8", "k5_co_not_128", "k5_kd_not_3"])
+def test_none_where_jax_returns_none(case):
+    """The shape predicates are JAX's: both return None on the same
+    shapes, so the packed forward runs the cuDNN conv at the same sites."""
+    jnp, pp = _jax()
+    name, x, w, kw = _uncovered(case)
+    assert getattr(pp, name)(jnp.asarray(x), jnp.asarray(w), None,
+                             interpret=True, **kw) is None
+    assert getattr(pconv, name)(_t(x), _t(w), None, **kw) is None
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("pconv_valid", dict(pre=(0.0, 0.0, 0.01))),
+    ("pconv_valid", dict(want_stats=True)),
+    ("pconv3_valid", dict(pre=(0.0, 0.0, 0.01))),
+    ("pconv3_valid", dict(want_stats=True)),
+], ids=["k3_pre", "k3_stats", "k5_pre", "k5_stats"])
+def test_deferred_norm_options_are_not_ported(name, kw):
+    kd = 1 if name == "pconv_valid" else 3
+    x = _offset((1,) if kd == 1 else (1, 1), 5, 24, 16)
+    w, _ = _weights(kd)
+    with pytest.raises(NotImplementedError, match="K6"):
+        getattr(pconv, name)(_t(x), _t(w), None, w_out=16, **kw)
+
+
+# ------------------------------------------------------------ on the card
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    return torch.device("cuda")
+
+
+def _on(dev, dtype, *arrays):
+    return [_t(a, dtype).to(dev) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 0.04)])
+@pytest.mark.parametrize("name", ["pconv_valid", "pconv_pad11",
+                                  "pconv3_valid"])
+def test_kernel_matches_plain(cuda_device, name, dtype, tol, monkeypatch):
+    """Each kernel against its plain version in fp32 (TF32 off), with
+    garbage in the pad columns of the VALID kernels' inputs."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    if name == "pconv_pad11":
+        x = _rng(0).normal(size=(4, 16, 32, C))
+        w, b = _weights(1)
+        kw, plain = {}, pconv.pconv_pad11_plain
+    elif name == "pconv_valid":
+        x = _offset((4,), 17, 40, 32)
+        w, b = _weights(1)
+        kw, plain = dict(w_out=32), pconv.pconv_valid_plain
+    else:
+        x = _offset((2, 3), 17, 40, 32)
+        w, b = _weights(3, c_out=2 * C)
+        kw, plain = dict(w_out=32), pconv.pconv3_valid_plain
+    x, w, b = _on(cuda_device, dtype, x, w, b)
+    fn = getattr(pconv, name)
+    before = fn.launches
+    got = fn(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(x.float(), w.float(), b.float(), *kw.values())
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    if name == "pconv_pad11":
+        assert torch.all(got[:, :, 33:] == 0)
