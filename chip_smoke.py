@@ -29,6 +29,22 @@ and nothing of the JAX package. Phases, each printing one JSON line:
            (asserted against the tile count), seconds, voxels/s, one 8-way
            dual tile forward under True and under "cat", and label
            agreement with the "cat" Segmenter (printed, not gated);
+  k6       the deferred-norm kernels of pallas_conv="fused" (K6a
+           pconv_pad11_cat(want_stats=True), K6b pconv_valid(pre=,
+           want_stats=), K6c pconv3_valid(pre=, want_stats=)) against their
+           plain versions at that forward's shapes, bf16, and at a small
+           fp32 shape: the output's max error and the moment half-sums'
+           max relative error, kernel / plain / unfused times and the bound;
+  k7       conv2x2_valid_bias on an exact odd width, the same way, with
+           cuDNN's time (no path of the port calls it);
+  tile_fused  one full-width 8-way dual tile through pallas_conv="fused"
+           against the unpacked SegModel, fp32 (TF32 off), K6 launch counts
+           asserted; then the bf16 tile forward's time under "fused",
+           "cat" and True;
+  main_fused  one dual aligned volume through
+           Segmenter(pallas_conv="fused"): launch counts of K1-K7 and the
+           K6 forms (asserted against the tile count), seconds, voxels/s,
+           and label agreement with the "cat" Segmenter (LR gated at 98 %);
   kernels  every ported kernel with launches, error, times and bound.
 
 Then the card's name and power limit, and last the result line
@@ -304,6 +320,294 @@ def phase_pconv(kernel, gen, dev):
     return out["bf16_main"]
 
 
+# the "fused" forward's shapes for an 8-way TTA batch of (16, 320, 384)
+# tiles at DEFAULT_ARCH (K6a: the last decoder stage's conv_0 at the skip
+# concat; K6b: encoder stage 0 and the last decoder stage's conv_1; K6c: the
+# 64-feature decoder stage's conv_1), then a small fp32 shape; K6a (n, h, w,
+# Ca, Cb, Co), K6b/K6c (lead..., hp, wp8, Ci, Co) with w_out = wp8 - 8
+K6_SHAPES = {
+    "k6a": ((128, 160, 192, 128, 128, 128), (4, 16, 32, 128, 128, 128)),
+    "k6b": ((128, 161, 200, 128, 128), (4, 17, 40, 128, 128)),
+    "k6c": ((8, 16, 81, 104, 256, 256), (2, 3, 17, 40, 128, 256)),
+}
+# the moment half-sums' relative tolerance: the order of the atomic
+# accumulation varies, and in bf16 the kernel sums the rounded output the
+# plain version holds in fp32
+STATS_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+SLOPE = 0.01
+
+
+def check_stats(name, got, want, npix, rtol, atol):
+    """(N, 16, C) moment partials: their two half-sums (the contract), the
+    sums of squares within rtol / atol, the sums within rtol / atol *
+    sqrt(npix) (a signed sum may cancel to near zero, so its relative
+    error says little). Returns the sums' max abs error and the sums of
+    squares' max relative error."""
+    out = {}
+    for part, rows, a in (("sum", slice(0, 8), atol * npix ** 0.5),
+                          ("square", slice(8, 16), atol)):
+        g, w = got[:, rows].sum(1), want[:, rows].sum(1)
+        err = (g - w).abs()
+        if not bool((err <= a + rtol * w.abs()).all()):
+            raise AssertionError(f"{name}: stats {part} max |err| "
+                                 f"{float(err.max())} over tolerance")
+        if part == "sum":
+            out["stats_sum_max_abs_err"] = float(err.max())
+            out["stats_sum_atol"] = a
+        else:
+            out["stats_square_max_rel_err"] = float(
+                (err / w.abs().clamp_min(a)).max())
+    return out
+
+
+def _k6_case(kernel, shape, dtype, gen, dev):
+    """Operands of one K6 check: (kernel call, plain call, fp32 reference,
+    unfused call, FLOP, bytes the function must move, output pixels per
+    image). The VALID forms read a raw offset input (nonzero rim, 1e3 in the
+    pad columns) through a nonzero pre; their reference applies pre in the
+    working dtype, as the kernel does, then the plain conv in fp32."""
+    from rehrseg_tpu_torch.ops import pack2d, pconv
+
+    def randn(*s):
+        return torch.randn(*s, generator=gen, device=dev)
+
+    if kernel == "k6a":
+        n, h, w, ca, cb, co = shape
+        xa, xb = randn(n, h, w, ca).to(dtype), randn(n, h, w, cb).to(dtype)
+        wt = (randn(2, 2, ca + cb, co) / (4 * (ca + cb)) ** 0.5).to(dtype)
+        b = (0.1 * randn(co)).to(dtype)
+        mask = pack2d.offset_rim_mask(h + 1, pconv._round8(w + 1), co // 4,
+                                      dtype, dev, true_w=w + 1)
+
+        def unfused():
+            # the "cat" path: K1, the rim mask, fp32 moment sums
+            y = pconv.pconv_pad11_cat(xa, xb, wt, b) * mask
+            return pack2d.aligned_stats_xla(y[None])
+        y_bytes = n * (h + 1) * pconv._round8(w + 1) * co * xa.element_size()
+        return (lambda: pconv.pconv_pad11_cat(xa, xb, wt, b, want_stats=True),
+                lambda: pconv.pconv_pad11_cat_plain(xa, xb, wt, b, True),
+                lambda: pconv.pconv_pad11_cat_plain(
+                    xa.float(), xb.float(), wt.float(), b.float(), True),
+                unfused, 2 * n * h * w * 4 * (ca + cb) * co,
+                nbytes(xa, xb, wt, b) + y_bytes + n * 16 * co * 4,
+                (h + 1) * pconv._round8(w + 1))
+    kd = 3 if kernel == "k6c" else 1
+    *lead, hp, wd, ci, co = shape
+    w_out = wd - 8
+    x = randn(*lead, hp, wd, ci).to(dtype)
+    x[..., w_out + 1:, :] = 1e3
+    wt = (randn(*((3,) if kd == 3 else ()), 2, 2, ci, co)
+          / (4 * kd * ci) ** 0.5).to(dtype)
+    b = (0.1 * randn(co)).to(dtype)
+    sa = (randn(lead[0], 1, ci).abs() + 0.5).expand(-1, 8, -1).to(dtype)
+    ta = (0.5 * randn(lead[0], 1, ci)).expand(-1, 8, -1).to(dtype)
+    pre = (sa, ta, SLOPE)
+    fn = pconv.pconv_valid if kd == 1 else pconv.pconv3_valid
+    plain = pconv.pconv_valid_plain if kd == 1 else pconv.pconv3_valid_plain
+    x5 = x[:, None] if kd == 1 else x
+    wp = wt[None] if kd == 1 else wt
+    bsz, d = x5.shape[:2]
+    sa5 = sa[:, 0][:, None].expand(-1, d, -1).reshape(bsz * d, 1, ci)
+    ta5 = ta[:, 0][:, None].expand(-1, d, -1).reshape(bsz * d, 1, ci)
+
+    def unfused():
+        # the "cat" path's passes for the same work: the norm apply with
+        # the rim mask, the cuDNN conv on the true columns, fp32 moment sums
+        xn = pack2d.apply_norm_act_packed(x5, sa5, ta5, SLOPE,
+                                          offset_parity=True,
+                                          true_w=w_out + 1)
+        return pack2d.aligned_stats_xla(
+            pack2d.conv_packed(xn, wp, b, in_w=w_out + 1))
+
+    def ref():
+        xt = pconv.pre_plain(x[..., :w_out + 1, :], *pre).float()
+        return plain(xt, wt.float(), b.float(), w_out, want_stats=True)
+    # kd = 3: of each batch element's 3D (output z, z tap) pairs, 3D - 2
+    # do work (the taps outside [0, D) read zeros)
+    planes = lead[0] * (3 * lead[1] - 2) if kd == 3 else lead[0]
+    n_img = int(np.prod(lead))
+    y_bytes = n_img * (hp - 1) * w_out * co * x.element_size()
+    return (lambda: fn(x, wt, b, w_out=w_out, pre=pre, want_stats=True),
+            lambda: plain(x, wt, b, w_out, pre=pre, want_stats=True),
+            ref, unfused, 2 * planes * (hp - 1) * w_out * 4 * ci * co,
+            nbytes(x[..., :w_out + 1, :], wt, b, sa[:, 0], ta[:, 0])
+            + y_bytes + n_img * 16 * co * 4,
+            (hp - 1) * w_out)
+
+
+K6_FNS = {"k6a": "pconv_pad11_cat", "k6b": "pconv_valid",
+          "k6c": "pconv3_valid"}
+
+
+def phase_k6(gen, dev):
+    """K6a/K6b/K6c against their plain versions, bf16 at the "fused"
+    forward's shapes and fp32 at a small one; at the path's shape also the
+    kernel, plain and unfused times and the bound. Returns the bf16
+    records."""
+    from rehrseg_tpu_torch.ops import pconv
+
+    out = {}
+    for kernel in ("k6a", "k6b", "k6c"):
+        counter = getattr(pconv, K6_FNS[kernel])
+        rec = {}
+        for label, shape, dtype, tol in (
+                ("bf16_main", K6_SHAPES[kernel][0], torch.bfloat16, 0.04),
+                ("fp32_small", K6_SHAPES[kernel][1], torch.float32, 2e-5)):
+            call, plain, ref, unfused, flops, n_bytes, npix = _k6_case(
+                kernel, shape, dtype, gen, dev)
+            before = counter.fused_launches
+            y, stats = call()
+            torch.cuda.synchronize()
+            if counter.fused_launches != before + 1:
+                raise AssertionError(f"{kernel}: the wrapper did not count "
+                                     f"its launch")
+            ry, rstats = ref()
+            max_err = check_close(f"{kernel} {label}", y, ry, tol, tol)
+            stats_err = check_stats(f"{kernel} {label}", stats, rstats,
+                                    npix, STATS_RTOL[dtype], tol)
+            del ry, rstats
+            r = dict(shape=list(shape), dtype=str(dtype), max_abs_err=max_err,
+                     tolerance=tol, **stats_err, stats_rtol=STATS_RTOL[dtype])
+            if label == "bf16_main":
+                r["ms"] = cuda_ms(call)
+                r["plain_ms"] = cuda_ms(plain)
+                r["unfused_ms"] = cuda_ms(unfused)
+                r["library_ms"] = None
+                r["bound_ms"], r["bound_by"] = bound(n_bytes, flops,
+                                                     BF16_FLOPS)
+                r["tflops"] = flops / 1e12
+                r["gbytes"] = n_bytes / 1e9
+            rec[label] = r
+            del y, stats, call, plain, ref, unfused
+            torch.cuda.empty_cache()
+        out[kernel] = rec
+    emit({"phase": "k6", **out})
+    return {k: v["bf16_main"] for k, v in out.items()}
+
+
+def phase_k7(gen, dev):
+    """K7 on an exact odd width against its plain version, bf16 at the
+    shape of K3's site and fp32 at a small one, with cuDNN's time."""
+    import torch.nn.functional as F
+    from rehrseg_tpu_torch.ops.conv2x2 import (conv2x2_valid_bias,
+                                               conv2x2_valid_bias_plain)
+
+    out = {}
+    for label, (n, hp, wp, ci, co), dtype, tol in (
+            ("bf16_main", (128, 161, 193, 128, 128), torch.bfloat16, 0.04),
+            ("fp32_small", (4, 17, 33, 128, 128), torch.float32, 2e-5)):
+        x = torch.randn(n, hp, wp, ci, generator=gen, device=dev).to(dtype)
+        wt = (torch.randn(2, 2, ci, co, generator=gen, device=dev)
+              / (4 * ci) ** 0.5).to(dtype)
+        b = (0.1 * torch.randn(co, generator=gen, device=dev)).to(dtype)
+        before = conv2x2_valid_bias.launches
+        y = conv2x2_valid_bias(x, wt, b)
+        torch.cuda.synchronize()
+        if conv2x2_valid_bias.launches != before + 1:
+            raise AssertionError("k7: the wrapper did not count its launch")
+        ref = conv2x2_valid_bias_plain(x.float(), wt.float(), b.float())
+        rec = dict(shape=[n, hp, wp, ci, co], dtype=str(dtype),
+                   max_abs_err=check_close(f"k7 {label}", y, ref, tol, tol),
+                   tolerance=tol)
+        del ref
+        if label == "bf16_main":
+            xl = x.permute(0, 3, 1, 2)
+            wl = wt.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            rec["ms"] = cuda_ms(lambda: conv2x2_valid_bias(x, wt, b))
+            rec["plain_ms"] = cuda_ms(
+                lambda: conv2x2_valid_bias_plain(x, wt, b))
+            rec["library_ms"] = cuda_ms(lambda: F.conv2d(xl, wl, b))
+            flops = 2 * n * (hp - 1) * (wp - 1) * 4 * ci * co
+            n_bytes = nbytes(x, wt, b, y)
+            rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops,
+                                                     BF16_FLOPS)
+            rec["tflops"] = flops / 1e12
+            rec["gbytes"] = n_bytes / 1e9
+        out[label] = rec
+        del x, y
+        torch.cuda.empty_cache()
+    emit({"phase": "k7", **out})
+    return out["bf16_main"]
+
+
+def _fused_counts():
+    """The K6 forms' launch counts and the plain forms' of K1/K3/K4/K5."""
+    from rehrseg_tpu_torch.ops import pconv
+
+    return {"pconv_pad11_cat_stats": pconv.pconv_pad11_cat.fused_launches,
+            "pconv_valid_fused": pconv.pconv_valid.fused_launches,
+            "pconv3_valid_fused": pconv.pconv3_valid.fused_launches,
+            **{n: getattr(pconv, n).launches
+               for n in ("pconv_pad11_cat", "pconv_valid", "pconv_pad11",
+                         "pconv3_valid")}}
+
+
+def _zero_counts():
+    from rehrseg_tpu_torch.ops import pconv
+    from rehrseg_tpu_torch.ops.conv2x2 import conv2x2_valid_bias
+    from rehrseg_tpu_torch.ops.tail import accumulate_tta_tile
+
+    for c in (pconv.pconv_pad11_cat, pconv.pconv_valid, pconv.pconv3_valid):
+        c.fused_launches = 0
+    for c in (pconv.pconv_pad11_cat, pconv.pconv_valid, pconv.pconv_pad11,
+              pconv.pconv3_valid, conv2x2_valid_bias, accumulate_tta_tile):
+        c.launches = 0
+
+
+def phase_tile_fused(params, dev):
+    """One full-width 8-way dual tile through pallas_conv="fused" against
+    the unpacked SegModel, both fp32 with TF32 off: K6a once, K6b twice,
+    K6c once, no plain K1/K3/K4/K5. Then one bf16 8-way dual tile forward
+    under "fused", "cat" and True (CUDA events)."""
+    from rehrseg_tpu_torch.models import convert
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH, SegModel
+    from rehrseg_tpu_torch.models.segnet_packed import segmodel_apply_packed
+
+    model = SegModel(2, 4, arch=DEFAULT_ARCH)
+    convert.load_flax_params(model, params)
+    model = model.to(dev).eval()
+    x = torch.from_numpy(np.random.default_rng(SEED + 2).normal(
+        size=(8, *PATCH, 1)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        ref_lr, ref_hr = model(x)
+        del model
+        _zero_counts()
+        lr, hr = segmodel_apply_packed(
+            DEFAULT_ARCH, convert.tree_to_torch(params, dev), x,
+            pack_max_channels=64, dual=True, upscale=4, pallas_conv="fused")
+        torch.cuda.synchronize()
+    got = _fused_counts()
+    want = dict(pconv_pad11_cat_stats=1, pconv_valid_fused=2,
+                pconv3_valid_fused=1, pconv_pad11_cat=0, pconv_valid=0,
+                pconv_pad11=0, pconv3_valid=0)
+    if got != want:
+        raise AssertionError(f"tile_fused: launches {got}, the dispatch "
+                             f"gives {want}")
+    tol = 2e-3
+    rec = dict(
+        batch=8, lr_max_abs_err=check_close("tile_fused lr", lr, ref_lr, tol,
+                                            tol),
+        hr_max_abs_err=check_close("tile_fused hr", hr, ref_hr, tol, tol),
+        tolerance=tol, launches=got,
+        finite=bool(torch.isfinite(lr).all() and torch.isfinite(hr).all()))
+    if not rec["finite"]:
+        raise AssertionError("tile_fused: logits not finite")
+    del x, ref_lr, ref_hr, lr, hr
+    torch.cuda.empty_cache()
+    pb = convert.tree_to_torch(params, dev, torch.bfloat16)
+    tile = torch.randn(8, *PATCH, 1, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for key, pc in (("fused", "fused"), ("cat", "cat"), ("true", True)):
+            rec[f"tile_dual_forward_ms_{key}"] = cuda_ms(
+                lambda: segmodel_apply_packed(
+                    DEFAULT_ARCH, pb, tile, pack_max_channels=64, dual=True,
+                    upscale=4, plane_out=True, pallas_conv=pc),
+                iters=3, warmup=1)
+    emit({"phase": "tile_fused", **rec})
+    return rec
+
+
 def phase_tile(params, dev):
     """One full-width tile: packed forward with K1 against the unpacked
     SegModel, both fp32 with TF32 off."""
@@ -526,6 +830,60 @@ def phase_main_pallas(params, dev, gpu):
     return launches
 
 
+def phase_main_fused(params, dev, gpu):
+    """One dual aligned volume through Segmenter(pallas_conv="fused") at
+    the bench geometry, bf16: every K6 form launches on every tile, K2
+    twice, nothing else of K1-K7; LR labels agree with the "cat"
+    Segmenter's on at least 98 % of voxels."""
+    from rehrseg_tpu_torch.infer import sliding_window as sw
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH
+    from rehrseg_tpu_torch.ops.conv2x2 import conv2x2_valid_bias
+    from rehrseg_tpu_torch.ops.tail import accumulate_tta_tile
+    from rehrseg_tpu_torch.serve import Segmenter
+
+    vol = np.random.default_rng(SEED).normal(size=VOLUME).astype(np.float32)
+    segs = {p: Segmenter.from_flax(params, DEFAULT_ARCH, patch_size=PATCH,
+                                   compute_dtype=torch.bfloat16, device=dev,
+                                   tile_grid="aligned", pallas_conv=p)
+            for p in ("fused", "cat")}
+    n_tiles = len(sw.aligned_sliding_window_starts(VOLUME, PATCH, 0.5)[0])
+    segs["fused"].segment(vol, hr=True)      # warm-up, not counted
+    torch.cuda.synchronize()
+    _zero_counts()
+    t = time.perf_counter()
+    lr, hr = segs["fused"].segment(vol, hr=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = {**_fused_counts(),
+                "accumulate_tta_tile": accumulate_tta_tile.launches,
+                "conv2x2_valid_bias": conv2x2_valid_bias.launches}
+    want = dict(pconv_pad11_cat_stats=n_tiles, pconv_valid_fused=2 * n_tiles,
+                pconv3_valid_fused=n_tiles, pconv_pad11_cat=0, pconv_valid=0,
+                pconv_pad11=0, pconv3_valid=0,
+                accumulate_tta_tile=2 * n_tiles, conv2x2_valid_bias=0)
+    if launches != want:
+        raise AssertionError(f"main_fused: launches {launches}, the "
+                             f"dispatch gives {want} over {n_tiles} tiles")
+    d, h, w = VOLUME
+    for name, arr, shape in (("lr", lr, VOLUME), ("hr", hr, (4 * d, h, w))):
+        if arr.shape != shape or arr.dtype != np.uint8 or arr.max() > 1:
+            raise AssertionError(f"main_fused {name}: {arr.shape} "
+                                 f"{arr.dtype}")
+    cat_lr, cat_hr = segs["cat"].segment(vol, hr=True)
+    lr_agree = float(np.mean(lr == cat_lr))
+    if lr_agree < 0.98:
+        raise AssertionError(f"main_fused: LR labels agree with the 'cat' "
+                             f"Segmenter's on {lr_agree:.4f} of voxels")
+    lr_vox, hr_vox = d * h * w, 4 * d * h * w
+    emit({"phase": "main_fused", "card": gpu, "volume": list(VOLUME),
+          "patch": list(PATCH), "dtype": "bf16", "tiles": n_tiles,
+          "seconds": secs, "lr_voxps": lr_vox / secs,
+          "lr_hr_voxps": (lr_vox + hr_vox) / secs, "launches": launches,
+          "lr_agree_with_cat": lr_agree,
+          "hr_agree_with_cat": float(np.mean(hr == cat_hr))})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -574,6 +932,12 @@ def main() -> int:
     launches = phase_main(params, dev, gpu)
     torch.cuda.empty_cache()
     launches_pallas = phase_main_pallas(params, dev, gpu)
+    torch.cuda.empty_cache()
+    k6 = phase_k6(gen, dev)
+    k7 = phase_k7(gen, dev)
+    phase_tile_fused(params, dev)
+    torch.cuda.empty_cache()
+    launches_fused = phase_main_fused(params, dev, gpu)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -606,6 +970,33 @@ def main() -> int:
              replaces="rehrseg_tpu/ops/pallas_pconv.py:1117",
              launches=launches_pallas["pconv3_valid"],
              **{k: kp["k5"][k] for k in keys}),
+        # the K6 forms: launches on the "fused" path (main_fused)
+        dict(name="pconv_pad11_cat(want_stats=True)", route="cuda",
+             source="rehrseg_tpu_torch/csrc/pconv_pad11_cat.cu",
+             replaces="rehrseg_tpu/ops/pallas_pconv.py:641",
+             launches=launches_fused["pconv_pad11_cat_stats"],
+             launches_in="main_fused", unfused_ms=k6["k6a"]["unfused_ms"],
+             **{k: k6["k6a"][k] for k in keys}),
+        dict(name="pconv_valid(pre=, want_stats=True)", route="cuda",
+             source="rehrseg_tpu_torch/csrc/pconv_valid.cu",
+             replaces="rehrseg_tpu/ops/pallas_pconv.py:148",
+             launches=launches_fused["pconv_valid_fused"],
+             launches_in="main_fused", unfused_ms=k6["k6b"]["unfused_ms"],
+             **{k: k6["k6b"][k] for k in keys}),
+        dict(name="pconv3_valid(pre=, want_stats=True)", route="cuda",
+             source="rehrseg_tpu_torch/csrc/pconv_valid.cu",
+             replaces="rehrseg_tpu/ops/pallas_pconv.py:930",
+             launches=launches_fused["pconv3_valid_fused"],
+             launches_in="main_fused", unfused_ms=k6["k6c"]["unfused_ms"],
+             **{k: k6["k6c"][k] for k in keys}),
+        # K7: nothing on any path calls it, in the port as in the JAX
+        # package (0 launches in main, main_pallas and main_fused)
+        dict(name="conv2x2_valid_bias", route="cuda",
+             source="rehrseg_tpu_torch/csrc/pconv_valid.cu",
+             replaces="rehrseg_tpu/ops/pallas_conv.py:126",
+             launches=launches_fused["conv2x2_valid_bias"],
+             launches_in="no path: called only by its own checks",
+             **{k: k7[k] for k in keys}),
     ]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -34,6 +34,18 @@
 // these kernels with CAT = false and Cb = 0, so every K step reads xa (the
 // K loop runs over Ca / 32 chunks and never reaches xb). The template
 // argument only gives K4's launches their own kernel name.
+//
+// K6a, pconv_pad11_cat(want_stats=True) (the same TPU kernel's fused form,
+// the producer of pallas_conv="fused"), is K1 with STATS = true: the
+// epilogue zeroes the output by the FULL offset rim mask (row, column and
+// channel group g = co / (Co/4), dy = g/2, dx = g%2, over h+1 rows and the
+// true width w+1: ops/pack2d.py offset_rim_mask), not only the columns > w,
+// and accumulates the sum and the sum of squares of every stored (rounded)
+// value over each image into stats (N, 16, Co) fp32, zeroed by the caller:
+// rows 0:8 sums, rows 8:16 squares, row (block % 8) of each half, so that
+// atomics from neighbouring blocks land on different addresses. Each warp
+// reduces its 16 x 16 fragment column by column in shared memory into a
+// per-block (2 images x Co) sum, flushed with one atomic per value.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -48,6 +60,26 @@ namespace {
 struct Geo {
   int n, h, w, ca, cb, co, wp8;
 };
+
+// ops/pack2d.py offset_rim_mask: is (row, col) of channel group g inside
+// the image, for an offset tensor hp rows high and tw columns true width?
+__device__ __forceinline__ bool rim_ok(int row, int col, int hp, int tw,
+                                       int g) {
+  const int dy = g >> 1, dx = g & 1;
+  return (row > 0 || dy == 1) && (row < hp - 1 || dy == 0) &&
+         (col > 0 || dx == 1) && (col < tw - 1 || dx == 0) && col < tw;
+}
+
+// is output (row, col, channel co) stored nonzero: the full rim mask with
+// STATS (K6a), else only the columns 0..w
+template <bool STATS>
+__device__ __forceinline__ bool live_at(int row, int col, int co,
+                                        const Geo& g) {
+  if constexpr (STATS)
+    return rim_ok(row, col, g.h + 1, g.w + 1, co / (g.co / 4));
+  else
+    return col <= g.w;
+}
 
 // ------------------------------------------------------------ bf16 / WMMA
 
@@ -85,14 +117,20 @@ constexpr int B_STAGE = 2 * BK * B_LD;    // both column taps
 constexpr int SMEM = STAGES * (A_STAGE + B_STAGE) * (int)sizeof(bf16);
 constexpr int MI = BM / 4 / 16;           // warp tile rows / 16
 constexpr int LOADS = ((BM + 1) * 4 + THREADS - 1) / THREADS;
+// epilogue scratch, as floats from the start of shared memory: 8 warps x
+// one 16 x 16 fragment, then the per-block stats (2 image slots x {sum,
+// square} x BN), then each warp's 16 row slots (ints)
+constexpr int ST_OFF = 8 * 256;
+constexpr int RS_OFF = ST_OFF + 2 * 2 * BN;
+static_assert((RS_OFF + 8 * 16) * 4 <= SMEM, "epilogue scratch");
 
-template <bool CAT>
+template <bool CAT, bool STATS>
 __global__ void __launch_bounds__(THREADS, 1)
 pad11_cat_bf16_kernel(const bf16* __restrict__ xa,
                       const bf16* __restrict__ xb,
                       const bf16* __restrict__ W,
                       const bf16* __restrict__ bias, bf16* __restrict__ y,
-                      Geo g) {
+                      float* __restrict__ stats, Geo g) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* As = reinterpret_cast<bf16*>(smem_raw);
   bf16* Bs = As + STAGES * A_STAGE;
@@ -207,7 +245,16 @@ pad11_cat_bf16_kernel(const bf16* __restrict__ xa,
   cp_async_wait<0>();
   __syncthreads();  // the pipeline's smem becomes epilogue scratch
 
-  float* cs = reinterpret_cast<float*>(smem_raw) + warp * 256;
+  float* const smem_f = reinterpret_cast<float*>(smem_raw);
+  float* cs = smem_f + warp * 256;
+  float* st = smem_f + ST_OFF;  // STATS: [slot][sum, square][BN]
+  int* rs = reinterpret_cast<int*>(smem_f + RS_OFF) + warp * 16;
+  const int64_t img_px = (int64_t)(g.h + 1) * g.wp8;
+  const int64_t img_lo = m0 / img_px;
+  if constexpr (STATS) {
+    for (int i = tid; i < 2 * 2 * BN; i += THREADS) st[i] = 0.0f;
+    __syncthreads();
+  }
   const int r = lane / 2, cpart = (lane % 2) * 8;
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi) {
@@ -217,8 +264,10 @@ pad11_cat_bf16_kernel(const bf16* __restrict__ xa,
       __syncwarp();
       const int64_t m = m0 + wm * (BM / 4) + mi * 16 + r;
       const int co = n0 + wn * 64 + ni * 16 + cpart;
+      int slot = -1;  // STATS: the row's image - img_lo, -1 past the end
       if (m < M) {
-        const bool live = (int)(m % g.wp8) <= g.w;
+        const bool live = live_at<STATS>((int)((m / g.wp8) % (g.h + 1)),
+                                         (int)(m % g.wp8), co, g);
         __align__(16) __nv_bfloat162 out[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -229,28 +278,68 @@ pad11_cat_bf16_kernel(const bf16* __restrict__ xa,
                  __bfloat162float(bias[co + 2 * e + 1]);
           }
           out[e] = __floats2bfloat162_rn(v0, v1);
+          if constexpr (STATS) {  // the stored, rounded values
+            cs[r * 16 + cpart + 2 * e] = __low2float(out[e]);
+            cs[r * 16 + cpart + 2 * e + 1] = __high2float(out[e]);
+          }
         }
         *reinterpret_cast<uint4*>(y + m * g.co + co) =
             *reinterpret_cast<const uint4*>(out);
+        slot = (int)(m / img_px - img_lo);
+      }
+      if constexpr (STATS) {
+        if (cpart == 0) rs[r] = slot;
+        __syncwarp();
+        // lanes 0-15 sum column lane, lanes 16-31 sum its squares
+        const int c = lane & 15, kind = lane >> 4;
+        const int col = wn * 64 + ni * 16 + c;
+        float a0 = 0.0f, a1 = 0.0f;
+        for (int rr = 0; rr < 16; ++rr) {
+          const int sl = rs[rr];
+          if (sl < 0) continue;
+          float v = cs[rr * 16 + c];
+          if (kind) v *= v;
+          if (sl == 0) {
+            a0 += v;
+          } else if (sl == 1) {
+            a1 += v;
+          } else {  // a block over more than two images (small shapes)
+            atomicAdd(stats + ((img_lo + sl) * 16 + kind * 8) * g.co + n0 + col,
+                      v);
+          }
+        }
+        atomicAdd(st + kind * BN + col, a0);
+        atomicAdd(st + (2 + kind) * BN + col, a1);
       }
       __syncwarp();
     }
   }
+  if constexpr (STATS) {
+    __syncthreads();
+    for (int i = tid; i < 2 * 2 * BN; i += THREADS) {
+      const int64_t img = img_lo + i / (2 * BN);
+      const int kind = (i / BN) % 2;
+      if (img < g.n && st[i] != 0.0f)
+        atomicAdd(stats + (img * 16 + kind * 8 + blockIdx.x % 8) * g.co + n0 +
+                      i % BN,
+                  st[i]);
+    }
+  }
 }
 
-template <bool CAT>
+template <bool CAT, bool STATS>
 int launch_bf16(const void* xa, const void* xb, const void* w, const void* b,
-                void* y, Geo g, cudaStream_t stream) {
+                void* y, void* stats, Geo g, cudaStream_t stream) {
   // above 48 KB, dynamic shared memory has to be asked for
   cudaError_t e = cudaFuncSetAttribute(
-      pad11_cat_bf16_kernel<CAT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM);
+      pad11_cat_bf16_kernel<CAT, STATS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
   const int64_t M = (int64_t)g.n * (g.h + 1) * g.wp8;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(g.co / BN));
-  pad11_cat_bf16_kernel<CAT><<<grid, THREADS, SMEM, stream>>>(
+  pad11_cat_bf16_kernel<CAT, STATS><<<grid, THREADS, SMEM, stream>>>(
       (const bf16*)xa, (const bf16*)xb, (const bf16*)w, (const bf16*)b,
-      (bf16*)y, g);
+      (bf16*)y, (float*)stats, g);
   return (int)cudaGetLastError();
 }
 
@@ -258,14 +347,15 @@ int launch_bf16(const void* xa, const void* xb, const void* w, const void* b,
 
 constexpr int FBM = 64, FBN = 64, FBK = 16;
 
-template <bool CAT>
+template <bool CAT, bool STATS>
 __global__ void __launch_bounds__(256)
 pad11_cat_f32_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                      const float* __restrict__ W,
                      const float* __restrict__ bias, float* __restrict__ y,
-                     Geo g) {
+                     float* __restrict__ stats, Geo g) {
   __shared__ __align__(16) float As[FBK][FBM + 4];  // k-major: broadcast rows
   __shared__ __align__(16) float Bs[FBK][FBN];
+  __shared__ float st[2][2][FBN];  // STATS: [slot][sum, square][column]
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;  // 4x4 outputs per thread
@@ -329,62 +419,110 @@ pad11_cat_f32_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
     __syncthreads();
   }
 
+  const int64_t img_px = (int64_t)(g.h + 1) * g.wp8;
+  const int64_t img_lo = m0 / img_px;
+  if constexpr (STATS) {
+    for (int i = tid; i < 2 * 2 * FBN; i += 256) (&st[0][0][0])[i] = 0.0f;
+    __syncthreads();
+  }
   const int co = n0 + tx * 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t m = m0 + ty * 4 + i;
     if (m >= M) continue;
-    const bool live = (int)(m % g.wp8) <= g.w;
+    const bool live = live_at<STATS>((int)((m / g.wp8) % (g.h + 1)),
+                                     (int)(m % g.wp8), co, g);
     float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
     if (live)
       o = make_float4(acc[i][0] + bias[co], acc[i][1] + bias[co + 1],
                       acc[i][2] + bias[co + 2], acc[i][3] + bias[co + 3]);
     *reinterpret_cast<float4*>(y + m * g.co + co) = o;
+    if constexpr (STATS) {
+      const int64_t sl = m / img_px - img_lo;
+      const float vals[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (sl < 2) {
+          atomicAdd(&st[sl][0][tx * 4 + j], vals[j]);
+          atomicAdd(&st[sl][1][tx * 4 + j], vals[j] * vals[j]);
+        } else {
+          float* p = stats + (img_lo + sl) * 16 * g.co + co + j;
+          atomicAdd(p, vals[j]);
+          atomicAdd(p + 8 * g.co, vals[j] * vals[j]);
+        }
+      }
+    }
+  }
+  if constexpr (STATS) {
+    __syncthreads();
+    for (int i = tid; i < 2 * 2 * FBN; i += 256) {
+      const int64_t img = img_lo + i / (2 * FBN);
+      const int kind = (i / FBN) % 2;
+      const float v = (&st[0][0][0])[i];
+      if (img < g.n && v != 0.0f)
+        atomicAdd(stats + (img * 16 + kind * 8 + blockIdx.x % 8) * g.co + n0 +
+                      i % FBN,
+                  v);
+    }
   }
 }
 
-template <bool CAT>
+template <bool CAT, bool STATS>
 int launch_f32(const void* xa, const void* xb, const void* w, const void* b,
-               void* y, Geo g, cudaStream_t stream) {
+               void* y, void* stats, Geo g, cudaStream_t stream) {
   const int64_t M = (int64_t)g.n * (g.h + 1) * g.wp8;
   dim3 grid((unsigned)((M + FBM - 1) / FBM), (unsigned)(g.co / FBN));
-  pad11_cat_f32_kernel<CAT><<<grid, 256, 0, stream>>>(
+  pad11_cat_f32_kernel<CAT, STATS><<<grid, 256, 0, stream>>>(
       (const float*)xa, (const float*)xb, (const float*)w, (const float*)b,
-      (float*)y, g);
+      (float*)y, (float*)stats, g);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// K1: xa (n, h, w_in, ca), xb (n, h, w_in, cb), w (2, 2, ca+cb, co), b (co)
-// -> y (n, h+1, wp8, co). Returns cudaGetLastError() after the launch.
+// K1, and K6a with stats: xa (n, h, w_in, ca), xb (n, h, w_in, cb), w (2, 2,
+// ca+cb, co), b (co) -> y (n, h+1, wp8, co). stats (n, 16, co) fp32, zeroed
+// by the caller, or null for K1. Returns cudaGetLastError() after the
+// launch.
 extern "C" int pconv_pad11_cat_bf16(const void* xa, const void* xb,
                                     const void* w, const void* b, void* y,
-                                    int n, int h, int w_in, int ca, int cb,
-                                    int co, int wp8, void* stream) {
-  return launch_bf16<true>(xa, xb, w, b, y, Geo{n, h, w_in, ca, cb, co, wp8},
-                           (cudaStream_t)stream);
+                                    void* stats, int n, int h, int w_in,
+                                    int ca, int cb, int co, int wp8,
+                                    void* stream) {
+  const Geo g{n, h, w_in, ca, cb, co, wp8};
+  if (stats)
+    return launch_bf16<true, true>(xa, xb, w, b, y, stats, g,
+                                   (cudaStream_t)stream);
+  return launch_bf16<true, false>(xa, xb, w, b, y, nullptr, g,
+                                  (cudaStream_t)stream);
 }
 
 extern "C" int pconv_pad11_cat_f32(const void* xa, const void* xb,
                                    const void* w, const void* b, void* y,
-                                   int n, int h, int w_in, int ca, int cb,
-                                   int co, int wp8, void* stream) {
-  return launch_f32<true>(xa, xb, w, b, y, Geo{n, h, w_in, ca, cb, co, wp8},
-                          (cudaStream_t)stream);
+                                   void* stats, int n, int h, int w_in,
+                                   int ca, int cb, int co, int wp8,
+                                   void* stream) {
+  const Geo g{n, h, w_in, ca, cb, co, wp8};
+  if (stats)
+    return launch_f32<true, true>(xa, xb, w, b, y, stats, g,
+                                  (cudaStream_t)stream);
+  return launch_f32<true, false>(xa, xb, w, b, y, nullptr, g,
+                                 (cudaStream_t)stream);
 }
 
 // K4: x (n, h, w_in, ci), w (2, 2, ci, co), b (co) -> y (n, h+1, wp8, co).
 extern "C" int pconv_pad11_bf16(const void* x, const void* w, const void* b,
                                 void* y, int n, int h, int w_in, int ci,
                                 int co, int wp8, void* stream) {
-  return launch_bf16<false>(x, x, w, b, y, Geo{n, h, w_in, ci, 0, co, wp8},
-                            (cudaStream_t)stream);
+  return launch_bf16<false, false>(x, x, w, b, y, nullptr,
+                                   Geo{n, h, w_in, ci, 0, co, wp8},
+                                   (cudaStream_t)stream);
 }
 
 extern "C" int pconv_pad11_f32(const void* x, const void* w, const void* b,
                                void* y, int n, int h, int w_in, int ci,
                                int co, int wp8, void* stream) {
-  return launch_f32<false>(x, x, w, b, y, Geo{n, h, w_in, ci, 0, co, wp8},
-                           (cudaStream_t)stream);
+  return launch_f32<false, false>(x, x, w, b, y, nullptr,
+                                  Geo{n, h, w_in, ci, 0, co, wp8},
+                                  (cudaStream_t)stream);
 }

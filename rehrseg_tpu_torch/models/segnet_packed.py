@@ -20,9 +20,16 @@ every covered stride-1 packed conv through a kernel of
 offset tensor is then emitted 8-aligned wide (by the kernels, or by a
 widened cuDNN conv whose pad columns the rim mask zeroes).
 
+``pallas_conv="fused"`` is "cat" plus the deferred instance norm: an
+offset conv output whose next conv is a covered VALID conv comes back as a
+:class:`_Deferred` (raw tensor plus per-image scale and shift, from K6a's
+statistics or one masked reduction of a cuDNN output), the consuming K6b
+(kd=1) or K6c (kd=3) kernel applies ``leaky(x*sa + ta) * rim_mask`` as it
+loads its input, and the aligned output finalizes in one pass from that
+kernel's statistics.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP entry):
-``pallas_conv="fused"`` (K6), ``remat`` and ``return_skips`` (training,
-ROADMAP queue 1 item 8).
+``remat`` and ``return_skips`` (training, ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from ..ops.pack2d import (
     depth_to_space_cell,
     pack_conv_weights_cell4z2, conv_packed_s2_cell4z2, unpack_cell4z2,
     pack_bias_cell4z2, fused_upsample_conv1,
+    norm_scale_shift_from_stats, offset_stats_xla, apply_norm_act_packed,
 )
 
 
@@ -111,6 +119,45 @@ def _round8(v):
     return -(-v // 8) * 8
 
 
+class _Deferred:
+    """A conv output whose instance norm is deferred (pallas_conv="fused"):
+    ``y`` is the raw offset-parity tensor (rim zeroed when K6a produced it,
+    bias-valued when cuDNN did; consumers mask either way), and
+    ``leaky(y*sa + ta) * rim_mask`` is the finalized activation. The next
+    conv of the stage applies that transform as it loads its input (K6b,
+    K6c ``pre=``); :meth:`materialize` is the one-pass fallback for every
+    other consumer."""
+
+    def __init__(self, y, sa, ta, slope, true_w):
+        self.y = y
+        self.sa = sa
+        self.ta = ta
+        self.slope = slope
+        self.true_w = true_w
+
+    def materialize(self):
+        return apply_norm_act_packed(self.y, self.sa, self.ta, self.slope,
+                                     offset_parity=True, true_w=self.true_w)
+
+
+def _fused_consumable(feats, out_tw, kd):
+    """Will the next conv of this stage (same kernel size and feats) be a
+    covered fused VALID consumer of a widened offset tensor? Gates the
+    widened emission and the deferral (the checks mirror K3/K5 coverage)."""
+    return (feats * 4) % 128 == 0 and (out_tw - 1) % 8 == 0 and kd in (1, 3)
+
+
+def _defer_offset(y, stats, scale, nbias, eps, slope, true_w):
+    """A :class:`_Deferred` from an offset conv output and its moment
+    partials."""
+    bsz, d, hp = y.shape[0], y.shape[1], y.shape[2]
+    count = d * (hp - 1) * ((true_w if true_w is not None
+                             else y.shape[3]) - 1)
+    sa, ta = norm_scale_shift_from_stats(stats, bsz, d, count, scale,
+                                         nbias, eps, y.dtype)
+    return _Deferred(y, sa, ta, slope, true_w)
+
+
 def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                    pack_max_channels, want_out="a", in_splits=None,
                    tw=None, pallas=False):
@@ -122,14 +169,21 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
     concat is never built; every other path concatenates here.
     tw: the TRUE offset width when layout == 'o' and x is stored wider.
     pallas=True routes every covered stride-1 packed conv through K1/K3/K4/
-    K5, with offset outputs emitted 8-aligned wide."""
+    K5, with offset outputs emitted 8-aligned wide. pallas="fused" is "cat"
+    plus the deferred norm: an offset output whose consumer is covered
+    comes back as a :class:`_Deferred` (K6a emits its statistics; a cuDNN
+    output gets one masked reduction), the consuming K6b/K6c applies the
+    norm as it loads, and the aligned output finalizes from its
+    statistics in one pass. x may be a :class:`_Deferred`."""
     pallas_all = pallas is True
+    pallas_fused = pallas == "fused"
     pallas_cat = bool(pallas)
     pair = isinstance(x, (tuple, list))
     if pair and (layout != "a" or len(x) != 2 or not pallas_cat):
         x = torch.cat(list(x), dim=-1)
         pair = False
-    x0 = x[0] if pair else x
+    deferred = isinstance(x, _Deferred)
+    x0 = x.y if deferred else (x[0] if pair else x)
 
     w = cp["conv"]["kernel"]
     b = cp["conv"].get("bias")
@@ -153,6 +207,14 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
         strided_packable or _packable(kernel, h, wd, feats,
                                       pack_max_channels))
 
+    # only the fused offset -> aligned kernels below consume a deferred
+    # input; every other path materializes it first
+    if deferred and not (pallas_fused and take_packed and not strided
+                         and layout == "o"):
+        x = x.materialize()
+        x0 = x
+        deferred = False
+
     if take_packed:
         if strided and layout != "u":
             if pair:
@@ -173,14 +235,20 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
         if not strided:
             kd = int(kernel[0])
             out_tw = None
+            out_stats = None      # kernel-emitted moment partials
+            defer_out = False     # fused: return the raw offset + sa/ta
             if layout == "u":
                 w4 = pack_conv_weights_from_unpacked(w)
                 out = want_out
                 pb = pack_bias(b) if b is not None else None
-                if out == "o" and pallas_all:
+                fuse_emit = (pallas_fused and out == "o"
+                             and _fused_consumable(feats, x.shape[3] // 2 + 1,
+                                                   kd))
+                if out == "o" and (pallas_all or fuse_emit):
                     out_tw = x.shape[3] // 2 + 1
                     y = conv_packing(x, w4, pb, offset_out=True,
                                      out_w=_round8(out_tw))
+                    defer_out = fuse_emit
                 else:
                     y = conv_packing(x, w4, pb, offset_out=(out == "o"))
             elif layout == "a":
@@ -188,14 +256,19 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                 pb = pack_bias(b) if b is not None else None
                 out = "o"
                 out_tw = x0.shape[3] + 1
+                fuse_emit = (pallas_fused
+                             and _fused_consumable(feats, out_tw, kd))
                 y = None
                 if pair and kd == 1:
                     bsz, d = x0.shape[0], x0.shape[1]
                     r = pconv.pconv_pad11_cat(
                         x[0].reshape(bsz * d, *x[0].shape[2:]).contiguous(),
                         x[1].reshape(bsz * d, *x[1].shape[2:]).contiguous(),
-                        wp[0], pb)
+                        wp[0], pb, want_stats=fuse_emit)
                     if r is not None:
+                        if fuse_emit:
+                            r, out_stats = r
+                            defer_out = True
                         y = r.reshape(bsz, d, *r.shape[1:])
                 if y is None and pair:
                     x = torch.cat(list(x), dim=-1)
@@ -207,12 +280,14 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                         wp[0], pb)
                     if r is not None:
                         y = r.reshape(bsz, d, *r.shape[1:])
-                if y is None and pallas_all:
+                if y is None and (pallas_all or fuse_emit):
                     # kd=3 (or uncovered): the cuDNN conv emits the
                     # widened layout; its pad columns hold the bias until
-                    # the rim mask below zeroes them
+                    # the rim mask (here, or in the fused consumer) zeroes
+                    # them
                     y = conv_packed(x, wp, pb, hw_pad="pad11",
                                     out_w=_round8(out_tw))
+                    defer_out = fuse_emit
                 elif y is None:
                     y = conv_packed(x, wp, pb, hw_pad="pad11")
                     out_tw = None
@@ -221,7 +296,33 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                 pb = pack_bias(b) if b is not None else None
                 out = "a"
                 y = None
-                if pallas_all and otw is not None and (otw - 1) % 8 == 0:
+                if deferred and otw is not None and (otw - 1) % 8 == 0:
+                    # fused consumer: the norm rides the kernel's loads,
+                    # and the aligned output's moments come back for the
+                    # one-pass finalize below
+                    if kd == 1:
+                        bsz, d = x0.shape[0], x0.shape[1]
+                        r = pconv.pconv_valid(
+                            x0.reshape(bsz * d, *x0.shape[2:]).contiguous(),
+                            wp[0], pb, w_out=otw - 1,
+                            pre=(x.sa, x.ta, x.slope), want_stats=True)
+                        if r is not None:
+                            r, out_stats = r
+                            y = r.reshape(bsz, d, *r.shape[1:])
+                    elif kd == 3:
+                        d = x0.shape[1]
+                        r = pconv.pconv3_valid(
+                            x0.contiguous(), wp, pb, w_out=otw - 1,
+                            pre=(x.sa[::d], x.ta[::d], x.slope),
+                            want_stats=True)
+                        if r is not None:
+                            y, out_stats = r
+                    if y is None:      # uncovered: fall back whole
+                        x = x.materialize()
+                        x0 = x
+                        deferred = False
+                if y is None and pallas_all and otw is not None \
+                        and (otw - 1) % 8 == 0:
                     if kd == 1:
                         bsz, d = x.shape[0], x.shape[1]
                         r = pconv.pconv_valid(
@@ -237,10 +338,23 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                     # true columns
                     y = conv_packed(x, wp, pb, in_w=otw)
             if out == "o":
+                if defer_out:
+                    if out_stats is None:
+                        out_stats = offset_stats_xla(y, true_w=out_tw)
+                    return (_defer_offset(y, out_stats, scale, nbias, eps,
+                                          slope, out_tw), out, out_tw)
                 y = _mask_offset(y, feats, tw=out_tw)
                 y = instance_norm_packed(y, scale, nbias, eps,
                                          offset_parity=True, true_w=out_tw)
                 y = _mask_offset(F.leaky_relu(y, slope), feats, tw=out_tw)
+            elif out_stats is not None:
+                # fused aligned finalize: one apply pass from the kernel's
+                # moments
+                bsz, d, hh, ww = y.shape[:4]
+                sa, ta = norm_scale_shift_from_stats(
+                    out_stats, bsz, d, d * hh * ww, scale, nbias, eps,
+                    y.dtype)
+                y = apply_norm_act_packed(y, sa, ta, slope)
             else:
                 y = F.leaky_relu(instance_norm_packed(y, scale, nbias, eps),
                                  slope)
@@ -281,14 +395,13 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
     C) channels-last. Returns lr_logits, or (lr_logits, hr_logits) when
     ``dual``. plane_out: logits as per-class planes (B, C, D, H, W), the
     layout K2 consumes. pallas_conv: False (plain convs), "cat" (K1 at
-    the decoder skip concat) or True (every covered stride-1 packed conv
-    through K1/K3/K4/K5). sr_head_form: "auto" (fused upsample/conv1 +
+    the decoder skip concat), True (every covered stride-1 packed conv
+    through K1/K3/K4/K5) or "fused" ("cat" plus the deferred instance norm
+    through K6a/K6b/K6c). sr_head_form: "auto" (fused upsample/conv1 +
     z-paired stride-2 conv2), "cell4" or "legacy" (explicit z-upsample).
     Input and params are promoted to a common dtype first."""
-    if pallas_conv not in (False, "cat", True):
-        raise NotImplementedError(
-            f"pallas_conv={pallas_conv!r}: only False, 'cat' and True are "
-            f"ported; 'fused' needs K6 (ROADMAP queue 2)")
+    if pallas_conv not in (False, "cat", True, "fused"):
+        raise ValueError(f"unknown pallas_conv {pallas_conv!r}")
     if remat or return_skips:
         raise NotImplementedError(
             "remat and return_skips serve training, still to be ported "
@@ -320,6 +433,8 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
                 cur, layout, sp[f"conv_{i}"], kernels[s], st, feats[s], a,
                 pack_max_channels=pack_max_channels, want_out=want,
                 tw=cur_tw, pallas=pallas_conv)
+        if isinstance(cur, _Deferred):      # a stage ends finalized
+            cur = cur.materialize()
         skips.append((cur, layout, cur_tw))
 
     # ---------------- decoder
@@ -370,6 +485,8 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
                     y, lay, sp[f"conv_{i}"], kernels[ridx], (1, 1, 1),
                     out_ch, a, pack_max_channels=pack_max_channels,
                     want_out="a", tw=tw, pallas=pallas_conv)
+        if isinstance(y, _Deferred):        # a stage ends finalized
+            y = y.materialize()
         cur, layout, cur_tw = y, lay, tw
 
         if s == n - 2:

@@ -15,8 +15,10 @@ conv through ``F.conv2d``/``F.conv3d`` on a permuted view, so a
 channels-last tensor reaches cuDNN as a channels-last (NHWC) input with no
 layout copy.
 
-Not ported: the deferred ("fused") instance-norm glue (the JAX module's
-:593-686), which serves the K6 kernels.
+The deferred ("fused") instance-norm glue (the JAX module's :591-686) is
+at the end: moment partials to a per-image scale/shift, the masked
+statistics of a cuDNN-emitted tensor, and the one-pass apply. It serves
+the K6 forms of :mod:`rehrseg_tpu_torch.ops.pconv`.
 """
 
 from __future__ import annotations
@@ -443,3 +445,104 @@ def instance_norm_packed(xp: torch.Tensor, scale, bias,
     if scale is not None:
         y = y * scale.repeat(4) + bias.repeat(4)
     return y
+
+
+# ------------------------------------------- deferred (fused) instance norm
+#
+# Under pallas_conv="fused" an offset conv's instance norm is deferred: the
+# producer emits per-image moment partials (a kernel's ``want_stats``, or
+# :func:`offset_stats_xla` for a cuDNN-emitted tensor), this glue turns them
+# into a per-image scale/shift, and the consuming VALID conv kernel applies
+# ``leaky(x * sA + tA) * rim_mask`` to its input as it loads it (``pre=``).
+# Stats layout everywhere: (N, 16, C) fp32, rows 0:8 partial sums, rows 8:16
+# partial sums of squares; consumers sum each half.
+
+
+def norm_scale_shift_from_stats(stats: torch.Tensor, b: int, d: int,
+                                count: int, scale, bias, epsilon: float,
+                                dtype) -> tuple:
+    """(B*D, 16, C4) moment partials -> per-image (B*D, 8, C4) scale and
+    shift in ``dtype`` such that ``x * sA + tA`` is
+    :func:`instance_norm_packed` (group-averaged fp32 moments, variance as
+    E[x^2] - E[x]^2). The 8 rows repeat one row."""
+    c4 = stats.shape[-1]
+    c = c4 // 4
+    s = stats[:, 0:8].sum(1).reshape(b, d, c4).sum(1)
+    q = stats[:, 8:16].sum(1).reshape(b, d, c4).sum(1)
+
+    def group_mean(t):
+        return t.reshape(b, 4, c).mean(1).repeat(1, 4)
+
+    m1 = group_mean(s / count)
+    m2 = group_mean(q / count)
+    k = torch.rsqrt(m2 - m1.square() + epsilon)
+    if scale is not None:
+        g4 = scale.repeat(4).float()
+        b4 = bias.repeat(4).float()
+    else:
+        g4, b4 = 1.0, 0.0
+    sa = (k * g4).to(dtype)
+    ta = (b4 - m1 * k * g4).to(dtype)
+
+    def rep(t):
+        return t[:, None, None, :].expand(b, d, 8, c4).reshape(b * d, 8, c4)
+
+    return rep(sa), rep(ta)
+
+
+def _stats_rows(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Per-image sums (N, C) and sums of squares -> (N, 16, C) partials
+    (row 0 and row 8 hold them, the other rows zero)."""
+    n, c = s.shape
+    out = torch.zeros((n, 16, c), dtype=torch.float32, device=s.device)
+    out[:, 0] = s
+    out[:, 8] = q
+    return out
+
+
+def offset_stats_xla(y: torch.Tensor, true_w: int | None = None):
+    """Masked moment partials of a cuDNN-emitted offset tensor
+    y (B, D, hp, wp, C4) -> (B*D, 16, C4) fp32: the rim mask rides the
+    reduction, so the raw conv output needs no mask pass."""
+    bsz, d, hp, wp, c4 = y.shape
+    m = offset_rim_mask(hp, wp, c4 // 4, torch.float32, y.device,
+                        true_w=true_w)
+    y32 = y.float() * m
+    return _stats_rows(y32.sum((2, 3)).reshape(bsz * d, c4),
+                       y32.square().sum((2, 3)).reshape(bsz * d, c4))
+
+
+def aligned_stats_xla(y: torch.Tensor):
+    """Moment partials of an aligned tensor y (B, D, h, w, C4) ->
+    (B*D, 16, C4) fp32 (no rim on aligned parity)."""
+    bsz, d, h, w, c4 = y.shape
+    y32 = y.float()
+    return _stats_rows(y32.sum((2, 3)).reshape(bsz * d, c4),
+                       y32.square().sum((2, 3)).reshape(bsz * d, c4))
+
+
+def leaky_scale_shift(y: torch.Tensor, sa: torch.Tensor, ta: torch.Tensor,
+                      slope: float) -> torch.Tensor:
+    """``leaky(y * sa + ta)`` in y.dtype, rounding after the multiply, the
+    add and the leaky product, with the slope rounded to y.dtype (the JAX
+    package's order). sa, ta broadcast against y."""
+    z = y * sa.to(y.dtype) + ta.to(y.dtype)
+    return torch.where(z >= 0, z,
+                       z * torch.tensor(slope, dtype=z.dtype, device=z.device))
+
+
+def apply_norm_act_packed(y: torch.Tensor, sa: torch.Tensor,
+                          ta: torch.Tensor, slope: float,
+                          offset_parity: bool = False,
+                          true_w: int | None = None) -> torch.Tensor:
+    """Materialize a deferred norm: ``leaky(y*sA + tA) [* rim_mask]`` in
+    one pass, for a deferred tensor whose consumer is not a K6 kernel
+    (stage outputs, heads, strided convs). y (B, D, hp, wp, C4); sa/ta
+    (B*D, 8, C4) from :func:`norm_scale_shift_from_stats`."""
+    bsz, d, hp, wp, c4 = y.shape
+    z = leaky_scale_shift(y, sa[:, 0].reshape(bsz, d, 1, 1, c4),
+                          ta[:, 0].reshape(bsz, d, 1, 1, c4), slope)
+    if offset_parity:
+        z = z * offset_rim_mask(hp, wp, c4 // 4, z.dtype, z.device,
+                                true_w=true_w)
+    return z

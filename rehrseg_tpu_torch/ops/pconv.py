@@ -9,7 +9,12 @@ PyTorch version beside it:
 - K4 ``pconv_pad11`` (:576, body ``_pad11_kernel`` :272): pad(1,1) conv,
   aligned -> offset;
 - K5 ``pconv3_valid`` (:1117, body ``_valid3_kernel`` :930): the kd = 3,
-  z-SAME form of K3.
+  z-SAME form of K3;
+- K6, the deferred-norm forms of ``pallas_conv="fused"``: K6a
+  ``pconv_pad11_cat(want_stats=True)`` (the full offset rim mask applied
+  to the output, plus its moment partials), K6b ``pconv_valid(pre=,
+  want_stats=)`` (body ``_valid_fused_kernel`` :148) and K6c
+  ``pconv3_valid(pre=, want_stats=)``.
 
 With packed weights w (kd, 2, 2, Ci, Co) from ``pack2d.pack_conv_weights``
 they compute
@@ -21,23 +26,39 @@ they compute
             offset input stored 8-aligned wide.
 
 Offset tensors live at 8-aligned widths with their true width tracked
-beside them (the layout the packed forward keeps under
-``pallas_conv=True``); the pad columns a VALID kernel never reads may hold
-anything.
+beside them; the pad columns a VALID kernel never reads may hold anything.
+
+The deferred-norm contract (``pack2d``'s glue turns the statistics into
+the per-image scale and shift):
+
+- ``pre=(sa, ta, slope)``: x is a raw offset conv output whose instance
+  norm was deferred; the conv reads ``leaky(x * sa + ta) * rim_mask``
+  (the offset rim mask of x's true width w_out + 1), computed in x.dtype
+  with a rounding after the multiply, the add and the leaky product. sa
+  and ta are (N, 8, Ci) per image for K6b and (B, 8, Ci) per batch element
+  for K6c; row 0 is read. Taps outside the input (K5's z taps outside
+  [0, D)) contribute zero after the transform.
+- ``want_stats=True``: also return (N, 16, Co) fp32 moment partials of
+  the stored (rounded) output, per (b, z) image: the sum of rows 0:8 is the
+  sum, of rows 8:16 the sum of squares. Only the two half-sums are the
+  contract; how they spread over the rows is not.
 
 On the H100 each is an implicit GEMM in CUDA C++ (M = output pixels, N =
 Co, K = taps x Ci) with a bf16 WMMA (``mma.sync``) kernel and an fp32 FMA
-kernel; K1 and K4 share ``csrc/pconv_pad11_cat.cu`` (K4 is K1 with no
-second input), K3 and K5 share ``csrc/pconv_valid.cu``. Every kernel adds
+kernel; K1, K4 and K6a share ``csrc/pconv_pad11_cat.cu``, K3, K5, K6b, K6c
+(and K7, :mod:`.conv2x2`) share ``csrc/pconv_valid.cu``. Every kernel adds
 the bias in fp32 and rounds once.
 
 Each wrapper keeps the JAX call contract: the same shapes, dtypes, default
-``w_out`` rule and ``None`` where the shape predicate does not cover the
-operands (the packed forward then runs the cuDNN conv at the same site).
-The TPU's VMEM block choice (``_pick_bi``, ``fits``: it also refuses
-heights with no 2/4/8/16 divisor) is a TPU limit and is not carried over.
-On CPU tensors a wrapper runs its plain version; on CUDA tensors it
-launches its kernel or raises. Each carries a ``.launches`` count.
+``w_out`` rule, ``(y, stats)`` when ``want_stats``, and ``None`` where the
+shape predicate does not cover the operands (the packed forward then runs
+the cuDNN conv at the same site). The TPU's VMEM block choice
+(``_pick_bi``, ``_pick_bi_fused``, ``fits``: they also refuse heights with
+no 2/4/8/16(/32) divisor) is a TPU limit and is not carried over. On CPU
+tensors a wrapper runs its plain version; on CUDA tensors it launches its
+kernel or raises. Each carries a ``.launches`` count of its plain form's
+launches; K1, K3 and K5 also carry ``.fused_launches``, the launches of
+their K6 form.
 """
 
 from __future__ import annotations
@@ -48,16 +69,11 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from .pack2d import leaky_scale_shift, offset_rim_mask
 
 
 def _round8(v: int) -> int:
     return -(-v // 8) * 8
-
-
-def _k6(name: str):
-    return NotImplementedError(
-        f"{name} is the deferred-norm K6 variant, still to be ported "
-        f"(ROADMAP queue 2, K6)")
 
 
 def _bias(b, c_out: int, like: torch.Tensor) -> torch.Tensor:
@@ -66,6 +82,30 @@ def _bias(b, c_out: int, like: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ plain versions
+
+def stats16_plain(y: torch.Tensor) -> torch.Tensor:
+    """(..., rows, cols, C) -> (N, 16, C) fp32 moment partials of y as
+    stored, one image per leading index: row 0 the sum, row 8 the sum of
+    squares, the other rows zero."""
+    y32 = y.float().reshape(-1, y.shape[-3] * y.shape[-2], y.shape[-1])
+    out = torch.zeros((y32.shape[0], 16, y32.shape[-1]), dtype=torch.float32,
+                      device=y.device)
+    out[:, 0] = y32.sum(1)
+    out[:, 8] = y32.square().sum(1)
+    return out
+
+
+def pre_plain(x, sa, ta, slope):
+    """The consumer-side transform ``leaky(x * sa + ta) * rim_mask`` of an
+    offset tensor x (..., hp, tw, Ci) at its true width tw, in x.dtype. sa,
+    ta broadcast against x without its last three axes (row 0 of the
+    (.., 8, Ci) layout)."""
+    hp, tw, ci = x.shape[-3:]
+    shape = (*sa.shape[:-2], *([1] * (x.ndim - sa.ndim + 1)), ci)
+    z = leaky_scale_shift(x, sa[..., 0, :].reshape(shape),
+                          ta[..., 0, :].reshape(shape), slope)
+    return z * offset_rim_mask(hp, tw, ci // 4, z.dtype, z.device)
+
 
 def pconv_pad11_plain(x, w, b):
     """The plain PyTorch version of K4: a pad (1,1) 2x2 conv, the bias,
@@ -77,25 +117,43 @@ def pconv_pad11_plain(x, w, b):
     return F.pad(y, (0, 0, 0, _round8(w_in + 1) - (w_in + 1)))
 
 
-def pconv_pad11_cat_plain(xa, xb, w, b):
-    """The plain PyTorch version of K1: concat, then K4's plain version."""
-    return pconv_pad11_plain(torch.cat([xa, xb], dim=-1), w, b)
+def pconv_pad11_cat_plain(xa, xb, w, b, want_stats=False):
+    """The plain PyTorch version of K1: concat, then K4's plain version.
+    want_stats (K6a): the output times the full offset rim mask, and its
+    moment partials."""
+    y = pconv_pad11_plain(torch.cat([xa, xb], dim=-1), w, b)
+    if not want_stats:
+        return y
+    hp, wp8, c_out = y.shape[1:]
+    y = y * offset_rim_mask(hp, wp8, c_out // 4, y.dtype, y.device,
+                            true_w=xa.shape[2] + 1)
+    return y, stats16_plain(y)
 
 
-def pconv_valid_plain(x, w, b, w_out):
-    """The plain PyTorch version of K3: a VALID 2x2 conv on the true
-    columns 0..w_out, then the bias."""
-    xs = x[:, :, :w_out + 1].permute(0, 3, 1, 2)
-    y = F.conv2d(xs, w.permute(3, 2, 0, 1), None)
-    return (y + b.view(1, -1, 1, 1)).permute(0, 2, 3, 1).contiguous()
+def pconv_valid_plain(x, w, b, w_out, pre=None, want_stats=False):
+    """The plain PyTorch version of K3 (and K6b): the ``pre`` transform if
+    given, a VALID 2x2 conv on the true columns 0..w_out, then the bias;
+    with want_stats also the output's moment partials."""
+    xs = x[:, :, :w_out + 1]
+    if pre is not None:
+        xs = pre_plain(xs, *pre)
+    y = F.conv2d(xs.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), None)
+    y = (y + b.view(1, -1, 1, 1)).permute(0, 2, 3, 1).contiguous()
+    return (y, stats16_plain(y)) if want_stats else y
 
 
-def pconv3_valid_plain(x, w, b, w_out):
-    """The plain PyTorch version of K5: a (3, 2, 2) conv, SAME in z and
-    VALID in-plane on the true columns 0..w_out, then the bias."""
-    xs = x[:, :, :, :w_out + 1].permute(0, 4, 1, 2, 3)
-    y = F.conv3d(xs, w.permute(4, 3, 0, 1, 2), None, padding=(1, 0, 0))
-    return (y + b.view(1, -1, 1, 1, 1)).permute(0, 2, 3, 4, 1).contiguous()
+def pconv3_valid_plain(x, w, b, w_out, pre=None, want_stats=False):
+    """The plain PyTorch version of K5 (and K6c): the ``pre`` transform
+    per batch element if given, a (3, 2, 2) conv, SAME in z (zero planes,
+    after the transform) and VALID in-plane on the true columns 0..w_out,
+    then the bias; with want_stats also per-(b, z) moment partials."""
+    xs = x[:, :, :, :w_out + 1]
+    if pre is not None:
+        xs = pre_plain(xs, *pre)
+    y = F.conv3d(xs.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), None,
+                 padding=(1, 0, 0))
+    y = (y + b.view(1, -1, 1, 1, 1)).permute(0, 2, 3, 4, 1).contiguous()
+    return (y, stats16_plain(y)) if want_stats else y
 
 
 # ------------------------------------------------------------ launches
@@ -111,11 +169,15 @@ def _check(what: str, *named):
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
 
 
-def _entry(lib: str, fn_name: str, n_ptr: int, n_int: int):
+_PTR, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _entry(lib: str, fn_name: str, argtypes):
+    """The C launcher ``fn_name`` of library ``lib``; argtypes lists the
+    arguments before the trailing stream pointer."""
     fn = getattr(kernels.load(lib), fn_name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
+    fn.argtypes = list(argtypes) + [_PTR]
     return fn
 
 
@@ -131,9 +193,15 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_pad11(counter, x, w, b, xb=None):
-    """K1 when xb is given, K4 otherwise: (n, h+1, wp8, co). Adds one to
-    ``counter.launches`` once the kernel is launched."""
+def _count(counter, attr: str):
+    setattr(counter, attr, getattr(counter, attr) + 1)
+
+
+def _launch_pad11(counter, x, w, b, xb=None, want_stats=False):
+    """K1 when xb is given (K6a with want_stats), K4 otherwise: (n, h+1,
+    wp8, co) [and (n, 16, co) stats]. Adds one to the counter's
+    ``launches`` (``fused_launches`` for K6a) once the kernel is
+    launched."""
     n, h, w_in, ca = x.shape
     c_out = w.shape[-1]
     what = "pconv_pad11" if xb is None else "pconv_pad11_cat"
@@ -145,28 +213,36 @@ def _launch_pad11(counter, x, w, b, xb=None):
     if xb is not None:
         named.append(("xb", xb))
     _check(what, *named)
-    fn_name = f"{what}_{_suffix(what, x.dtype)}"
+    sfx = _suffix(what, x.dtype)
     wp8 = _round8(w_in + 1)
     if n * (h + 1) * wp8 >= 2 ** 31:
         raise ValueError(f"{what}: output too large for int32 rows")
     y = torch.empty((n, h + 1, wp8, c_out), dtype=x.dtype, device=x.device)
+    fn_name = f"{what}_{sfx}"
     if xb is None:
-        fn = _entry("pconv_pad11_cat", fn_name, 4, 6)
+        fn = _entry("pconv_pad11_cat", fn_name, [_PTR] * 4 + [_INT] * 6)
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                  n, h, w_in, ca, c_out, wp8, _stream(x))
     else:
-        fn = _entry("pconv_pad11_cat", fn_name, 5, 7)
+        stats = (torch.zeros((n, 16, c_out), dtype=torch.float32,
+                             device=x.device) if want_stats else None)
+        fn = _entry("pconv_pad11_cat", fn_name, [_PTR] * 6 + [_INT] * 7)
         err = fn(x.data_ptr(), xb.data_ptr(), w.data_ptr(), b.data_ptr(),
-                 y.data_ptr(), n, h, w_in, ca, xb.shape[-1], c_out, wp8,
-                 _stream(x))
+                 y.data_ptr(), stats.data_ptr() if want_stats else None, n,
+                 h, w_in, ca, xb.shape[-1], c_out, wp8, _stream(x))
     kernels.check(err, fn_name)
-    counter.launches += 1
+    if want_stats:
+        _count(counter, "fused_launches")
+        return y, stats
+    _count(counter, "launches")
     return y
 
 
-def _launch_valid(counter, x, w, b, w_out):
-    """K3 (x 4D, w (2, 2, Ci, Co)) or K5 (x 5D, w (3, 2, 2, Ci, Co)).
-    Adds one to ``counter.launches`` once the kernel is launched."""
+def _launch_valid(counter, x, w, b, w_out, pre=None, want_stats=False):
+    """K3 (x 4D, w (2, 2, Ci, Co)) or K5 (x 5D, w (3, 2, 2, Ci, Co)); K6b
+    / K6c with ``pre`` or ``want_stats``. Adds one to the counter's
+    ``launches`` (``fused_launches`` for a K6 form) once the kernel is
+    launched."""
     what = "pconv_valid" if x.ndim == 4 else "pconv3_valid"
     kd = 1 if x.ndim == 4 else 3
     *lead, hp, wp8, c_in = x.shape
@@ -176,18 +252,37 @@ def _launch_valid(counter, x, w, b, w_out):
     if tuple(w.shape) != want_w or tuple(b.shape) != (c_out,):
         raise ValueError(f"{what}: weights {tuple(w.shape)} / bias "
                          f"{tuple(b.shape)}, want {want_w} / ({c_out},)")
-    _check(what, ("x", x), ("w", w), ("b", b))
-    fn_name = f"pconv_valid_{_suffix(what, x.dtype)}"
+    fused = pre is not None or want_stats
+    named = [("x", x), ("w", w), ("b", b)]
+    if pre is not None:
+        sa, ta, slope = pre
+        if tuple(sa.shape) != (nb, 8, c_in) or sa.shape != ta.shape:
+            raise ValueError(f"{what}: pre sa/ta {tuple(sa.shape)} / "
+                             f"{tuple(ta.shape)}, want ({nb}, 8, {c_in})")
+        # row 0 of each image's (8, Ci) block, in x.dtype
+        sa = sa[:, 0].to(x.dtype).contiguous()
+        ta = ta[:, 0].to(x.dtype).contiguous()
+        slope = float(torch.tensor(slope, dtype=x.dtype))
+        named += [("sa", sa), ("ta", ta)]
+    _check(what, *named)
+    sfx = _suffix(what, x.dtype)
     y = torch.empty((*lead, hp - 1, w_out, c_out), dtype=x.dtype,
                     device=x.device)
+    stats = (torch.zeros((nb * nd, 16, c_out), dtype=torch.float32,
+                         device=x.device) if want_stats else None)
     if y.numel() == 0:
-        return y
-    fn = _entry("pconv_valid", fn_name, 4, 8)
+        return (y, stats) if want_stats else y
+    fn_name = f"pconv_valid_{sfx}"
+    fn = _entry("pconv_valid", fn_name, [_PTR] * 7 + [_INT] * 8 + [_FLT])
     err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-             nb, nd, hp, wp8, c_in, c_out, w_out, kd, _stream(x))
+             sa.data_ptr() if pre is not None else None,
+             ta.data_ptr() if pre is not None else None,
+             stats.data_ptr() if want_stats else None,
+             nb, nd, hp, wp8, c_in, c_out, w_out, kd,
+             slope if pre is not None else 0.0, _stream(x))
     kernels.check(err, fn_name)
-    counter.launches += 1
-    return y
+    _count(counter, "fused_launches" if fused else "launches")
+    return (y, stats) if want_stats else y
 
 
 # ------------------------------------------------------------ wrappers
@@ -196,9 +291,11 @@ def pconv_pad11_cat(xa, xb, w, b=None, *, want_stats=False):
     """K1: fused concat + pad11. xa (N, h, w, Ca), xb (N, h, w, Cb), w
     (2, 2, Ca+Cb, Co) with input channels ordered [xa | xb] -> offset
     (N, h+1, wp8, Co). None when the shapes are not covered (w % 8, or a
-    channel count % 128, nonzero; mismatched inputs)."""
-    if want_stats:
-        raise _k6("pconv_pad11_cat(want_stats=True)")
+    channel count % 128, nonzero; mismatched inputs).
+
+    want_stats (K6a, the fused producer): the output also gets the full
+    offset rim mask of true width w+1, and the call returns (y, stats)
+    with stats (N, 16, Co) fp32 partials of the stored value."""
     n, h, w_in, ca = xa.shape
     cb = xb.shape[-1]
     c_out = w.shape[-1]
@@ -210,9 +307,9 @@ def pconv_pad11_cat(xa, xb, w, b=None, *, want_stats=False):
     w = w.to(xa.dtype)
     b = _bias(b, c_out, xa)
     if xa.device.type == "cpu":
-        return pconv_pad11_cat_plain(xa, xb, w, b)
+        return pconv_pad11_cat_plain(xa, xb, w, b, want_stats)
     return _launch_pad11(pconv_pad11_cat, xa, w.contiguous(),
-                         b.contiguous(), xb=xb)
+                         b.contiguous(), xb=xb, want_stats=want_stats)
 
 
 def pconv_pad11(x, w, b=None):
@@ -237,13 +334,19 @@ def _default_w_out(wp8: int) -> int:
     return wp8 - 8 if wp8 % 16 == 0 else wp8 - 1
 
 
-def pconv_valid(x, w, b=None, *, w_out=None, pre=None, want_stats=False):
+def pconv_valid(x, w, b=None, *, w_out=None, pre=None, want_stats=False,
+                wide=False):
     """K3: offset x (N, hp, wp8, Ci), w (2, 2, Ci, Co) -> aligned
     (N, hp-1, w_out, Co), reading only columns 0..w_out of x. None when
     wp8 % 8, w_out % 8, Ci % 128 or Co % 128 is nonzero, or w_out + 1 >
-    wp8. ``pre`` and ``want_stats`` belong to K6."""
-    if pre is not None or want_stats:
-        raise _k6("pconv_valid(pre=, want_stats=)")
+    wp8.
+
+    pre=(sa, ta, slope) with sa, ta (N, 8, Ci) and want_stats (K6b): the
+    deferred-norm contract of the module docstring; with want_stats the
+    call returns (y, stats). wide: the TPU kernel's doubled-N dot structure
+    (one dot per kernel row over [W[s, 0] | W[s, 1]]); the same function,
+    so the port computes it as the plain form does."""
+    del wide
     n, hp, wp8, c_in = x.shape
     c_out = w.shape[-1]
     if w_out is None:
@@ -254,18 +357,19 @@ def pconv_valid(x, w, b=None, *, w_out=None, pre=None, want_stats=False):
     w = w.to(x.dtype)
     b = _bias(b, c_out, x)
     if x.device.type == "cpu":
-        return pconv_valid_plain(x, w, b, w_out)
+        return pconv_valid_plain(x, w, b, w_out, pre, want_stats)
     return _launch_valid(pconv_valid, x, w.contiguous(), b.contiguous(),
-                         w_out)
+                         w_out, pre, want_stats)
 
 
 def pconv3_valid(x, w, b=None, *, w_out=None, pre=None, want_stats=False):
     """K5: offset x (B, D, hp, wp8, Ci), w (3, 2, 2, Ci, Co) -> aligned
     (B, D, hp-1, w_out, Co), SAME in z, reading only columns 0..w_out of
-    x. None where K3 would be, or when w is not kd = 3. ``pre`` and
-    ``want_stats`` belong to K6."""
-    if pre is not None or want_stats:
-        raise _k6("pconv3_valid(pre=, want_stats=)")
+    x. None where K3 would be, or when w is not kd = 3.
+
+    pre=(sa, ta, slope) with sa, ta (B, 8, Ci) per batch element and
+    want_stats (K6c): the deferred-norm contract of the module docstring;
+    stats come back per (b, z) image, (B*D, 16, Co)."""
     n_b, n_z, hp, wp8, c_in = x.shape
     c_out = w.shape[-1]
     if w_out is None:
@@ -276,12 +380,15 @@ def pconv3_valid(x, w, b=None, *, w_out=None, pre=None, want_stats=False):
     w = w.to(x.dtype)
     b = _bias(b, c_out, x)
     if x.device.type == "cpu":
-        return pconv3_valid_plain(x, w, b, w_out)
+        return pconv3_valid_plain(x, w, b, w_out, pre, want_stats)
     return _launch_valid(pconv3_valid, x, w.contiguous(), b.contiguous(),
-                         w_out)
+                         w_out, pre, want_stats)
 
 
 pconv_pad11_cat.launches = 0
+pconv_pad11_cat.fused_launches = 0
 pconv_pad11.launches = 0
 pconv_valid.launches = 0
+pconv_valid.fused_launches = 0
 pconv3_valid.launches = 0
+pconv3_valid.fused_launches = 0

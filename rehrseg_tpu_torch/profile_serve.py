@@ -1,6 +1,6 @@
 """Where a served volume's time goes on the card.
 
-    python -m rehrseg_tpu_torch.profile_serve [--pallas-conv cat|true]
+    python -m rehrseg_tpu_torch.profile_serve [--pallas-conv cat|true|fused]
 
 Runs ``Segmenter.segment(volume, hr=True)`` on the aligned grid at the bench
 geometry (full-width DEFAULT_ARCH with seeded random weights, patch
@@ -8,7 +8,9 @@ geometry (full-width DEFAULT_ARCH with seeded random weights, patch
 under ``torch.profiler`` with CPU and CUDA activities. ``--pallas-conv
 true`` profiles the same dual aligned volume through the engine with the
 ``pallas_conv=True`` forward instead (``Segmenter(pallas_conv=True)``: K1,
-K3 and K5 on every tile). Prints one JSON line:
+K3 and K5 on every tile), ``--pallas-conv fused`` through the deferred-norm
+forward (``Segmenter(pallas_conv="fused")``: K6a, K6b and K6c on every
+tile). Prints one JSON line:
 the profiled call's wall time, the device's busy time (sum of kernel
 times) and idle share, CUDA time by kernel class, the 25 kernels with
 the most CUDA time, and the convolutions with the most, by shape (input
@@ -29,14 +31,23 @@ import time
 import numpy as np
 import torch
 
-# kernel-name fragments -> class, first match wins (K4 runs K1's kernels
-# with the template argument false; K3 and K5 are one kernel at kd 1 and 3)
+# kernel-name fragments -> class, first match wins (K1's kernels are
+# <CAT, STATS>: K4 runs them with CAT false, K6a with STATS true; K3, K5
+# and their K6 forms are one kernel <KD, PRE, STATS>)
 _CLASSES = (
-    ("k4_pconv_pad11", ("pad11_cat_bf16_kernel<false>",
-                        "pad11_cat_f32_kernel<false>")),
+    ("k4_pconv_pad11", ("pad11_cat_bf16_kernel<false, false>",
+                        "pad11_cat_f32_kernel<false, false>")),
+    ("k6a_pconv_pad11_cat_stats", ("pad11_cat_bf16_kernel<true, true>",
+                                   "pad11_cat_f32_kernel<true, true>")),
     ("k1_pconv_pad11_cat", ("pad11_cat",)),
-    ("k3_pconv_valid", ("valid_bf16_kernel<1>", "valid_f32_kernel<1>")),
-    ("k5_pconv3_valid", ("valid_bf16_kernel<3>", "valid_f32_kernel<3>")),
+    ("k3_pconv_valid", ("valid_bf16_kernel<1, false, false>",
+                        "valid_f32_kernel<1, false, false>")),
+    ("k5_pconv3_valid", ("valid_bf16_kernel<3, false, false>",
+                         "valid_f32_kernel<3, false, false>")),
+    ("k6b_pconv_valid_fused", ("valid_bf16_kernel<1, true, true>",
+                               "valid_f32_kernel<1, true, true>")),
+    ("k6c_pconv3_valid_fused", ("valid_bf16_kernel<3, true, true>",
+                                "valid_f32_kernel<3, true, true>")),
     ("k2_accumulate_tta_tile", ("accumulate_kernel",)),
     ("conv_and_gemm", ("conv", "gemm", "xmma", "cutlass", "sm90_", "sm80_",
                        "cudnn", "implicit")),
@@ -56,7 +67,8 @@ def _classify(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--pallas-conv", choices=("cat", "true"), default="cat",
+    ap.add_argument("--pallas-conv", choices=("cat", "true", "fused"),
+                    default="cat",
                     help="the packed forward's kernel routing to profile")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -74,7 +86,7 @@ def main(argv=None) -> int:
                               compute_dtype=torch.bfloat16,
                               tile_grid="aligned",
                               pallas_conv=(True if args.pallas_conv == "true"
-                                           else "cat"))
+                                           else args.pallas_conv))
     vol = np.random.default_rng(0).normal(size=(20, 455, 633)).astype(
         np.float32)
 

@@ -4,7 +4,8 @@
 Load SegModel weights once, then segment volumes: z-score, pad to at least
 the patch, gaussian-weighted sliding window with mirror TTA through the
 packed SegModel forward (K1 at the decoder concat; with
-``pallas_conv=True`` also K3/K4/K5 at the stride-1 packed convs), fp32 accumulation
+``pallas_conv=True`` also K3/K4/K5 at the stride-1 packed convs; with
+``"fused"`` the deferred-norm K6 forms of K1/K3/K5), fp32 accumulation
 (K2 on the aligned grid), argmax, crop. ``segment(hr=True)`` also returns
 the z-upscaled HR mask from the same pass.
 
@@ -41,8 +42,10 @@ class Segmenter:
     snapped to H % 8, W % 128 and K2 accumulation; needs packed_eval and
     mirror). A volume the aligned grid cannot cover is served on the
     parity grid, as in the JAX package. pallas_conv: the packed forward's
-    kernel routing, "cat" (served: K1 at the decoder concat) or True (every
-    covered stride-1 packed conv through K1/K3/K4/K5)."""
+    kernel routing, "cat" (served: K1 at the decoder concat), True (every
+    covered stride-1 packed conv through K1/K3/K4/K5) or "fused" ("cat"
+    plus the deferred instance norm: K6a at the decoder concat, K6b/K6c at
+    the offset -> aligned convs that consume a deferred norm)."""
 
     model: SegModel
     patch_size: tuple

@@ -2,8 +2,8 @@
 same numpy-made weights and volumes, on the CPU: the parity engine
 (fp32 logits, labels), and the aligned engine (its grid, and its LR and
 dual labels against the JAX aligned engine, whose Pallas accumulate runs
-in interpret mode; once more with the pallas_conv=True forward on both
-sides)."""
+in interpret mode; once more with the pallas_conv=True forward and with
+the "fused" forward on both sides)."""
 
 import numpy as np
 import pytest
@@ -175,6 +175,44 @@ def test_aligned_dual_pallas_all_matches_jax(monkeypatch):
     jfn, tfn = _fns(params, arch, plane_out=True, dual=True, upscale=4,
                     pallas_conv=True)
     vol = _blob_volume((6, 24, 128), np.random.default_rng(4))[..., None]
+    patch = (4, 16, 128)
+    want_lr, want_hr = jsw.predict_sliding_window_dual_labels_aligned(
+        jfn, params, vol, patch, slice_separation=4)
+    got_lr, got_hr = tsw.predict_sliding_window_dual_labels_aligned(
+        tfn, vol, patch, slice_separation=4, **CPU)
+    tiles = engaged.count("pconv_pad11_cat")
+    assert tiles > 0 and None not in engaged
+    assert engaged.count("pconv_valid") == 2 * tiles
+    assert engaged.count("pconv3_valid") == 2 * tiles
+    llr, lhr = tsw._aligned_logits(tfn, vol, patch, slice_separation=4,
+                                   device="cpu")
+    _labels_agree(got_lr, want_lr,
+                  np.moveaxis(llr.numpy(), 0, -1)[:6, :24, :128])
+    _labels_agree(got_hr, want_hr,
+                  np.moveaxis(lhr.numpy(), 0, -1)[:24, :24, :128])
+
+
+def test_aligned_dual_fused_matches_jax(monkeypatch):
+    """The aligned dual engine with pallas_conv="fused" on both sides (the
+    JAX harness's dual_fn_planes_fused): at features (32, 64, ...) the
+    port's forward runs K6a once, K6b twice and K6c twice on every
+    tile."""
+    arch = dict(SMALL_ARCH, features_per_stage=(32, 64, 64, 64))
+    params = convert.random_flax_params(arch, 2)
+    engaged = []
+    for name in ("pconv_pad11_cat", "pconv_valid", "pconv3_valid"):
+        orig = getattr(pconv, name)
+
+        def spy(*a, _orig=orig, _name=name, **k):
+            y = _orig(*a, **k)
+            engaged.append(_name if y is not None and k.get("want_stats")
+                           else None)
+            return y
+
+        monkeypatch.setattr(pconv, name, spy)
+    jfn, tfn = _fns(params, arch, plane_out=True, dual=True, upscale=4,
+                    pallas_conv="fused")
+    vol = _blob_volume((6, 24, 128), np.random.default_rng(5))[..., None]
     patch = (4, 16, 128)
     want_lr, want_hr = jsw.predict_sliding_window_dual_labels_aligned(
         jfn, params, vol, patch, slice_separation=4)

@@ -180,3 +180,84 @@ def test_fused_upsample_conv1_and_cell4z2_head():
     _close(o_t, o_j, 1e-4)
     for a, b in zip(tp.unpack_cell4z2(o_t, 2), jp.unpack_cell4z2(o_j, 2)):
         _close(a, b, 1e-4)
+
+
+# ------------------------------------------- deferred (fused) norm glue
+
+def _stats(n, c4, seed):
+    """(n, 16, c4) moment partials of a plausible tensor: sums anywhere,
+    sums of squares large enough for a positive variance."""
+    s = _x((n, 16, c4), seed)
+    s[:, 8:] = np.abs(s[:, 8:]) * 20 + 10
+    return s
+
+
+@pytest.mark.parametrize("affine", [True, False])
+def test_norm_scale_shift_from_stats(affine):
+    stats = _stats(6, 12, 0)
+    scale = torch.from_numpy(_x((3,), 1)) if affine else None
+    bias = torch.from_numpy(_x((3,), 2)) if affine else None
+    got = tp.norm_scale_shift_from_stats(
+        torch.from_numpy(stats), 2, 3, 40, scale, bias, 1e-5, torch.float32)
+    want = jp.norm_scale_shift_from_stats(
+        jnp.asarray(stats), 2, 3, 40,
+        None if scale is None else jnp.asarray(scale.numpy()),
+        None if bias is None else jnp.asarray(bias.numpy()), 1e-5,
+        jnp.float32)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == (6, 8, 12)
+        _close(g, w, 1e-5)
+
+
+def test_norm_scale_shift_equals_instance_norm():
+    """x * sA + tA from the offset statistics is instance_norm_packed of
+    the rim-masked tensor."""
+    x = _x((2, 3, 5, 8, 12)) * np.asarray(jp.offset_rim_mask(
+        5, 8, 3, jnp.float32))
+    s, b = torch.from_numpy(_x((3,), 1)), torch.from_numpy(_x((3,), 2))
+    xt = torch.from_numpy(x)
+    sa, ta = tp.norm_scale_shift_from_stats(
+        tp.offset_stats_xla(xt), 2, 3, 3 * 4 * 7, s, b, 1e-5, torch.float32)
+    got = xt * sa[:, 0].reshape(2, 3, 1, 1, 12) + ta[:, 0].reshape(
+        2, 3, 1, 1, 12)
+    want = tp.instance_norm_packed(xt, s, b, 1e-5, offset_parity=True)
+    got = got * tp.offset_rim_mask(5, 8, 3, torch.float32)
+    want = want * tp.offset_rim_mask(5, 8, 3, torch.float32)
+    _close(got, want.numpy(), 1e-4)
+
+
+@pytest.mark.parametrize("true_w", [None, 6])
+def test_offset_stats_xla(true_w):
+    y = _x((2, 3, 5, 8, 12))
+    got = tp.offset_stats_xla(torch.from_numpy(y), true_w=true_w)
+    want = jp.offset_stats_xla(jnp.asarray(y), true_w=true_w)
+    assert tuple(got.shape) == (6, 16, 12) and got.dtype == torch.float32
+    _close(got, want, 1e-5)
+
+
+def test_aligned_stats_xla():
+    y = _x((2, 3, 4, 8, 12))
+    _close(tp.aligned_stats_xla(torch.from_numpy(y)),
+           jp.aligned_stats_xla(jnp.asarray(y)), 1e-5)
+
+
+@pytest.mark.parametrize("dt,offset_parity,true_w", [
+    ("float32", False, None), ("float32", True, 6), ("bfloat16", True, None),
+])
+def test_apply_norm_act_packed(dt, offset_parity, true_w):
+    """The one-pass materialize, in fp32 and in bf16 (its rounding after
+    the multiply, the add and the leaky product is JAX's)."""
+    y = _x((2, 3, 5, 8, 12))
+    sa, ta = (np.abs(_x((6, 8, 12), 1)) + 0.5), _x((6, 8, 12), 2)
+    tdt = getattr(torch, dt)
+    got = tp.apply_norm_act_packed(
+        torch.from_numpy(y).to(tdt), torch.from_numpy(sa).to(tdt),
+        torch.from_numpy(ta).to(tdt), 0.01, offset_parity=offset_parity,
+        true_w=true_w)
+    jdt = getattr(jnp, dt)
+    want = jp.apply_norm_act_packed(
+        jnp.asarray(y, jdt), jnp.asarray(sa, jdt), jnp.asarray(ta, jdt),
+        0.01, offset_parity=offset_parity, true_w=true_w)
+    assert got.dtype == tdt
+    _close(got.float(), np.asarray(want, np.float32), 0 if dt == "bfloat16"
+           else 1e-6)

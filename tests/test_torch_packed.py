@@ -4,7 +4,9 @@ fp32, on the CPU. K1 engages at the decoder concat where the packed lanes
 are 128-multiples (features (32, 32, 32, 32)); a spy on the port's K1
 wrapper proves it (a silent fallback to the concat cannot pass). Under
 pallas_conv=True spies on both packages' K1/K3/K4/K5 entry points show
-that the port engages the same kernels at the same sites as JAX."""
+that the port engages the same kernels at the same sites as JAX, and under
+pallas_conv="fused" the same K6 forms (pre=/want_stats=) at the same
+sites."""
 
 from collections import Counter
 
@@ -160,6 +162,90 @@ def test_pallas_all_plane_out_matches_jax(monkeypatch):
     np.testing.assert_allclose(hr.numpy(), np.asarray(j_hr), **TOL)
 
 
+def _spy_fused(monkeypatch, module):
+    """Records (entry point, covered, pre given, want_stats) for every call
+    of the K1/K3/K5 entry points of ``module``."""
+    calls = []
+    for name in ("pconv_pad11_cat", "pconv_valid", "pconv3_valid"):
+        orig = getattr(module, name)
+
+        def spy(*a, _orig=orig, _name=name, **k):
+            y = _orig(*a, **k)
+            calls.append((_name, y is not None, k.get("pre") is not None,
+                          bool(k.get("want_stats"))))
+            return y
+
+        monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("arch,shape,tol,engaged", [
+    (ARCH_CAT, (2, 8, 32, 48, 1), TOL,
+     [("pconv_valid", True, True, True),
+      ("pconv_pad11_cat", True, False, True),
+      ("pconv_valid", True, True, True)]),
+    (ARCH_ALL, (2, 8, 32, 64, 1), dict(rtol=5e-4, atol=5e-4),
+     [("pconv_valid", True, True, True),
+      ("pconv3_valid", True, True, True),
+      ("pconv3_valid", True, True, True),
+      ("pconv_pad11_cat", True, False, True),
+      ("pconv_valid", True, True, True)]),
+], ids=["features32", "kd3"])
+def test_fused_matches_jax(monkeypatch, arch, shape, tol, engaged):
+    """pallas_conv="fused" (the deferred instance norm: K6a emits stats
+    at the decoder concat, K6b/K6c apply the norm as they load and emit
+    the aligned output's stats) against JAX's "fused" forward (Pallas in
+    interpret mode) and SegModel.apply, at the JAX tests' tolerances
+    (2e-4; 5e-4 through the kd=3 class). Spies on both packages show the
+    same kernels with pre=/want_stats= at the same sites."""
+    from rehrseg_tpu.ops import pallas_pconv
+    j_calls = _spy_fused(monkeypatch, pallas_pconv)
+    t_calls = _spy_fused(monkeypatch, pconv)
+    params, x = _setup(arch, shape=shape)
+    kw = dict(pack_max_channels=64, dual=True, upscale=4,
+              pallas_conv="fused")
+    j_lr, j_hr = jax.jit(lambda p, v: jax_packed(arch, p, v, **kw))(
+        params, jnp.asarray(x))
+    jm = JaxSegModel(num_classes=2, upscale=4, arch=dict(arch))
+    r_lr, r_hr = jax.jit(jm.apply)(params, jnp.asarray(x))
+
+    lr, hr = _port(arch, params, x, **kw)
+    assert t_calls == j_calls == engaged
+    for got, want in ((lr, j_lr), (hr, j_hr), (lr, r_lr), (hr, r_hr)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+def test_fused_uncovered_arch_matches_packed(monkeypatch):
+    """At 8/16 features no kernel covers a site: "fused" defers nothing
+    and equals the port's own plain packed forward (2e-5, the JAX test's
+    tolerance for fp reassociation)."""
+    calls = _spy_fused(monkeypatch, pconv)
+    params, x = _setup(ARCH_SMALL)
+    base = _port(ARCH_SMALL, params, x, pack_max_channels=64)
+    fused = _port(ARCH_SMALL, params, x, pack_max_channels=64,
+                  pallas_conv="fused")
+    assert not any(covered for _, covered, _, _ in calls)
+    np.testing.assert_allclose(fused.numpy(), base.numpy(), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_fused_plane_out_matches_jax(monkeypatch):
+    """"fused" with plane_out (the aligned engine's emission) against
+    JAX's "fused" planes and the port's channel-last packed logits."""
+    calls = _spy_fused(monkeypatch, pconv)
+    params, x = _setup(ARCH_CAT)
+    kw = dict(pack_max_channels=64, plane_out=True, pallas_conv="fused")
+    j_planes = jax.jit(lambda p, v: jax_packed(ARCH_CAT, p, v, **kw))(
+        params, jnp.asarray(x))
+    planes = _port(ARCH_CAT, params, x, **kw)
+    base = _port(ARCH_CAT, params, x, pack_max_channels=64)
+    assert len(calls) == 3 and all(c for _, c, _, _ in calls)
+    assert planes.shape == (2, 2, 8, 32, 48)
+    np.testing.assert_allclose(planes.numpy(), np.asarray(j_planes), **TOL)
+    np.testing.assert_allclose(planes.numpy(),
+                               torch.movedim(base, -1, 1).numpy(), **TOL)
+
+
 def test_packed_uncovered_arch_concatenates(k1_spy):
     """At 8/16 features K1 never covers the concat: "cat" is exactly the
     plain packed path."""
@@ -226,9 +312,8 @@ def test_mixed_dtypes_promote():
     assert out.dtype == torch.float32
 
 
-@pytest.mark.parametrize("kw", [dict(pallas_conv="fused"),
-                                dict(remat=True), dict(return_skips=True)],
-                         ids=["fused", "remat", "skips"])
+@pytest.mark.parametrize("kw", [dict(remat=True), dict(return_skips=True)],
+                         ids=["remat", "skips"])
 def test_unported_options_raise(kw):
     params, x = _setup(ARCH_SMALL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

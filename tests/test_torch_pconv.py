@@ -108,12 +108,6 @@ def test_dtype_mismatch_is_uncovered():
                            None) is None
 
 
-def test_want_stats_is_not_ported():
-    xa, xb, w, _ = _inputs(n=1, h=8, w=16)
-    with pytest.raises(NotImplementedError, match="K6"):
-        pconv_pad11_cat(_t(xa), _t(xb), _t(w), None, want_stats=True)
-
-
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -141,20 +141,6 @@ def test_none_where_jax_returns_none(case):
     assert getattr(pconv, name)(_t(x), _t(w), None, **kw) is None
 
 
-@pytest.mark.parametrize("name,kw", [
-    ("pconv_valid", dict(pre=(0.0, 0.0, 0.01))),
-    ("pconv_valid", dict(want_stats=True)),
-    ("pconv3_valid", dict(pre=(0.0, 0.0, 0.01))),
-    ("pconv3_valid", dict(want_stats=True)),
-], ids=["k3_pre", "k3_stats", "k5_pre", "k5_stats"])
-def test_deferred_norm_options_are_not_ported(name, kw):
-    kd = 1 if name == "pconv_valid" else 3
-    x = _offset((1,) if kd == 1 else (1, 1), 5, 24, 16)
-    w, _ = _weights(kd)
-    with pytest.raises(NotImplementedError, match="K6"):
-        getattr(pconv, name)(_t(x), _t(w), None, w_out=16, **kw)
-
-
 # ------------------------------------------------------------ on the card
 
 @pytest.fixture

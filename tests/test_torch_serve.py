@@ -115,6 +115,42 @@ def test_segment_hr_pallas_all_matches_jax(monkeypatch):
     _agree(hr, want_hr)
 
 
+def test_segment_hr_fused_matches_jax(monkeypatch):
+    """Segmenter(pallas_conv="fused") on the aligned grid against the JAX
+    Segmenter (its served "cat" forward, the same math), at an arch whose
+    packed stages defer their norms: K6a at the decoder concat, K6b and
+    K6c consuming the deferred norms on every tile."""
+    from rehrseg_tpu_torch.ops import pconv
+
+    arch = dict(SMALL_ARCH, features_per_stage=(32, 64, 64, 64))
+    params = convert.random_flax_params(arch, 7)
+    patch = (4, 16, 128)
+    engaged = []
+    for name in ("pconv_pad11_cat", "pconv_valid", "pconv3_valid"):
+        orig = getattr(pconv, name)
+
+        def spy(*a, _orig=orig, _name=name, **k):
+            y = _orig(*a, **k)
+            if y is not None and k.get("want_stats"):
+                engaged.append(_name)
+            return y
+
+        monkeypatch.setattr(pconv, name, spy)
+    jseg = JaxSegmenter(model=JaxSegModel(num_classes=2, upscale=4,
+                                          arch=arch),
+                        params=params, patch_size=patch, slice_separation=4,
+                        compute_dtype=jnp.float32, tile_grid="aligned")
+    tseg = Segmenter.from_flax(params, arch, patch, device="cpu",
+                               compute_dtype=torch.float32,
+                               tile_grid="aligned", pallas_conv="fused")
+    vol = _vol((6, 24, 128), 8)
+    lr, hr = tseg.segment(vol, hr=True)
+    assert {"pconv_pad11_cat", "pconv_valid", "pconv3_valid"} <= set(engaged)
+    want_lr, want_hr = jseg.segment(vol, hr=True)
+    _agree(lr, want_lr)
+    _agree(hr, want_hr)
+
+
 def test_unpacked_eval_matches_jax(params):
     jseg, tseg = _pair(params, packed_eval=False, mirror=False)
     vol = _vol((6, 24, 24), 4)
