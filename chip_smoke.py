@@ -11,10 +11,15 @@ and nothing of the JAX package. Phases, each printing one JSON line:
   k1, k2   each kernel against its plain PyTorch version at the serving
            path's shapes (max error against the stated tolerance), with
            kernel / plain / library times from CUDA events and the bound;
+           K1 (bf16: the wgmma / TMA kernel) also at ragged bf16 shapes (an
+           odd height, one and a half tiles wide, Ca != Cb, Co = 256, an
+           image smaller than a tile), its columns > w exact zeros;
   k3, k4, k5  the same for the pallas_conv=True kernels (pconv_valid,
            pconv_pad11, pconv3_valid) at that forward's shapes, bf16, and
            at a small fp32 shape; the VALID kernels' inputs carry garbage
-           in their pad columns;
+           in their pad columns; K5 (bf16: the wgmma / TMA kernel) also at
+           ragged bf16 shapes (D = 1 and 2, an odd height, one and a half
+           tiles wide, Co = 384, an image smaller than a tile);
   tile     one full-width DEFAULT_ARCH tile: the packed forward with K1
            against the unpacked SegModel, fp32 (TF32 off);
   tile_pallas  the same tile through pallas_conv=True (K1, K3, K5), and
@@ -120,6 +125,17 @@ def check_close(name, got, want, rtol, atol):
     return max_err
 
 
+# ragged bf16 shapes for the wgmma / TMA kernels, beside the main path's:
+# K1 (n, h, w, Ca, Cb, Co): an odd height and one and a half 16-wide tiles;
+# Ca != Cb and Co = 256; an image smaller than one tile, a batch of one.
+# K5 (B, D, hp, wp8, Ci, Co), w_out = wp8 - 8: D = 1, an odd height, one and
+# a half tiles wide; D = 2 and Co = 384; an image smaller than one tile.
+K1_RAGGED = ((2, 13, 24, 128, 128, 128), (3, 7, 24, 128, 256, 256),
+             (1, 3, 8, 256, 128, 128))
+K5_RAGGED = ((2, 1, 14, 32, 128, 128), (1, 2, 10, 32, 128, 384),
+             (1, 3, 4, 16, 256, 128))
+
+
 def phase_k1(gen, dev):
     from rehrseg_tpu_torch.ops.pconv import (pconv_pad11_cat,
                                              pconv_pad11_cat_plain)
@@ -132,7 +148,9 @@ def phase_k1(gen, dev):
             ("bf16_main", (128, 160, 192, 128, 128, 128), torch.bfloat16,
              0.04),
             ("fp32_small", (4, 16, 32, 128, 128, 128), torch.float32,
-             2e-5)):
+             2e-5),
+            *((f"bf16_ragged_{i}", shape, torch.bfloat16, 0.04)
+              for i, shape in enumerate(K1_RAGGED))):
         xa = torch.randn(n, h, w, ca, generator=gen, device=dev).to(dtype)
         xb = torch.randn(n, h, w, cb, generator=gen, device=dev).to(dtype)
         wt = (torch.randn(2, 2, ca + cb, co, generator=gen, device=dev)
@@ -144,6 +162,9 @@ def phase_k1(gen, dev):
                                     b.float())
         max_err = check_close(f"K1 {label}", y, ref, tol, tol)
         del ref
+        if bool((y[:, :, w + 1:] != 0).any()):
+            raise AssertionError(f"K1 {label}: columns > w are not exact "
+                                 f"zeros")
         rec = dict(shape=[n, h, w, ca, cb, co], dtype=str(dtype),
                    max_abs_err=max_err, tolerance=tol)
         if label == "bf16_main":
@@ -284,15 +305,19 @@ PCONV_FNS = {"k3": "pconv_valid", "k4": "pconv_pad11",
 
 def phase_pconv(kernel, gen, dev):
     """One of K3/K4/K5 against its plain version (fp32 on the same
-    operands), bf16 at the path's shape and fp32 at a small one, with
-    kernel / plain / library times and the bound at the path's shape."""
+    operands), bf16 at the path's shape and fp32 at a small one (K5 also
+    bf16 at ragged shapes), with kernel / plain / library times and the
+    bound at the path's shape."""
     from rehrseg_tpu_torch.ops import pconv
 
     fn = getattr(pconv, PCONV_FNS[kernel])
     out = {}
     for label, shape, dtype, tol in (
             ("bf16_main", PCONV_SHAPES[kernel][0], torch.bfloat16, 0.04),
-            ("fp32_small", PCONV_SHAPES[kernel][1], torch.float32, 2e-5)):
+            ("fp32_small", PCONV_SHAPES[kernel][1], torch.float32, 2e-5),
+            *((f"bf16_ragged_{i}", shape, torch.bfloat16, 0.04)
+              for i, shape in enumerate(K5_RAGGED if kernel == "k5"
+                                        else ()))):
         args, kw, plain, library, flops, in_bytes = _pconv_case(
             kernel, shape, dtype, gen, dev)
         y = fn(*args, **kw)
@@ -943,7 +968,7 @@ def main() -> int:
             "library_ms")
     emit({"kernels": [
         dict(name="pconv_pad11_cat", route="cuda",
-             source="rehrseg_tpu_torch/csrc/pconv_pad11_cat.cu",
+             source="rehrseg_tpu_torch/csrc/pconv_pad11_cat_sm90.cu",
              replaces="rehrseg_tpu/ops/pallas_pconv.py:889",
              launches=launches["pconv_pad11_cat"],
              **{k: k1[k] for k in keys}),
@@ -966,7 +991,7 @@ def main() -> int:
              launches_in="tile_pallas stage0_3conv",
              **{k: kp["k4"][k] for k in keys}),
         dict(name="pconv3_valid", route="cuda",
-             source="rehrseg_tpu_torch/csrc/pconv_valid.cu",
+             source="rehrseg_tpu_torch/csrc/pconv3_valid_sm90.cu",
              replaces="rehrseg_tpu/ops/pallas_pconv.py:1117",
              launches=launches_pallas["pconv3_valid"],
              **{k: kp["k5"][k] for k in keys}),

@@ -25,7 +25,9 @@
 // one barrier per step, and WMMA (mma.sync, bf16 in, fp32 accumulate)
 // consumes them. Rows of the pad columns read only zeros and are written
 // as exact zeros in the epilogue, which also adds the bias in fp32 before
-// the one rounding to bf16. wgmma and TMA are later work.
+// the one rounding to bf16. The plain bf16 form of K1 (CAT, no STATS) has
+// its own wgmma / TMA kernel in pconv_pad11_cat_sm90.cu and is not
+// instantiated here; K4 and K6a run this one.
 //
 // fp32 inputs take a plain FMA kernel (64 x 64 tiles, one tap per step).
 //
@@ -482,8 +484,8 @@ int launch_f32(const void* xa, const void* xb, const void* w, const void* b,
 
 // K1, and K6a with stats: xa (n, h, w_in, ca), xb (n, h, w_in, cb), w (2, 2,
 // ca+cb, co), b (co) -> y (n, h+1, wp8, co). stats (n, 16, co) fp32, zeroed
-// by the caller, or null for K1. Returns cudaGetLastError() after the
-// launch.
+// by the caller, or null for K1 (fp32 only: the bf16 entry takes K6a alone).
+// Returns cudaGetLastError() after the launch.
 extern "C" int pconv_pad11_cat_bf16(const void* xa, const void* xb,
                                     const void* w, const void* b, void* y,
                                     void* stats, int n, int h, int w_in,
@@ -493,8 +495,7 @@ extern "C" int pconv_pad11_cat_bf16(const void* xa, const void* xb,
   if (stats)
     return launch_bf16<true, true>(xa, xb, w, b, y, stats, g,
                                    (cudaStream_t)stream);
-  return launch_bf16<true, false>(xa, xb, w, b, y, nullptr, g,
-                                  (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;  // pconv_pad11_cat_sm90.cu's
 }
 
 extern "C" int pconv_pad11_cat_f32(const void* xa, const void* xb,

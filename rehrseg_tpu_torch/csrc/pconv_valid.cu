@@ -56,8 +56,9 @@
 // before the one rounding to bf16. STATS reduces each warp's 16 x 16
 // output fragment column by column in shared memory into a per-block
 // (2 images x Co) sum, flushed with one atomic per value. 64 accumulators a
-// thread and two blocks per SM (at most 128 registers); wgmma and TMA are
-// later work.
+// thread and two blocks per SM (at most 128 registers). The plain bf16 form
+// of K5 (kd = 3, no PRE, no STATS) has its own wgmma / TMA kernel in
+// pconv3_valid_sm90.cu and is not instantiated here.
 //
 // fp32 inputs take a plain FMA kernel (64 x 64 tiles, one tap per step),
 // with the same PRE and STATS forms.
@@ -558,7 +559,9 @@ int launch_any(const void* x, const void* w, const void* b, void* y, Geo g,
     if (pre && stats) return launch_bf16<KD, true, true>(x, w, b, y, g, fz, stream);
     if (pre) return launch_bf16<KD, true, false>(x, w, b, y, g, fz, stream);
     if (stats) return launch_bf16<KD, false, true>(x, w, b, y, g, fz, stream);
-    return launch_bf16<KD, false, false>(x, w, b, y, g, fz, stream);
+    // bf16 K5's plain form is pconv3_valid_sm90.cu's
+    if constexpr (KD == 3) return (int)cudaErrorInvalidValue;
+    else return launch_bf16<KD, false, false>(x, w, b, y, g, fz, stream);
   } else {
     if (pre && stats) return launch_f32<KD, true, true>(x, w, b, y, g, fz, stream);
     if (pre) return launch_f32<KD, true, false>(x, w, b, y, g, fz, stream);
@@ -583,7 +586,8 @@ int launch_kd(const void* x, const void* w, const void* b, void* y, Geo g,
 // (co) -> y (nb, nd, hp-1, w_out, co); kd 1 or 3. With sa, ta (nb, ci) in
 // x's type the pre transform applies (null: none); with stats (nb * nd, 16,
 // co) fp32, zeroed by the caller, the moment partials accumulate (null:
-// none). Returns cudaGetLastError() after the launch.
+// none). kd 3 without sa, ta and stats is pconv3_valid_sm90.cu's: invalid
+// here. Returns cudaGetLastError() after the launch.
 extern "C" int pconv_valid_bf16(const void* x, const void* w, const void* b,
                                 void* y, const void* sa, const void* ta,
                                 void* stats, int nb, int nd, int hp, int wp8,

@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` source has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``build/rehrseg_tpu_torch/`` at the repo root (git-ignored), then loaded
-with ``ctypes``. A library's file name carries a hash of its source and the
-flags, so an edited source is rebuilt at its next use and an unchanged one
-is loaded as built. Nothing here runs at import time.
+with ``ctypes``. A library's file name carries a hash of its source, of
+every ``csrc/*.cuh`` header and of the flags, so an edited source or header
+is rebuilt at its next use and an unchanged one is loaded as built. Nothing
+here runs at import time.
 
 The C functions take device pointers and PyTorch's current stream, launch,
 and return ``cudaGetLastError()``; they never synchronize or allocate.
@@ -25,12 +26,19 @@ SOURCES = {
     "pconv_pad11_cat": "pconv_pad11_cat.cu",
     "accumulate_tta_tile": "accumulate_tta_tile.cu",
     "pconv_valid": "pconv_valid.cu",
+    "pconv3_valid_sm90": "pconv3_valid_sm90.cu",
+    "pconv_pad11_cat_sm90": "pconv_pad11_cat_sm90.cu",
+}
+# measuring probes: built on request (``build(["l2_feed_probe"])``), on no
+# path of the port
+PROBES = {
+    "l2_feed_probe": "l2_feed_probe.cu",
 }
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "rehrseg_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-ldl"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -47,15 +55,21 @@ def nvcc_path() -> str:
                        "source on a machine with the CUDA toolkit")
 
 
+def _source(name: str) -> Path:
+    return CSRC / (SOURCES.get(name) or PROBES[name])
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256(_source(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc_cmd(name: str, out: str) -> list:
     return [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
-            str(CSRC / SOURCES[name])]
+            str(_source(name))]
 
 
 def build(names=None) -> dict:

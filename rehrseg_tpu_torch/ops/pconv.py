@@ -44,10 +44,13 @@ the per-image scale and shift):
   contract; how they spread over the rows is not.
 
 On the H100 each is an implicit GEMM in CUDA C++ (M = output pixels, N =
-Co, K = taps x Ci) with a bf16 WMMA (``mma.sync``) kernel and an fp32 FMA
-kernel; K1, K4 and K6a share ``csrc/pconv_pad11_cat.cu``, K3, K5, K6b, K6c
-(and K7, :mod:`.conv2x2`) share ``csrc/pconv_valid.cu``. Every kernel adds
-the bias in fp32 and rounds once.
+Co, K = taps x Ci). bf16 K1 and K5 (plain forms) run the Hopper kernels of
+``csrc/pconv_pad11_cat_sm90.cu`` and ``csrc/pconv3_valid_sm90.cu`` (TMA-fed
+shared memory, ``wgmma``; shared code in ``csrc/sm90_pipeline.cuh``). The
+others have a bf16 WMMA (``mma.sync``) kernel and an fp32 FMA kernel: K4,
+K6a and fp32 K1 in ``csrc/pconv_pad11_cat.cu``, K3, K6b, K6c and fp32 K5
+(and K7, :mod:`.conv2x2`) in ``csrc/pconv_valid.cu``. Every kernel adds the
+bias in fp32 and rounds once.
 
 Each wrapper keeps the JAX call contract: the same shapes, dtypes, default
 ``w_out`` rule, ``(y, stats)`` when ``want_stats``, and ``None`` where the
@@ -197,11 +200,13 @@ def _count(counter, attr: str):
     setattr(counter, attr, getattr(counter, attr) + 1)
 
 
-def _launch_pad11(counter, x, w, b, xb=None, want_stats=False):
+def _launch_pad11(counter, x, w, b, xb=None, want_stats=False,
+                  variant=None):
     """K1 when xb is given (K6a with want_stats), K4 otherwise: (n, h+1,
     wp8, co) [and (n, 16, co) stats]. Adds one to the counter's
     ``launches`` (``fused_launches`` for K6a) once the kernel is
-    launched."""
+    launched. bf16 K1 runs the Hopper kernel; ``variant`` (cluster, stages,
+    log2 tile width) names one of its timed variants."""
     n, h, w_in, ca = x.shape
     c_out = w.shape[-1]
     what = "pconv_pad11" if xb is None else "pconv_pad11_cat"
@@ -223,6 +228,14 @@ def _launch_pad11(counter, x, w, b, xb=None, want_stats=False):
         fn = _entry("pconv_pad11_cat", fn_name, [_PTR] * 4 + [_INT] * 6)
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                  n, h, w_in, ca, c_out, wp8, _stream(x))
+    elif sfx == "bf16" and not want_stats:
+        fn_name = "pconv_pad11_cat_sm90_bf16" + ("_variant" if variant
+                                                 else "")
+        fn = _entry("pconv_pad11_cat_sm90", fn_name,
+                    [_PTR] * 5 + [_INT] * (10 if variant else 7))
+        err = fn(x.data_ptr(), xb.data_ptr(), w.data_ptr(), b.data_ptr(),
+                 y.data_ptr(), n, h, w_in, ca, xb.shape[-1], c_out, wp8,
+                 *(variant or ()), _stream(x))
     else:
         stats = (torch.zeros((n, 16, c_out), dtype=torch.float32,
                              device=x.device) if want_stats else None)
@@ -238,11 +251,13 @@ def _launch_pad11(counter, x, w, b, xb=None, want_stats=False):
     return y
 
 
-def _launch_valid(counter, x, w, b, w_out, pre=None, want_stats=False):
+def _launch_valid(counter, x, w, b, w_out, pre=None, want_stats=False,
+                  variant=None):
     """K3 (x 4D, w (2, 2, Ci, Co)) or K5 (x 5D, w (3, 2, 2, Ci, Co)); K6b
     / K6c with ``pre`` or ``want_stats``. Adds one to the counter's
     ``launches`` (``fused_launches`` for a K6 form) once the kernel is
-    launched."""
+    launched. bf16 K5 runs the Hopper kernel; ``variant`` (cluster, stages,
+    log2 tile width) names one of its timed variants."""
     what = "pconv_valid" if x.ndim == 4 else "pconv3_valid"
     kd = 1 if x.ndim == 4 else 3
     *lead, hp, wp8, c_in = x.shape
@@ -272,14 +287,22 @@ def _launch_valid(counter, x, w, b, w_out, pre=None, want_stats=False):
                          device=x.device) if want_stats else None)
     if y.numel() == 0:
         return (y, stats) if want_stats else y
-    fn_name = f"pconv_valid_{sfx}"
-    fn = _entry("pconv_valid", fn_name, [_PTR] * 7 + [_INT] * 8 + [_FLT])
-    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-             sa.data_ptr() if pre is not None else None,
-             ta.data_ptr() if pre is not None else None,
-             stats.data_ptr() if want_stats else None,
-             nb, nd, hp, wp8, c_in, c_out, w_out, kd,
-             slope if pre is not None else 0.0, _stream(x))
+    if kd == 3 and sfx == "bf16" and not fused:
+        fn_name = "pconv3_valid_sm90_bf16" + ("_variant" if variant else "")
+        fn = _entry("pconv3_valid_sm90", fn_name,
+                    [_PTR] * 4 + [_INT] * (10 if variant else 7))
+        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 nb, nd, hp, wp8, c_in, c_out, w_out, *(variant or ()),
+                 _stream(x))
+    else:
+        fn_name = f"pconv_valid_{sfx}"
+        fn = _entry("pconv_valid", fn_name, [_PTR] * 7 + [_INT] * 8 + [_FLT])
+        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 sa.data_ptr() if pre is not None else None,
+                 ta.data_ptr() if pre is not None else None,
+                 stats.data_ptr() if want_stats else None,
+                 nb, nd, hp, wp8, c_in, c_out, w_out, kd,
+                 slope if pre is not None else 0.0, _stream(x))
     kernels.check(err, fn_name)
     _count(counter, "fused_launches" if fused else "launches")
     return (y, stats) if want_stats else y

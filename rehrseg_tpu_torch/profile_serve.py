@@ -25,25 +25,27 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-# kernel-name fragments -> class, first match wins (K1's kernels are
-# <CAT, STATS>: K4 runs them with CAT false, K6a with STATS true; K3, K5
-# and their K6 forms are one kernel <KD, PRE, STATS>)
+# kernel-name fragments -> class, first match wins (the WMMA / FMA pad11
+# kernels are <CAT, STATS>: K4 runs them with CAT false, K6a with STATS
+# true, fp32 K1 with <true, false>; K3, fp32 K5 and the K6 forms are one
+# kernel <KD, PRE, STATS>; bf16 K1 and K5 are conv_wgmma_kernel<Pad11Cat,
+# ..> and <Valid3, ..>)
 _CLASSES = (
     ("k4_pconv_pad11", ("pad11_cat_bf16_kernel<false, false>",
                         "pad11_cat_f32_kernel<false, false>")),
     ("k6a_pconv_pad11_cat_stats", ("pad11_cat_bf16_kernel<true, true>",
                                    "pad11_cat_f32_kernel<true, true>")),
-    ("k1_pconv_pad11_cat", ("pad11_cat",)),
+    ("k1_pconv_pad11_cat", ("Pad11Cat", "pad11_cat")),
     ("k3_pconv_valid", ("valid_bf16_kernel<1, false, false>",
                         "valid_f32_kernel<1, false, false>")),
-    ("k5_pconv3_valid", ("valid_bf16_kernel<3, false, false>",
-                         "valid_f32_kernel<3, false, false>")),
+    ("k5_pconv3_valid", ("Valid3", "valid_f32_kernel<3, false, false>")),
     ("k6b_pconv_valid_fused", ("valid_bf16_kernel<1, true, true>",
                                "valid_f32_kernel<1, true, true>")),
     ("k6c_pconv3_valid_fused", ("valid_bf16_kernel<3, true, true>",
@@ -56,6 +58,17 @@ _CLASSES = (
     ("reduction", ("reduce", "Reduce", "norm")),
     ("elementwise", ("elementwise", "vectorized", "Elementwise")),
 )
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], check=True, capture_output=True,
+            text=True).stdout.splitlines()[0].strip()
+    except (OSError, subprocess.CalledProcessError, IndexError):
+        return torch.cuda.get_device_name(0)
 
 
 def _classify(name: str) -> str:
@@ -111,7 +124,7 @@ def main(argv=None) -> int:
         by_class[cls] = by_class.get(cls, 0.0) + ms
     kernels.sort(key=lambda k: -k[1])
     print(json.dumps({
-        "phase": "profile", "card": torch.cuda.get_device_name(0),
+        "phase": "profile", "card": _card(),
         "pallas_conv": args.pallas_conv,
         "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / (wall * 1e3),

@@ -1,0 +1,291 @@
+"""Check and time the variants of the Hopper K1 and K5 kernels on the card.
+
+    python -m rehrseg_tpu_torch.tune_sm90 [--check-only] [--iters N]
+                                          [--rounds R]
+
+Builds ``csrc/pconv_pad11_cat_sm90.cu``, ``csrc/pconv3_valid_sm90.cu`` and
+the probe ``csrc/l2_feed_probe.cu``, then prints one JSON line per phase:
+
+  build   nvcc's seconds and ptxas's registers and spills;
+  sass    how many wgmma (``HGMMA``) and TMA tile-load (``UTMALDG``)
+          instructions ``cuobjdump -sass`` finds in each built library;
+  check   the default variant of each kernel against its plain version on
+          fp32 copies (tolerance 0.04) at ragged shapes, with the first
+          disagreeing index where one fails (exit code 1 at the end);
+  probe   the rate at which TMA boxes shaped like the kernels' input tiles
+          reach shared memory, from a region that fits in L2 and from one
+          that does not (``l2_feed_probe``);
+  tune    at the main path's shapes (bf16), every variant (blocks per
+          cluster, ring stages, tile width) of each kernel, each checked
+          first, beside the default variant, the library call (cuDNN) on
+          the same operands and the kernel's bound: the median and the
+          least of R timings of N launches, the candidates timed in turn.
+
+Needs a CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from . import kernels
+from .ops import pconv
+
+TOL = 0.04
+K1_MAIN = (128, 160, 192, 128, 128, 128)
+K5_MAIN = (8, 16, 81, 104, 256, 256)
+# (n, h, w, ca, cb, co): an odd height, one and a half tiles wide, Ca != Cb,
+# Co = 256, an image smaller than one tile, a batch of one
+K1_CHECKS = ((2, 13, 24, 128, 128, 128), (3, 7, 24, 128, 256, 256),
+             (1, 3, 8, 128, 128, 128), (2, 16, 32, 256, 128, 384))
+# (b, d, hp, wp8, ci, co) with w_out = wp8 - 8
+K5_CHECKS = ((2, 3, 14, 32, 128, 128), (1, 1, 10, 32, 128, 256),
+             (1, 2, 4, 16, 128, 384), (2, 2, 17, 40, 256, 128))
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, iters, warmup=2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def k1_operands(shape, gen, dev):
+    n, h, w, ca, cb, co = shape
+
+    def randn(*s):
+        return torch.randn(*s, generator=gen, device=dev)
+    return (randn(n, h, w, ca).bfloat16(), randn(n, h, w, cb).bfloat16(),
+            (randn(2, 2, ca + cb, co) / (4 * (ca + cb)) ** 0.5).bfloat16(),
+            (0.1 * randn(co)).bfloat16())
+
+
+def k5_operands(shape, gen, dev):
+    b, d, hp, wp8, ci, co = shape
+
+    def randn(*s):
+        return torch.randn(*s, generator=gen, device=dev)
+    x = randn(b, d, hp, wp8, ci).bfloat16()
+    x[..., wp8 - 7:, :] = 1e3     # the pad columns are never read
+    return (x, (randn(3, 2, 2, ci, co) / (12 * ci) ** 0.5).bfloat16(),
+            (0.1 * randn(co)).bfloat16())
+
+
+def run_k1(ops, variant=None):
+    xa, xb, w, b = ops
+    return pconv._launch_pad11(pconv.pconv_pad11_cat, xa, w, b, xb=xb,
+                               variant=variant)
+
+
+def run_k5(ops, variant=None):
+    x, w, b = ops
+    return pconv._launch_valid(pconv.pconv3_valid, x, w, b, x.shape[3] - 8,
+                               variant=variant)
+
+
+def ref_k1(ops):
+    return pconv.pconv_pad11_cat_plain(*(t.float() for t in ops))
+
+
+def ref_k5(ops):
+    x, w, b = ops
+    return pconv.pconv3_valid_plain(x.float(), w.float(), b.float(),
+                                    x.shape[3] - 8)
+
+
+def compare(got, want) -> dict:
+    """Max abs error and, where it is over the tolerance, how many values
+    disagree and the first one's index."""
+    err = (got.float() - want).abs()
+    bad = err > TOL + TOL * want.abs()
+    rec = {"max_abs_err": float(err.max()), "ok": not bool(bad.any())}
+    if not rec["ok"]:
+        idx = bad.nonzero()[0].tolist()
+        rec.update(n_bad=int(bad.sum()), of=bad.numel(), first_bad=idx,
+                   got=float(got[tuple(idx)]), want=float(want[tuple(idx)]))
+    return rec
+
+
+def phase_sass(names):
+    """Count the machine instructions that show what the built kernels
+    run on: HGMMA is wgmma, UTMALDG a TMA tile load into shared memory."""
+    exe = shutil.which("cuobjdump") or str(
+        Path(kernels.nvcc_path()).with_name("cuobjdump"))
+    for name in names:
+        lib = kernels.library_path(name)
+        try:
+            sass = subprocess.run([exe, "-sass", str(lib)], check=True,
+                                  capture_output=True, text=True).stdout
+        except (OSError, subprocess.CalledProcessError) as e:
+            emit({"phase": "sass", "library": lib.name, "error": str(e)})
+            continue
+        emit({"phase": "sass", "library": lib.name,
+              "HGMMA": len(re.findall(r"\bHGMMA\.", sass)),
+              "UTMALDG": len(re.findall(r"\bUTMALDG\.", sass)),
+              "kinds": sorted(set(re.findall(
+                  r"\b(?:HGMMA|UTMALDG)[.\w]*", sass)))})
+
+
+def phase_check(gen, dev) -> bool:
+    ok = True
+    for name, shapes, operands, run, ref in (
+            ("k1", K1_CHECKS, k1_operands, run_k1, ref_k1),
+            ("k5", K5_CHECKS, k5_operands, run_k5, ref_k5)):
+        for shape in shapes:
+            ops = operands(shape, gen, dev)
+            got = run(ops)
+            torch.cuda.synchronize()
+            rec = compare(got, ref(ops))
+            if name == "k1":
+                rec["zero_columns"] = not bool(
+                    (got[:, :, shape[2] + 1:] != 0).any())
+                rec["ok"] = rec["ok"] and rec["zero_columns"]
+            ok = ok and rec["ok"]
+            emit({"phase": "check", "kernel": name, "shape": shape, **rec})
+    return ok
+
+
+def phase_probe(dev, iters=2000):
+    """GB/s of 16 KB TMA boxes (128 rows x 128 bytes of a 512-byte pitch)
+    into shared memory, all SMs at once."""
+    kernels.build(["l2_feed_probe"])
+    fn = kernels.load("l2_feed_probe").l2_feed_probe
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    out = {}
+    for label, rows in (("l2_16MB", 32 * 1024), ("hbm_1GB", 2048 * 1024)):
+        buf = torch.zeros(rows, 256, dtype=torch.bfloat16, device=dev)
+        blocks = ctypes.c_int(0)
+
+        def launch():
+            err = fn(buf.data_ptr(), rows, 256, iters, ctypes.byref(blocks),
+                     torch.cuda.current_stream().cuda_stream)
+            kernels.check(err, "l2_feed_probe")
+        ms = cuda_ms(launch, 5)
+        out[label] = dict(ms=ms, blocks=blocks.value,
+                          gb_per_s=blocks.value * iters * 48 * 1024 / ms / 1e6)
+        del buf
+    emit({"phase": "probe", "box": "128 rows x 128 B, pitch 512 B", **out})
+
+
+def phase_tune(gen, dev, iters, rounds):
+    peak, hbm = 989e12, 3.35e12
+    for name, shape, operands, run, ref in (
+            ("k1", K1_MAIN, k1_operands, run_k1, ref_k1),
+            ("k5", K5_MAIN, k5_operands, run_k5, ref_k5)):
+        ops = operands(shape, gen, dev)
+        want = ref(ops)
+        if name == "k1":
+            n, h, w, ca, cb, co = shape
+            xa, xb, wt, b = ops
+            flops = 2 * n * h * w * 4 * (ca + cb) * co
+            n_bytes = sum(t.numel() * 2 for t in ops) + want.numel() * 2
+            cat = torch.cat([xa, xb], -1).permute(0, 3, 1, 2)
+            wl = wt.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+
+            def library():
+                return F.conv2d(cat, wl, b, padding=1)
+        else:
+            bsz, d, hp, wp8, ci, co = shape
+            x, wt, b = ops
+            w_out = wp8 - 8
+            flops = 2 * bsz * (3 * d - 2) * (hp - 1) * w_out * 4 * ci * co
+            n_bytes = (x[..., :w_out + 1, :].numel() + wt.numel()
+                       + b.numel() + want.numel()) * 2
+            xl = x[:, :, :, :w_out + 1].permute(0, 4, 1, 2, 3).contiguous(
+                memory_format=torch.channels_last_3d)
+            wl = wt.permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+
+            def library():
+                return F.conv3d(xl, wl, b, padding=(1, 0, 0))
+        variants = [(1, 3, -1), (2, 3, -1), (1, 2, -1), (2, 2, -1),
+                    (1, 3, 3), (1, 3, 4), (1, 3, 5)]
+        checks = []
+        for variant in variants:
+            got = run(ops, variant)
+            torch.cuda.synchronize()
+            checks.append(compare(got, want))
+            del got
+        # the card's clock drifts under load: time every candidate in turn,
+        # several rounds, and keep each one's median and least round
+        calls = {"library": library, "default": lambda: run(ops)}
+        for variant in variants:
+            calls[variant] = lambda v=variant: run(ops, v)
+        times = {k: [] for k in calls}
+        for _ in range(rounds):
+            for k, call in calls.items():
+                times[k].append(cuda_ms(call, iters, warmup=1))
+
+        def stat(k):
+            t = sorted(times[k])
+            return {"ms": t[len(t) // 2], "min_ms": t[0]}
+        rec = {"phase": "tune", "kernel": name, "shape": shape,
+               "rounds": rounds, "iters": iters,
+               "bound_ms": max(flops / peak, n_bytes / hbm) * 1e3,
+               "library": stat("library"), "default": stat("default"),
+               "variants": [dict(cluster=v[0], stages=v[1], log_tw=v[2],
+                                 **stat(v), **c)
+                            for v, c in zip(variants, checks)]}
+        emit(rec)
+        del ops, want
+        torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--check-only", action="store_true")
+    ap.add_argument("--iters", type=int, default=5,
+                    help="launches per timing")
+    ap.add_argument("--rounds", type=int, default=7,
+                    help="timings of each candidate, taken in turn")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("tune_sm90: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    logs = kernels.build(["pconv_pad11_cat_sm90", "pconv3_valid_sm90"])
+    emit({"phase": "build", "seconds": time.perf_counter() - t,
+          "card": torch.cuda.get_device_name(0),
+          "cuda": torch.version.cuda,
+          "ptxas": {k: [ln.strip() for ln in v.splitlines()
+                        if "Used" in ln or "spill" in ln or "warn" in ln
+                        or "Compiling entry" in ln]
+                    for k, v in logs.items()}})
+    phase_sass(["pconv_pad11_cat_sm90", "pconv3_valid_sm90"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ok = phase_check(gen, dev)
+    if not args.check_only:
+        phase_probe(dev)
+        phase_tune(gen, dev, args.iters, args.rounds)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

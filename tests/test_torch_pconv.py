@@ -74,6 +74,25 @@ def test_plain_matches_pallas_bf16():
                                atol=0.04)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(n=1, h=8, w=16, ca_u=32, cb_u=64),          # Ca != Cb
+    dict(n=1, h=8, w=16, co=96),                     # Co = 384
+    dict(n=1, d=1, h=12, w=16, cb_u=64, co=64),      # h = 6, Co = 256, N = 1
+], ids=["ca_ne_cb", "co_384", "h6_co256_batch1"])
+def test_plain_matches_pallas_shapes(kw):
+    """Shapes the Hopper kernel must take as well: unequal inputs, several
+    blocks of output channels, a height that is no multiple of a tile's."""
+    jnp, jax_cat = _jax()
+    xa, xb, w, b = _inputs(**kw)
+    want = np.asarray(jax_cat(jnp.asarray(xa), jnp.asarray(xb),
+                              jnp.asarray(w), jnp.asarray(b),
+                              interpret=True))
+    got = pconv_pad11_cat(_t(xa), _t(xb), _t(w), _t(b))
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    assert torch.all(got[:, :, xa.shape[2] + 1:] == 0)
+
+
 def _uncovered(xa, xb, w):
     """Operand variants the kernel does not cover."""
     return {
@@ -128,3 +147,36 @@ def test_kernel_matches_plain(cuda_device, dtype, tol, monkeypatch):
     want = pconv_pad11_cat_plain(xa.float(), xb.float(), w.float(),
                                  b.float())
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+# (n, h, w, Ca, Cb, Co): an odd height and one and a half 16-wide tiles;
+# Ca != Cb with Co = 256; Co = 384; an image smaller than one tile with a
+# batch of one; the shapes of _inputs()
+SM90_SHAPES = [(2, 13, 24, 128, 128, 128), (3, 7, 24, 128, 256, 256),
+               (2, 16, 32, 256, 128, 384), (1, 3, 8, 128, 128, 128),
+               (4, 8, 16, 128, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SM90_SHAPES,
+                         ids=["odd_h_ragged_w", "ca_ne_cb_co256", "co384",
+                              "below_one_tile_batch1", "aligned"])
+def test_sm90_kernel_matches_plain(cuda_device, shape, monkeypatch):
+    """The bf16 wgmma / TMA kernel against the plain version on fp32
+    copies (TF32 off), at ragged shapes; columns > w exact zeros."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    n, h, w, ca, cb, co = shape
+    rng = np.random.default_rng(3)
+    xa, xb, wt, b = (
+        _t(a, torch.bfloat16).to(cuda_device) for a in (
+            rng.normal(size=(n, h, w, ca)), rng.normal(size=(n, h, w, cb)),
+            rng.normal(size=(2, 2, ca + cb, co)) / np.sqrt(4 * (ca + cb)),
+            0.1 * rng.normal(size=(co,))))
+    before = pconv_pad11_cat.launches
+    got = pconv_pad11_cat(xa, xb, wt, b)
+    torch.cuda.synchronize()
+    assert pconv_pad11_cat.launches == before + 1
+    want = pconv_pad11_cat_plain(xa.float(), xb.float(), wt.float(),
+                                 b.float())
+    torch.testing.assert_close(got.float(), want, rtol=0.04, atol=0.04)
+    assert torch.all(got[:, :, w + 1:] == 0)

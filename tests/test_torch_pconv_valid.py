@@ -94,6 +94,18 @@ def test_k5_plain_matches_pallas(dt, d, w_out):
     assert got.shape == (1, d, 8, 24 if w_out is None else w_out, C)
 
 
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("d,hp,c_out", [(2, 7, 3 * C), (1, 11, 2 * C)],
+                         ids=["co_384", "ci_ne_co_single_z"])
+def test_k5_plain_matches_pallas_shapes(dt, d, hp, c_out):
+    """Shapes the Hopper kernel must take as well: several blocks of
+    output channels, Ci != Co, heights that are no multiple of a tile's."""
+    x = _offset((1, d), hp, 32, 24)
+    w, b = _weights(3, c_out=c_out)
+    got = _run_both("pconv3_valid", dt, x, w, b, w_out=None)
+    assert got.shape == (1, d, hp - 1, 24, c_out)
+
+
 def _uncovered(case):
     """(wrapper name, x, w, kw) for shapes the kernels do not cover."""
     rng = _rng(0)
@@ -185,3 +197,34 @@ def test_kernel_matches_plain(cuda_device, name, dtype, tol, monkeypatch):
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
     if name == "pconv_pad11":
         assert torch.all(got[:, :, 33:] == 0)
+
+
+# (B, D, hp, wp8, Ci, Co), w_out = wp8 - 8: D = 1 with an odd height and one
+# and a half 16-wide tiles; D = 2 with Co = 384; an image smaller than one
+# tile with a batch of one; Ci = 256 != Co on more than one tile row
+SM90_SHAPES = [(2, 1, 14, 32, 128, 128), (1, 2, 10, 32, 128, 384),
+               (1, 3, 4, 16, 128, 128), (2, 2, 19, 40, 256, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SM90_SHAPES,
+                         ids=["single_z_odd_h_ragged_w", "two_z_co384",
+                              "below_one_tile_batch1", "ci256_two_tile_rows"])
+def test_sm90_k5_matches_plain(cuda_device, shape, monkeypatch):
+    """The bf16 wgmma / TMA kernel of K5 against the plain version on fp32
+    copies (TF32 off), at ragged shapes, with garbage in the pad columns."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    bsz, d, hp, wp8, ci, co = shape
+    w_out = wp8 - 8
+    rng = _rng(5)
+    x = rng.normal(size=(bsz, d, hp, wp8, ci))
+    x[..., w_out + 1:, :] = 1e3
+    w = rng.normal(size=(3, 2, 2, ci, co)) / np.sqrt(12 * ci)
+    b = 0.1 * rng.normal(size=(co,))
+    x, w, b = _on(cuda_device, torch.bfloat16, x, w, b)
+    before = pconv.pconv3_valid.launches
+    got = pconv.pconv3_valid(x, w, b, w_out=w_out)
+    torch.cuda.synchronize()
+    assert pconv.pconv3_valid.launches == before + 1
+    want = pconv.pconv3_valid_plain(x.float(), w.float(), b.float(), w_out)
+    torch.testing.assert_close(got.float(), want, rtol=0.04, atol=0.04)
