@@ -17,9 +17,10 @@ and nothing of the JAX package. Phases, each printing one JSON line:
   k3, k4, k5  the same for the pallas_conv=True kernels (pconv_valid,
            pconv_pad11, pconv3_valid) at that forward's shapes, bf16, and
            at a small fp32 shape; the VALID kernels' inputs carry garbage
-           in their pad columns; K5 (bf16: the wgmma / TMA kernel) also at
-           ragged bf16 shapes (D = 1 and 2, an odd height, one and a half
-           tiles wide, Co = 384, an image smaller than a tile);
+           in their pad columns; each (bf16: the wgmma / TMA kernels) also
+           at ragged bf16 shapes (an odd height, one and a half tiles wide,
+           Co = 384, Ci = 256, an image smaller than a tile; K5 with D = 1
+           and 2, K4 with h = 1), K4's columns > w exact zeros;
   tile     one full-width DEFAULT_ARCH tile: the packed forward with K1
            against the unpacked SegModel, fp32 (TF32 off);
   tile_pallas  the same tile through pallas_conv=True (K1, K3, K5), and
@@ -41,7 +42,8 @@ and nothing of the JAX package. Phases, each printing one JSON line:
            fp32 shape: the output's max error and the moment half-sums'
            max relative error, kernel / plain / unfused times and the bound;
   k7       conv2x2_valid_bias on an exact odd width, the same way, with
-           cuDNN's time (no path of the port calls it);
+           cuDNN's time (no path of the port calls it), and at two ragged
+           odd-width bf16 shapes;
   tile_fused  one full-width 8-way dual tile through pallas_conv="fused"
            against the unpacked SegModel, fp32 (TF32 off), K6 launch counts
            asserted; then the bf16 tile forward's time under "fused",
@@ -130,10 +132,22 @@ def check_close(name, got, want, rtol, atol):
 # Ca != Cb and Co = 256; an image smaller than one tile, a batch of one.
 # K5 (B, D, hp, wp8, Ci, Co), w_out = wp8 - 8: D = 1, an odd height, one and
 # a half tiles wide; D = 2 and Co = 384; an image smaller than one tile.
+# K3 (n, hp, wp8, Ci, Co), w_out = wp8 - 8, and K4 (n, h, w, Ci, Co): an odd
+# height and one and a half tiles wide; Co = 384 and a batch of one; Ci =
+# 256 (the weights do not fit in shared memory: the streamed kernel) on an
+# image smaller than one tile, K4's one row high.
+# K7 (n, hp, wp, Ci, Co) at exact odd widths: one and a half tiles wide
+# with an odd height; Co = 256 on an image smaller than one tile.
 K1_RAGGED = ((2, 13, 24, 128, 128, 128), (3, 7, 24, 128, 256, 256),
              (1, 3, 8, 256, 128, 128))
 K5_RAGGED = ((2, 1, 14, 32, 128, 128), (1, 2, 10, 32, 128, 384),
              (1, 3, 4, 16, 256, 128))
+K3_RAGGED = ((2, 14, 32, 128, 128), (1, 10, 32, 128, 384),
+             (3, 4, 16, 256, 128))
+K4_RAGGED = ((2, 13, 24, 128, 128), (1, 7, 24, 128, 384),
+             (3, 1, 8, 256, 128))
+K7_RAGGED = ((2, 14, 25, 128, 128), (1, 6, 12, 128, 256))
+PCONV_RAGGED = {"k3": K3_RAGGED, "k4": K4_RAGGED, "k5": K5_RAGGED}
 
 
 def phase_k1(gen, dev):
@@ -305,9 +319,9 @@ PCONV_FNS = {"k3": "pconv_valid", "k4": "pconv_pad11",
 
 def phase_pconv(kernel, gen, dev):
     """One of K3/K4/K5 against its plain version (fp32 on the same
-    operands), bf16 at the path's shape and fp32 at a small one (K5 also
-    bf16 at ragged shapes), with kernel / plain / library times and the
-    bound at the path's shape."""
+    operands), bf16 at the path's shape and at ragged shapes and fp32 at a
+    small one, with kernel / plain / library times and the bound at the
+    path's shape."""
     from rehrseg_tpu_torch.ops import pconv
 
     fn = getattr(pconv, PCONV_FNS[kernel])
@@ -316,8 +330,7 @@ def phase_pconv(kernel, gen, dev):
             ("bf16_main", PCONV_SHAPES[kernel][0], torch.bfloat16, 0.04),
             ("fp32_small", PCONV_SHAPES[kernel][1], torch.float32, 2e-5),
             *((f"bf16_ragged_{i}", shape, torch.bfloat16, 0.04)
-              for i, shape in enumerate(K5_RAGGED if kernel == "k5"
-                                        else ()))):
+              for i, shape in enumerate(PCONV_RAGGED[kernel]))):
         args, kw, plain, library, flops, in_bytes = _pconv_case(
             kernel, shape, dtype, gen, dev)
         y = fn(*args, **kw)
@@ -326,7 +339,8 @@ def phase_pconv(kernel, gen, dev):
         max_err = check_close(f"{kernel} {label}", y, ref, tol, tol)
         del ref
         if kernel == "k4" and bool((y[:, :, shape[2] + 1:] != 0).any()):
-            raise AssertionError("K4: columns > w are not exact zeros")
+            raise AssertionError(f"K4 {label}: columns > w are not exact "
+                                 f"zeros")
         rec = dict(shape=list(shape), dtype=str(dtype), max_abs_err=max_err,
                    tolerance=tol)
         if label == "bf16_main":
@@ -512,7 +526,8 @@ def phase_k6(gen, dev):
 
 def phase_k7(gen, dev):
     """K7 on an exact odd width against its plain version, bf16 at the
-    shape of K3's site and fp32 at a small one, with cuDNN's time."""
+    shape of K3's site and at ragged odd widths, fp32 at a small one, with
+    cuDNN's time."""
     import torch.nn.functional as F
     from rehrseg_tpu_torch.ops.conv2x2 import (conv2x2_valid_bias,
                                                conv2x2_valid_bias_plain)
@@ -520,7 +535,9 @@ def phase_k7(gen, dev):
     out = {}
     for label, (n, hp, wp, ci, co), dtype, tol in (
             ("bf16_main", (128, 161, 193, 128, 128), torch.bfloat16, 0.04),
-            ("fp32_small", (4, 17, 33, 128, 128), torch.float32, 2e-5)):
+            ("fp32_small", (4, 17, 33, 128, 128), torch.float32, 2e-5),
+            *((f"bf16_ragged_{i}", shape, torch.bfloat16, 0.04)
+              for i, shape in enumerate(K7_RAGGED))):
         x = torch.randn(n, hp, wp, ci, generator=gen, device=dev).to(dtype)
         wt = (torch.randn(2, 2, ci, co, generator=gen, device=dev)
               / (4 * ci) ** 0.5).to(dtype)
@@ -979,13 +996,13 @@ def main() -> int:
              **{k: k2["lr"][k] for k in keys},
              hr={k: k2["hr"][k] for k in keys}),
         dict(name="pconv_valid", route="cuda",
-             source="rehrseg_tpu_torch/csrc/pconv_valid.cu",
+             source="rehrseg_tpu_torch/csrc/pconv2d_sm90.cu",
              replaces="rehrseg_tpu/ops/pallas_pconv.py:519",
              launches=launches_pallas["pconv_valid"],
              **{k: kp["k3"][k] for k in keys}),
         # K4's path is the 3-conv stage-0 variant (tile_pallas)
         dict(name="pconv_pad11", route="cuda",
-             source="rehrseg_tpu_torch/csrc/pconv_pad11_cat.cu",
+             source="rehrseg_tpu_torch/csrc/pconv2d_sm90.cu",
              replaces="rehrseg_tpu/ops/pallas_pconv.py:576",
              launches=tile_pallas["stage0_3conv"]["launches"]["pconv_pad11"],
              launches_in="tile_pallas stage0_3conv",
@@ -1015,9 +1032,10 @@ def main() -> int:
              launches_in="main_fused", unfused_ms=k6["k6c"]["unfused_ms"],
              **{k: k6["k6c"][k] for k in keys}),
         # K7: nothing on any path calls it, in the port as in the JAX
-        # package (0 launches in main, main_pallas and main_fused)
+        # package (0 launches in main, main_pallas and main_fused); bf16
+        # runs K3's kernel
         dict(name="conv2x2_valid_bias", route="cuda",
-             source="rehrseg_tpu_torch/csrc/pconv_valid.cu",
+             source="rehrseg_tpu_torch/csrc/pconv2d_sm90.cu",
              replaces="rehrseg_tpu/ops/pallas_conv.py:126",
              launches=launches_fused["conv2x2_valid_bias"],
              launches_in="no path: called only by its own checks",

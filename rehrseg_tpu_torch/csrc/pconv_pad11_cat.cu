@@ -25,17 +25,17 @@
 // one barrier per step, and WMMA (mma.sync, bf16 in, fp32 accumulate)
 // consumes them. Rows of the pad columns read only zeros and are written
 // as exact zeros in the epilogue, which also adds the bias in fp32 before
-// the one rounding to bf16. The plain bf16 form of K1 (CAT, no STATS) has
-// its own wgmma / TMA kernel in pconv_pad11_cat_sm90.cu and is not
-// instantiated here; K4 and K6a run this one.
+// the one rounding to bf16. The plain bf16 forms have their own wgmma / TMA
+// kernels (K1 in pconv_pad11_cat_sm90.cu, K4 in pconv2d_sm90.cu) and are
+// not instantiated here: in bf16 only K6a runs this one.
 //
 // fp32 inputs take a plain FMA kernel (64 x 64 tiles, one tap per step).
 //
 // K4, pconv_pad11 (rehrseg_tpu/ops/pallas_pconv.py:576, body _pad11_kernel
 // :272), is the same conv on one input: the pconv_pad11_* entry points run
-// these kernels with CAT = false and Cb = 0, so every K step reads xa (the
-// K loop runs over Ca / 32 chunks and never reaches xb). The template
-// argument only gives K4's launches their own kernel name.
+// the fp32 kernel with CAT = false and Cb = 0, so every K step reads xa (the
+// K loop never reaches xb). The template argument only gives K4's launches
+// their own kernel name. bf16 K4 is pconv2d_sm90.cu's.
 //
 // K6a, pconv_pad11_cat(want_stats=True) (the same TPU kernel's fused form,
 // the producer of pallas_conv="fused"), is K1 with STATS = true: the
@@ -511,15 +511,8 @@ extern "C" int pconv_pad11_cat_f32(const void* xa, const void* xb,
                                  (cudaStream_t)stream);
 }
 
-// K4: x (n, h, w_in, ci), w (2, 2, ci, co), b (co) -> y (n, h+1, wp8, co).
-extern "C" int pconv_pad11_bf16(const void* x, const void* w, const void* b,
-                                void* y, int n, int h, int w_in, int ci,
-                                int co, int wp8, void* stream) {
-  return launch_bf16<false, false>(x, x, w, b, y, nullptr,
-                                   Geo{n, h, w_in, ci, 0, co, wp8},
-                                   (cudaStream_t)stream);
-}
-
+// K4, fp32: x (n, h, w_in, ci), w (2, 2, ci, co), b (co) -> y (n, h+1, wp8,
+// co). (bf16 K4 is pconv2d_sm90.cu's pconv_pad11_sm90_bf16.)
 extern "C" int pconv_pad11_f32(const void* x, const void* w, const void* b,
                                void* y, int n, int h, int w_in, int ci,
                                int co, int wp8, void* stream) {

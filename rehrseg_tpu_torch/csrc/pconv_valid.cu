@@ -1,5 +1,8 @@
 // K3 and K5: offset -> aligned VALID 2x2 packed conv + bias, kd in {1, 3};
 // K6b and K6c: their deferred-norm forms; K7: the same conv on exact widths.
+// (The bf16 plain forms of K3, K5 and K7 run the Hopper kernels of
+// pconv2d_sm90.cu and pconv3_valid_sm90.cu; the bf16 kernel here runs the
+// deferred-norm forms, the fp32 kernel every form.)
 //
 // Replaces the TPU kernels rehrseg_tpu/ops/pallas_pconv.py pconv_valid
 // (:519, body _valid_kernel :75; deferred-norm body _valid_fused_kernel
@@ -56,9 +59,10 @@
 // before the one rounding to bf16. STATS reduces each warp's 16 x 16
 // output fragment column by column in shared memory into a per-block
 // (2 images x Co) sum, flushed with one atomic per value. 64 accumulators a
-// thread and two blocks per SM (at most 128 registers). The plain bf16 form
-// of K5 (kd = 3, no PRE, no STATS) has its own wgmma / TMA kernel in
-// pconv3_valid_sm90.cu and is not instantiated here.
+// thread and two blocks per SM (at most 128 registers). The plain bf16 forms
+// (no PRE, no STATS) have their own wgmma / TMA kernels, kd = 3 in
+// pconv3_valid_sm90.cu and kd = 1 (K3, K7) in pconv2d_sm90.cu, and are not
+// instantiated here.
 //
 // fp32 inputs take a plain FMA kernel (64 x 64 tiles, one tap per step),
 // with the same PRE and STATS forms.
@@ -559,9 +563,8 @@ int launch_any(const void* x, const void* w, const void* b, void* y, Geo g,
     if (pre && stats) return launch_bf16<KD, true, true>(x, w, b, y, g, fz, stream);
     if (pre) return launch_bf16<KD, true, false>(x, w, b, y, g, fz, stream);
     if (stats) return launch_bf16<KD, false, true>(x, w, b, y, g, fz, stream);
-    // bf16 K5's plain form is pconv3_valid_sm90.cu's
-    if constexpr (KD == 3) return (int)cudaErrorInvalidValue;
-    else return launch_bf16<KD, false, false>(x, w, b, y, g, fz, stream);
+    // the bf16 plain forms are pconv3_valid_sm90.cu's and pconv2d_sm90.cu's
+    return (int)cudaErrorInvalidValue;
   } else {
     if (pre && stats) return launch_f32<KD, true, true>(x, w, b, y, g, fz, stream);
     if (pre) return launch_f32<KD, true, false>(x, w, b, y, g, fz, stream);
@@ -586,8 +589,9 @@ int launch_kd(const void* x, const void* w, const void* b, void* y, Geo g,
 // (co) -> y (nb, nd, hp-1, w_out, co); kd 1 or 3. With sa, ta (nb, ci) in
 // x's type the pre transform applies (null: none); with stats (nb * nd, 16,
 // co) fp32, zeroed by the caller, the moment partials accumulate (null:
-// none). kd 3 without sa, ta and stats is pconv3_valid_sm90.cu's: invalid
-// here. Returns cudaGetLastError() after the launch.
+// none). The bf16 entry takes the deferred-norm forms alone: without sa, ta
+// and stats it is invalid (pconv3_valid_sm90.cu's and pconv2d_sm90.cu's).
+// Returns cudaGetLastError() after the launch.
 extern "C" int pconv_valid_bf16(const void* x, const void* w, const void* b,
                                 void* y, const void* sa, const void* ta,
                                 void* stats, int nb, int nd, int hp, int wp8,
@@ -610,16 +614,9 @@ extern "C" int pconv_valid_f32(const void* x, const void* w, const void* b,
       sa != nullptr, stats != nullptr, stream);
 }
 
-// K7: x (n, hp, wp, ci) at its exact width, w (2, 2, ci, co), b (co) -> y
-// (n, hp-1, wp-1, co): the kd = 1 kernel with wp8 = wp and w_out = wp - 1.
-extern "C" int conv2x2_valid_bias_bf16(const void* x, const void* w,
-                                       const void* b, void* y, int n, int hp,
-                                       int wp, int ci, int co, void* stream) {
-  return launch_kd<bf16>(x, w, b, y, Geo{n, 1, hp, wp, ci, co, wp - 1}, 1,
-                         Fused<bf16>{nullptr, nullptr, nullptr, 0.0f}, false,
-                         false, stream);
-}
-
+// K7, fp32: x (n, hp, wp, ci) at its exact width, w (2, 2, ci, co), b (co)
+// -> y (n, hp-1, wp-1, co): the kd = 1 kernel with wp8 = wp and w_out =
+// wp - 1. (bf16 K7 is pconv2d_sm90.cu's pconv_valid_sm90_bf16.)
 extern "C" int conv2x2_valid_bias_f32(const void* x, const void* w,
                                       const void* b, void* y, int n, int hp,
                                       int wp, int ci, int co, void* stream) {

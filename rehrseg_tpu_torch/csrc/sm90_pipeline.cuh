@@ -3,7 +3,10 @@
 // shared-memory descriptors, register reallocation, and a persistent,
 // warp-specialised implicit-GEMM conv (conv_wgmma_kernel) that
 // pconv3_valid_sm90.cu (K5) and pconv_pad11_cat_sm90.cu (K1) instantiate
-// with their own tap geometry.
+// with their own tap geometry. pconv2d_sm90.cu (K3, K4, K7) builds its
+// weights-resident kernel from the same parts (the tile geometry, the slab
+// shared by the two row taps, store_tile), and instantiates this one where
+// its weights do not fit in shared memory.
 //
 // The conv: M = output pixels, N = Co, K = taps x Ci. The A operand of one
 // (tap, 64-channel chunk) for a rectangle of TH x TW = 128 output pixels is
@@ -307,6 +310,56 @@ struct TileGeo {
   int units_per_img, n_blocks, n_items;
 };
 
+// The epilogue of one tile: a consumer warpgroup holds the 128 pixels x 128
+// channels (from n0) of the tile whose first output pixel is (i0, j0) of
+// image img as acc[2][64] in wgmma's accumulator layout. Adds the bias in
+// fp32, rounds once to bf16, transposes 4 x 4 across each lane quad so that
+// a thread owns 8 consecutive channels, and stores 16 bytes, guarded at the
+// ragged edge; columns >= live_w are stored as exact zeros. Nothing is
+// stored unless `valid` (false for a tile number past the last).
+__device__ __forceinline__ void store_tile(float (&acc)[2][64],
+                                           const TileGeo& g, int img, int i0,
+                                           int j0, int n0, bool valid,
+                                           const bf16* __restrict__ bias,
+                                           bf16* __restrict__ y, int warp,
+                                           int lane) {
+  const int q = lane & 3, rq = lane >> 2;
+  const int tw_mask = (1 << g.log_tw) - 1;
+  float2 bv[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    bv[j] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        bias + n0 + 8 * j + 2 * q));
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = mi * 64 + warp * 16 + half * 8 + rq;
+      const int i = i0 + (row >> g.log_tw), j = j0 + (row & tw_mask);
+      const bool stored = valid && i < g.out_h && j < g.out_w;
+      const bool live = j < g.live_w;
+      bf16* const yp =
+          y + (((int64_t)img * g.out_h + i) * g.out_w + j) * g.co + n0;
+#pragma unroll
+      for (int grp = 0; grp < 4; ++grp) {
+        uint32_t v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int c = grp * 4 + k;
+          const __nv_bfloat162 o = __floats2bfloat162_rn(
+              acc[mi][4 * c + 2 * half] + bv[c].x,
+              acc[mi][4 * c + 2 * half + 1] + bv[c].y);
+          v[k] = live ? *reinterpret_cast<const uint32_t*>(&o) : 0u;
+        }
+        quad_transpose(v, q);
+        if (stored)
+          *reinterpret_cast<uint4*>(yp + 8 * (grp * 4 + q)) =
+              make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+}
+
 // Conv supplies the tap geometry:
 //   int ksteps(int img) const            K steps (column tap and the other
 //                                        tap axes, 64-channel chunk) of an
@@ -350,7 +403,6 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
   if constexpr (CLUSTER > 1) cluster_sync(); else __syncthreads();
 
   const int first = blockIdx.x / CLUSTER, step = gridDim.x / CLUSTER;
-  const int tw_mask = (1 << g.log_tw) - 1;
   // bytes of one slab's box, and the offset of row tap 1 within it
   const uint32_t tap_shift = (uint32_t)ROW_BYTES << g.log_tw;
   const uint32_t slab_bytes = A_BOX_BYTES + tap_shift;
@@ -406,7 +458,6 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
     // --------------------------------------------------------- consumers
     reg_alloc<224>();
     const int warp = (tid % 128) / 32, lane = tid % 32;
-    const int q = lane & 3, rq = lane >> 2;
     float acc[2][64];
     int stage = 0;
     uint32_t phase = 0;
@@ -461,41 +512,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
       release(prev);
       fence_acc(acc[0]);
       fence_acc(acc[1]);
-
-      // epilogue: bias in fp32, one rounding, 16-byte stores along channels
-      float2 bv[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        bv[j] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            bias + n0 + 8 * j + 2 * q));
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = mi * 64 + warp * 16 + half * 8 + rq;
-          const int i = i0 + (row >> g.log_tw), j = j0 + (row & tw_mask);
-          const bool stored = i < g.out_h && j < g.out_w;
-          const bool live = j < g.live_w;
-          bf16* const yp =
-              y + (((int64_t)img * g.out_h + i) * g.out_w + j) * g.co + n0;
-#pragma unroll
-          for (int grp = 0; grp < 4; ++grp) {
-            uint32_t v[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int c = grp * 4 + k;
-              const __nv_bfloat162 o = __floats2bfloat162_rn(
-                  acc[mi][4 * c + 2 * half] + bv[c].x,
-                  acc[mi][4 * c + 2 * half + 1] + bv[c].y);
-              v[k] = live ? *reinterpret_cast<const uint32_t*>(&o) : 0u;
-            }
-            quad_transpose(v, q);
-            if (stored)
-              *reinterpret_cast<uint4*>(yp + 8 * (grp * 4 + q)) =
-                  make_uint4(v[0], v[1], v[2], v[3]);
-          }
-        }
-      }
+      store_tile(acc, g, img, i0, j0, n0, true, bias, y, warp, lane);
     }
     if constexpr (CLUSTER > 1) cluster_sync();
   }

@@ -28,6 +28,7 @@ SOURCES = {
     "pconv_valid": "pconv_valid.cu",
     "pconv3_valid_sm90": "pconv3_valid_sm90.cu",
     "pconv_pad11_cat_sm90": "pconv_pad11_cat_sm90.cu",
+    "pconv2d_sm90": "pconv2d_sm90.cu",
 }
 # measuring probes: built on request (``build(["l2_feed_probe"])``), on no
 # path of the port

@@ -9,9 +9,11 @@ x (N, h+1, w+1, Ci) offset-packed at its exact (odd) width, W (2, 2, Ci,
 Co) -> y (N, h, w, Co). Nothing on the packed forward calls it: the
 forward keeps offset tensors 8-aligned wide and reaches the same math
 through K3 (:func:`rehrseg_tpu_torch.ops.pconv.pconv_valid`). On the H100
-it is a third entry point of ``csrc/pconv_valid.cu``, K3's kd = 1 kernel
-with the input's row stride w+1 and the output width w, which need no
-8-alignment.
+it follows K3's kernels, with the input's row pitch w+1 and the output width
+w, which need no 8-alignment: bf16 calls K3's entry of
+``csrc/pconv2d_sm90.cu`` (the Hopper kernel; its tensor map's strides are
+multiples of 16 bytes at any width because Ci % 128 == 0), fp32 a third
+entry point of ``csrc/pconv_valid.cu`` (the kd = 1 FMA kernel).
 
 The call contract is JAX's: ``None`` when Ci or Co is not a multiple of
 128. The TPU kernel's block-height choice (``_pick_bi``, which also refuses
@@ -58,10 +60,15 @@ def conv2x2_valid_bias(x, w, b=None):
                     device=x.device)
     if y.numel() == 0:
         return y
-    fn_name = f"{what}_{_suffix(what, x.dtype)}"
-    fn = _entry("pconv_valid", fn_name, [_PTR] * 4 + [_INT] * 5)
-    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-             n, hp, wp, c_in, c_out, _stream(x))
+    if _suffix(what, x.dtype) == "bf16":
+        # K3's Hopper kernel: stored width wp, output width wp - 1
+        fn, fn_name = _entry("k7_bf16", [_PTR] * 4 + [_INT] * 6)
+        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 n, hp, wp, c_in, c_out, wp - 1, _stream(x))
+    else:
+        fn, fn_name = _entry("k7_f32", [_PTR] * 4 + [_INT] * 5)
+        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 n, hp, wp, c_in, c_out, _stream(x))
     kernels.check(err, fn_name)
     conv2x2_valid_bias.launches += 1
     return y

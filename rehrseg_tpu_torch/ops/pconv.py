@@ -44,13 +44,16 @@ the per-image scale and shift):
   contract; how they spread over the rows is not.
 
 On the H100 each is an implicit GEMM in CUDA C++ (M = output pixels, N =
-Co, K = taps x Ci). bf16 K1 and K5 (plain forms) run the Hopper kernels of
-``csrc/pconv_pad11_cat_sm90.cu`` and ``csrc/pconv3_valid_sm90.cu`` (TMA-fed
-shared memory, ``wgmma``; shared code in ``csrc/sm90_pipeline.cuh``). The
-others have a bf16 WMMA (``mma.sync``) kernel and an fp32 FMA kernel: K4,
-K6a and fp32 K1 in ``csrc/pconv_pad11_cat.cu``, K3, K6b, K6c and fp32 K5
-(and K7, :mod:`.conv2x2`) in ``csrc/pconv_valid.cu``. Every kernel adds the
-bias in fp32 and rounds once.
+Co, K = taps x Ci). The bf16 plain forms run Hopper kernels (TMA-fed shared
+memory, ``wgmma``; shared code in ``csrc/sm90_pipeline.cuh``): K1
+``csrc/pconv_pad11_cat_sm90.cu`` and K5 ``csrc/pconv3_valid_sm90.cu``
+(weights streamed with the input), K3 and K4 ``csrc/pconv2d_sm90.cu`` (and
+bf16 K7, :mod:`.conv2x2`): the weights resident in shared memory where they
+fit (Ci = 128), the streamed kernel on the same tap geometry where they do
+not. The bf16 K6 forms run a WMMA (``mma.sync``) kernel and every fp32 form
+an FMA kernel: K6a, fp32 K1 and fp32 K4 in ``csrc/pconv_pad11_cat.cu``,
+K6b, K6c and fp32 K3, K5 and K7 in ``csrc/pconv_valid.cu``. Every kernel
+adds the bias in fp32 and rounds once.
 
 Each wrapper keeps the JAX call contract: the same shapes, dtypes, default
 ``w_out`` rule, ``(y, stats)`` when ``want_stats``, and ``None`` where the
@@ -175,13 +178,44 @@ def _check(what: str, *named):
 _PTR, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _entry(lib: str, fn_name: str, argtypes):
-    """The C launcher ``fn_name`` of library ``lib``; argtypes lists the
-    arguments before the trailing stream pointer."""
+# Every C launcher this package's conv wrappers call: form and dtype ->
+# (library of ``kernels.SOURCES``, entry declared ``extern "C"`` in its
+# source). A "_variant" key is the same Hopper kernel with its timed variant
+# named by three more ints.
+C_ENTRIES = {
+    "k1_bf16": ("pconv_pad11_cat_sm90", "pconv_pad11_cat_sm90_bf16"),
+    "k1_bf16_variant": ("pconv_pad11_cat_sm90",
+                        "pconv_pad11_cat_sm90_bf16_variant"),
+    "k1_f32": ("pconv_pad11_cat", "pconv_pad11_cat_f32"),
+    "k6a_bf16": ("pconv_pad11_cat", "pconv_pad11_cat_bf16"),
+    "k6a_f32": ("pconv_pad11_cat", "pconv_pad11_cat_f32"),
+    "k4_bf16": ("pconv2d_sm90", "pconv_pad11_sm90_bf16"),
+    "k4_bf16_variant": ("pconv2d_sm90", "pconv_pad11_sm90_bf16_variant"),
+    "k4_f32": ("pconv_pad11_cat", "pconv_pad11_f32"),
+    "k3_bf16": ("pconv2d_sm90", "pconv_valid_sm90_bf16"),
+    "k3_bf16_variant": ("pconv2d_sm90", "pconv_valid_sm90_bf16_variant"),
+    "k5_bf16": ("pconv3_valid_sm90", "pconv3_valid_sm90_bf16"),
+    "k5_bf16_variant": ("pconv3_valid_sm90",
+                        "pconv3_valid_sm90_bf16_variant"),
+    # K6b and K6c; in fp32 also the plain K3 and K5
+    "valid_bf16": ("pconv_valid", "pconv_valid_bf16"),
+    "valid_f32": ("pconv_valid", "pconv_valid_f32"),
+    "k7_bf16": ("pconv2d_sm90", "pconv_valid_sm90_bf16"),
+    "k7_f32": ("pconv_valid", "conv2x2_valid_bias_f32"),
+}
+
+
+def _entry(key: str, argtypes, variant=None):
+    """(C launcher, its name) for ``C_ENTRIES[key]``, or for its
+    "_variant" twin when a variant (three ints) is named; argtypes lists
+    the arguments before the variant's ints and the trailing stream
+    pointer."""
+    lib, fn_name = C_ENTRIES[key + ("_variant" if variant else "")]
     fn = getattr(kernels.load(lib), fn_name)
     fn.restype = ctypes.c_int
-    fn.argtypes = list(argtypes) + [_PTR]
-    return fn
+    fn.argtypes = (list(argtypes) + [_INT] * (3 if variant else 0)
+                   + [_PTR])
+    return fn, fn_name
 
 
 def _suffix(what: str, dtype) -> str:
@@ -205,8 +239,11 @@ def _launch_pad11(counter, x, w, b, xb=None, want_stats=False,
     """K1 when xb is given (K6a with want_stats), K4 otherwise: (n, h+1,
     wp8, co) [and (n, 16, co) stats]. Adds one to the counter's
     ``launches`` (``fused_launches`` for K6a) once the kernel is
-    launched. bf16 K1 runs the Hopper kernel; ``variant`` (cluster, stages,
-    log2 tile width) names one of its timed variants."""
+    launched. bf16 K1 and bf16 K4 run their Hopper kernels; ``variant``
+    names one of their timed variants: (cluster, stages, log2 tile width)
+    for K1, (mode, stages, log2 tile width) for K4, with mode 0 the
+    streamed weights, 1 resident weights without the overlapped store, 2
+    with it."""
     n, h, w_in, ca = x.shape
     c_out = w.shape[-1]
     what = "pconv_pad11" if xb is None else "pconv_pad11_cat"
@@ -223,23 +260,21 @@ def _launch_pad11(counter, x, w, b, xb=None, want_stats=False,
     if n * (h + 1) * wp8 >= 2 ** 31:
         raise ValueError(f"{what}: output too large for int32 rows")
     y = torch.empty((n, h + 1, wp8, c_out), dtype=x.dtype, device=x.device)
-    fn_name = f"{what}_{sfx}"
     if xb is None:
-        fn = _entry("pconv_pad11_cat", fn_name, [_PTR] * 4 + [_INT] * 6)
+        # bf16: the Hopper kernel; fp32: the FMA kernel (no variants)
+        fn, fn_name = _entry(f"k4_{sfx}", [_PTR] * 4 + [_INT] * 6, variant)
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 n, h, w_in, ca, c_out, wp8, _stream(x))
+                 n, h, w_in, ca, c_out, wp8, *(variant or ()), _stream(x))
     elif sfx == "bf16" and not want_stats:
-        fn_name = "pconv_pad11_cat_sm90_bf16" + ("_variant" if variant
-                                                 else "")
-        fn = _entry("pconv_pad11_cat_sm90", fn_name,
-                    [_PTR] * 5 + [_INT] * (10 if variant else 7))
+        fn, fn_name = _entry("k1_bf16", [_PTR] * 5 + [_INT] * 7, variant)
         err = fn(x.data_ptr(), xb.data_ptr(), w.data_ptr(), b.data_ptr(),
                  y.data_ptr(), n, h, w_in, ca, xb.shape[-1], c_out, wp8,
                  *(variant or ()), _stream(x))
     else:
         stats = (torch.zeros((n, 16, c_out), dtype=torch.float32,
                              device=x.device) if want_stats else None)
-        fn = _entry("pconv_pad11_cat", fn_name, [_PTR] * 6 + [_INT] * 7)
+        fn, fn_name = _entry(f"{'k6a' if want_stats else 'k1'}_{sfx}",
+                             [_PTR] * 6 + [_INT] * 7)
         err = fn(x.data_ptr(), xb.data_ptr(), w.data_ptr(), b.data_ptr(),
                  y.data_ptr(), stats.data_ptr() if want_stats else None, n,
                  h, w_in, ca, xb.shape[-1], c_out, wp8, _stream(x))
@@ -256,8 +291,9 @@ def _launch_valid(counter, x, w, b, w_out, pre=None, want_stats=False,
     """K3 (x 4D, w (2, 2, Ci, Co)) or K5 (x 5D, w (3, 2, 2, Ci, Co)); K6b
     / K6c with ``pre`` or ``want_stats``. Adds one to the counter's
     ``launches`` (``fused_launches`` for a K6 form) once the kernel is
-    launched. bf16 K5 runs the Hopper kernel; ``variant`` (cluster, stages,
-    log2 tile width) names one of its timed variants."""
+    launched. bf16 K3 and bf16 K5 run their Hopper kernels; ``variant``
+    names one of their timed variants: (cluster, stages, log2 tile width)
+    for K5, (mode, stages, log2 tile width) for K3, as for K4."""
     what = "pconv_valid" if x.ndim == 4 else "pconv3_valid"
     kd = 1 if x.ndim == 4 else 3
     *lead, hp, wp8, c_in = x.shape
@@ -288,15 +324,18 @@ def _launch_valid(counter, x, w, b, w_out, pre=None, want_stats=False,
     if y.numel() == 0:
         return (y, stats) if want_stats else y
     if kd == 3 and sfx == "bf16" and not fused:
-        fn_name = "pconv3_valid_sm90_bf16" + ("_variant" if variant else "")
-        fn = _entry("pconv3_valid_sm90", fn_name,
-                    [_PTR] * 4 + [_INT] * (10 if variant else 7))
+        fn, fn_name = _entry("k5_bf16", [_PTR] * 4 + [_INT] * 7, variant)
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                  nb, nd, hp, wp8, c_in, c_out, w_out, *(variant or ()),
                  _stream(x))
+    elif sfx == "bf16" and not fused:
+        fn, fn_name = _entry("k3_bf16", [_PTR] * 4 + [_INT] * 6, variant)
+        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 nb, hp, wp8, c_in, c_out, w_out, *(variant or ()),
+                 _stream(x))
     else:
-        fn_name = f"pconv_valid_{sfx}"
-        fn = _entry("pconv_valid", fn_name, [_PTR] * 7 + [_INT] * 8 + [_FLT])
+        fn, fn_name = _entry(f"valid_{sfx}",
+                             [_PTR] * 7 + [_INT] * 8 + [_FLT])
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                  sa.data_ptr() if pre is not None else None,
                  ta.data_ptr() if pre is not None else None,

@@ -76,6 +76,14 @@ def accumulate_tta_tile_plain(logits, preds, gaussian, offsets, z_scale=1):
     return logits
 
 
+# the C launchers by the dtype of preds: (library of ``kernels.SOURCES``,
+# entry declared ``extern "C"`` in its source)
+C_ENTRIES = {
+    torch.bfloat16: ("accumulate_tta_tile", "accumulate_tta_tile_bf16"),
+    torch.float32: ("accumulate_tta_tile", "accumulate_tta_tile_f32"),
+}
+
+
 def _launch(logits, preds, gaussian, region, z_scale):
     zo, sy, sz, valid = region
     c, d, h, w = logits.shape
@@ -90,13 +98,10 @@ def _launch(logits, preds, gaussian, region, z_scale):
                              f"contiguous")
     if logits.dtype != torch.float32:
         raise TypeError("accumulate_tta_tile: logits must be float32")
-    if preds.dtype == torch.bfloat16:
-        fn_name = "accumulate_tta_tile_bf16"
-    elif preds.dtype == torch.float32:
-        fn_name = "accumulate_tta_tile_f32"
-    else:
+    if preds.dtype not in C_ENTRIES:
         raise TypeError(f"accumulate_tta_tile: no kernel for {preds.dtype}")
-    fn = getattr(kernels.load("accumulate_tta_tile"), fn_name)
+    lib, fn_name = C_ENTRIES[preds.dtype]
+    fn = getattr(kernels.load(lib), fn_name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 \
         + [ctypes.c_void_p]

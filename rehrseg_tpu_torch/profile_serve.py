@@ -32,19 +32,20 @@ import time
 import numpy as np
 import torch
 
-# kernel-name fragments -> class, first match wins (the WMMA / FMA pad11
-# kernels are <CAT, STATS>: K4 runs them with CAT false, K6a with STATS
-# true, fp32 K1 with <true, false>; K3, fp32 K5 and the K6 forms are one
-# kernel <KD, PRE, STATS>; bf16 K1 and K5 are conv_wgmma_kernel<Pad11Cat,
-# ..> and <Valid3, ..>)
+# kernel-name fragments -> class, first match wins. The Hopper kernels are
+# named by their tap geometry: bf16 K1 conv_wgmma_kernel<Pad11Cat, ..>, K5
+# <Valid3, ..>, K4 conv_resident_kernel<Pad11> and K3 (and K7) <Valid2>, or
+# conv_wgmma_kernel<Pad11, ..> / <Valid2, ..> where the weights do not fit
+# in shared memory. The WMMA / FMA pad11 kernels are <CAT, STATS>: fp32 K4
+# runs them with CAT false, K6a with STATS true, fp32 K1 with <true,
+# false>; fp32 K3 and K5 and the K6 forms are one kernel <KD, PRE, STATS>.
 _CLASSES = (
-    ("k4_pconv_pad11", ("pad11_cat_bf16_kernel<false, false>",
-                        "pad11_cat_f32_kernel<false, false>")),
+    ("k1_pconv_pad11_cat", ("Pad11Cat",)),
+    ("k4_pconv_pad11", ("Pad11", "pad11_cat_f32_kernel<false, false>")),
     ("k6a_pconv_pad11_cat_stats", ("pad11_cat_bf16_kernel<true, true>",
                                    "pad11_cat_f32_kernel<true, true>")),
-    ("k1_pconv_pad11_cat", ("Pad11Cat", "pad11_cat")),
-    ("k3_pconv_valid", ("valid_bf16_kernel<1, false, false>",
-                        "valid_f32_kernel<1, false, false>")),
+    ("k1_pconv_pad11_cat", ("pad11_cat",)),
+    ("k3_pconv_valid", ("Valid2", "valid_f32_kernel<1, false, false>")),
     ("k5_pconv3_valid", ("Valid3", "valid_f32_kernel<3, false, false>")),
     ("k6b_pconv_valid_fused", ("valid_bf16_kernel<1, true, true>",
                                "valid_f32_kernel<1, true, true>")),

@@ -1,25 +1,33 @@
-"""Check and time the variants of the Hopper K1 and K5 kernels on the card.
+"""Check and time the variants of the Hopper kernels (bf16 K1, K3, K4, K5)
+on the card.
 
     python -m rehrseg_tpu_torch.tune_sm90 [--check-only] [--iters N]
-                                          [--rounds R]
+                                          [--rounds R] [--kernels k3,k4]
 
-Builds ``csrc/pconv_pad11_cat_sm90.cu``, ``csrc/pconv3_valid_sm90.cu`` and
-the probe ``csrc/l2_feed_probe.cu``, then prints one JSON line per phase:
+Builds ``csrc/pconv_pad11_cat_sm90.cu``, ``csrc/pconv3_valid_sm90.cu``,
+``csrc/pconv2d_sm90.cu`` and the probe ``csrc/l2_feed_probe.cu``, then
+prints one JSON line per phase:
 
   build   nvcc's seconds and ptxas's registers and spills;
-  sass    how many wgmma (``HGMMA``) and TMA tile-load (``UTMALDG``)
-          instructions ``cuobjdump -sass`` finds in each built library;
-  check   the default variant of each kernel against its plain version on
-          fp32 copies (tolerance 0.04) at ragged shapes, with the first
-          disagreeing index where one fails (exit code 1 at the end);
+  sass    how many wgmma (``HGMMA``), TMA tile-load (``UTMALDG``) and TMA
+          tile-store (``UTMASTG``) instructions ``cuobjdump -sass`` finds
+          in each built library;
+  check   each kernel against its plain version on fp32 copies (tolerance
+          0.04) at ragged shapes, the default variant and, for K3 and K4,
+          every mode, with the first disagreeing index where one fails
+          (exit code 1 at the end);
   probe   the rate at which TMA boxes shaped like the kernels' input tiles
           reach shared memory, from a region that fits in L2 and from one
           that does not (``l2_feed_probe``);
-  tune    at the main path's shapes (bf16), every variant (blocks per
-          cluster, ring stages, tile width) of each kernel, each checked
-          first, beside the default variant, the library call (cuDNN) on
-          the same operands and the kernel's bound: the median and the
-          least of R timings of N launches, the candidates timed in turn.
+  tune    at the main path's shapes (bf16), every variant of each kernel
+          (K1, K5: blocks per cluster, ring stages, tile width; K3, K4:
+          mode 0 weights streamed with the input, 1 weights resident in
+          shared memory, 2 resident with the store overlapped by the other
+          warpgroup's products, then ring stages and tile width), each
+          checked first, beside the default variant, the library call
+          (cuDNN) on the same operands and the kernel's bound: the median
+          and the least of R timings of N launches, the candidates timed
+          in turn.
 
 Needs a CUDA card and nvcc.
 """
@@ -52,6 +60,26 @@ K1_CHECKS = ((2, 13, 24, 128, 128, 128), (3, 7, 24, 128, 256, 256),
 # (b, d, hp, wp8, ci, co) with w_out = wp8 - 8
 K5_CHECKS = ((2, 3, 14, 32, 128, 128), (1, 1, 10, 32, 128, 256),
              (1, 2, 4, 16, 128, 384), (2, 2, 17, 40, 256, 128))
+K3_MAIN = (128, 161, 200, 128, 128)
+K4_MAIN = (128, 160, 192, 128, 128)
+# (n, hp, wp8, ci, co) with w_out = wp8 - 8: an odd height and one and a half
+# tiles wide, Co = 384 and a batch of one, Ci = 256 (the streamed kernel) on
+# an image smaller than a tile, Ci = Co = 256, a single output row, and
+# enough tiles that every block goes round its ring several times
+K3_CHECKS = ((2, 14, 32, 128, 128), (1, 10, 32, 128, 384),
+             (3, 4, 16, 256, 128), (2, 19, 40, 256, 256),
+             (1, 2, 16, 128, 128), (40, 34, 72, 128, 128))
+# (n, h, w, ci, co): the same, and h = 1
+K4_CHECKS = ((2, 13, 24, 128, 128), (1, 7, 24, 128, 384),
+             (3, 3, 8, 256, 128), (2, 16, 32, 256, 256), (2, 1, 8, 128, 128),
+             (40, 33, 64, 128, 128))
+# K3 / K4 (mode, stages, log2 tile width): every mode at ragged shapes
+MODE_CHECKS = ((0, 3, -1), (1, 3, -1), (1, 4, 5), (2, 2, -1), (2, 5, 3),
+               (2, 4, 5))
+K15_VARIANTS = ((1, 3, -1), (2, 3, -1), (1, 2, -1), (2, 2, -1),
+                (1, 3, 3), (1, 3, 4), (1, 3, 5))
+K34_VARIANTS = ((0, 3, -1), (1, 3, -1), (1, 4, -1), (1, 5, -1), (2, 3, -1),
+                (2, 4, -1), (2, 5, -1), (2, 5, 3), (2, 5, 4), (2, 4, 5))
 
 
 def emit(obj):
@@ -93,6 +121,27 @@ def k5_operands(shape, gen, dev):
             (0.1 * randn(co)).bfloat16())
 
 
+def k3_operands(shape, gen, dev):
+    n, hp, wp8, ci, co = shape
+
+    def randn(*s):
+        return torch.randn(*s, generator=gen, device=dev)
+    x = randn(n, hp, wp8, ci).bfloat16()
+    x[..., wp8 - 7:, :] = 1e3     # the pad columns are never read
+    return (x, (randn(2, 2, ci, co) / (4 * ci) ** 0.5).bfloat16(),
+            (0.1 * randn(co)).bfloat16())
+
+
+def k4_operands(shape, gen, dev):
+    n, h, w, ci, co = shape
+
+    def randn(*s):
+        return torch.randn(*s, generator=gen, device=dev)
+    return (randn(n, h, w, ci).bfloat16(),
+            (randn(2, 2, ci, co) / (4 * ci) ** 0.5).bfloat16(),
+            (0.1 * randn(co)).bfloat16())
+
+
 def run_k1(ops, variant=None):
     xa, xb, w, b = ops
     return pconv._launch_pad11(pconv.pconv_pad11_cat, xa, w, b, xb=xb,
@@ -105,6 +154,17 @@ def run_k5(ops, variant=None):
                                variant=variant)
 
 
+def run_k3(ops, variant=None):
+    x, w, b = ops
+    return pconv._launch_valid(pconv.pconv_valid, x, w, b, x.shape[2] - 8,
+                               variant=variant)
+
+
+def run_k4(ops, variant=None):
+    x, w, b = ops
+    return pconv._launch_pad11(pconv.pconv_pad11, x, w, b, variant=variant)
+
+
 def ref_k1(ops):
     return pconv.pconv_pad11_cat_plain(*(t.float() for t in ops))
 
@@ -113,6 +173,25 @@ def ref_k5(ops):
     x, w, b = ops
     return pconv.pconv3_valid_plain(x.float(), w.float(), b.float(),
                                     x.shape[3] - 8)
+
+
+def ref_k3(ops):
+    x, w, b = ops
+    return pconv.pconv_valid_plain(x.float(), w.float(), b.float(),
+                                   x.shape[2] - 8)
+
+
+def ref_k4(ops):
+    return pconv.pconv_pad11_plain(*(t.float() for t in ops))
+
+
+# name -> (main shape, ragged shapes, operands, run, plain version, variants)
+KERNELS = {
+    "k1": (K1_MAIN, K1_CHECKS, k1_operands, run_k1, ref_k1, K15_VARIANTS),
+    "k5": (K5_MAIN, K5_CHECKS, k5_operands, run_k5, ref_k5, K15_VARIANTS),
+    "k3": (K3_MAIN, K3_CHECKS, k3_operands, run_k3, ref_k3, K34_VARIANTS),
+    "k4": (K4_MAIN, K4_CHECKS, k4_operands, run_k4, ref_k4, K34_VARIANTS),
+}
 
 
 def compare(got, want) -> dict:
@@ -130,7 +209,8 @@ def compare(got, want) -> dict:
 
 def phase_sass(names):
     """Count the machine instructions that show what the built kernels
-    run on: HGMMA is wgmma, UTMALDG a TMA tile load into shared memory."""
+    run on: HGMMA is wgmma, UTMALDG a TMA tile load into shared memory,
+    UTMASTG a TMA tile store from it."""
     exe = shutil.which("cuobjdump") or str(
         Path(kernels.nvcc_path()).with_name("cuobjdump"))
     for name in names:
@@ -144,26 +224,32 @@ def phase_sass(names):
         emit({"phase": "sass", "library": lib.name,
               "HGMMA": len(re.findall(r"\bHGMMA\.", sass)),
               "UTMALDG": len(re.findall(r"\bUTMALDG\.", sass)),
+              "UTMASTG": len(re.findall(r"\bUTMASTG\.", sass)),
               "kinds": sorted(set(re.findall(
-                  r"\b(?:HGMMA|UTMALDG)[.\w]*", sass)))})
+                  r"\b(?:HGMMA|UTMALDG|UTMASTG)[.\w]*", sass)))})
 
 
-def phase_check(gen, dev) -> bool:
+def phase_check(names, gen, dev) -> bool:
     ok = True
-    for name, shapes, operands, run, ref in (
-            ("k1", K1_CHECKS, k1_operands, run_k1, ref_k1),
-            ("k5", K5_CHECKS, k5_operands, run_k5, ref_k5)):
+    for name in names:
+        _, shapes, operands, run, ref, _ = KERNELS[name]
         for shape in shapes:
             ops = operands(shape, gen, dev)
-            got = run(ops)
-            torch.cuda.synchronize()
-            rec = compare(got, ref(ops))
-            if name == "k1":
-                rec["zero_columns"] = not bool(
-                    (got[:, :, shape[2] + 1:] != 0).any())
-                rec["ok"] = rec["ok"] and rec["zero_columns"]
-            ok = ok and rec["ok"]
-            emit({"phase": "check", "kernel": name, "shape": shape, **rec})
+            want = ref(ops)
+            # K3 / K4: every mode where the weights fit in shared memory
+            modes = MODE_CHECKS if name in ("k3", "k4") and shape[-2] == 128 \
+                else ()
+            for variant in (None, *modes):
+                got = run(ops, variant)
+                torch.cuda.synchronize()
+                rec = compare(got, want)
+                if name in ("k1", "k4"):
+                    rec["zero_columns"] = not bool(
+                        (got[:, :, shape[2] + 1:] != 0).any())
+                    rec["ok"] = rec["ok"] and rec["zero_columns"]
+                ok = ok and rec["ok"]
+                emit({"phase": "check", "kernel": name, "shape": shape,
+                      "variant": variant, **rec})
     return ok
 
 
@@ -191,42 +277,55 @@ def phase_probe(dev, iters=2000):
     emit({"phase": "probe", "box": "128 rows x 128 B, pitch 512 B", **out})
 
 
-def phase_tune(gen, dev, iters, rounds):
+def _library_case(name, shape, ops, want):
+    """(the library call on the same operands, channels-last; FLOP; the
+    bytes the function must move) at a kernel's main shape."""
+    def cl(t, fmt=torch.channels_last):
+        return t.contiguous(memory_format=fmt)
+    if name == "k1":
+        n, h, w, ca, cb, co = shape
+        xa, xb, wt, b = ops
+        cat = torch.cat([xa, xb], -1).permute(0, 3, 1, 2)
+        wl = cl(wt.permute(3, 2, 0, 1))
+        return (lambda: F.conv2d(cat, wl, b, padding=1),
+                2 * n * h * w * 4 * (ca + cb) * co,
+                sum(t.numel() * 2 for t in ops) + want.numel() * 2)
+    if name == "k4":
+        n, h, w, ci, co = shape
+        x, wt, b = ops
+        xl, wl = x.permute(0, 3, 1, 2), cl(wt.permute(3, 2, 0, 1))
+        return (lambda: F.conv2d(xl, wl, b, padding=1),
+                2 * n * h * w * 4 * ci * co,
+                sum(t.numel() * 2 for t in ops) + want.numel() * 2)
+    x, wt, b = ops
+    w_out = x.shape[-2] - 8
+    n_bytes = (x[..., :w_out + 1, :].numel() + wt.numel() + b.numel()
+               + want.numel()) * 2
+    if name == "k3":
+        n, hp, wp8, ci, co = shape
+        xl = cl(x[:, :, :w_out + 1].permute(0, 3, 1, 2))
+        wl = cl(wt.permute(3, 2, 0, 1))
+        return (lambda: F.conv2d(xl, wl, b),
+                2 * n * (hp - 1) * w_out * 4 * ci * co, n_bytes)
+    bsz, d, hp, wp8, ci, co = shape
+    xl = cl(x[:, :, :, :w_out + 1].permute(0, 4, 1, 2, 3),
+            torch.channels_last_3d)
+    wl = cl(wt.permute(4, 3, 0, 1, 2), torch.channels_last_3d)
+    return (lambda: F.conv3d(xl, wl, b, padding=(1, 0, 0)),
+            2 * bsz * (3 * d - 2) * (hp - 1) * w_out * 4 * ci * co, n_bytes)
+
+
+def phase_tune(names, gen, dev, iters, rounds):
     peak, hbm = 989e12, 3.35e12
-    for name, shape, operands, run, ref in (
-            ("k1", K1_MAIN, k1_operands, run_k1, ref_k1),
-            ("k5", K5_MAIN, k5_operands, run_k5, ref_k5)):
+    for name in names:
+        shape, _, operands, run, ref, variants = KERNELS[name]
         ops = operands(shape, gen, dev)
         want = ref(ops)
-        if name == "k1":
-            n, h, w, ca, cb, co = shape
-            xa, xb, wt, b = ops
-            flops = 2 * n * h * w * 4 * (ca + cb) * co
-            n_bytes = sum(t.numel() * 2 for t in ops) + want.numel() * 2
-            cat = torch.cat([xa, xb], -1).permute(0, 3, 1, 2)
-            wl = wt.permute(3, 2, 0, 1).contiguous(
-                memory_format=torch.channels_last)
-
-            def library():
-                return F.conv2d(cat, wl, b, padding=1)
-        else:
-            bsz, d, hp, wp8, ci, co = shape
-            x, wt, b = ops
-            w_out = wp8 - 8
-            flops = 2 * bsz * (3 * d - 2) * (hp - 1) * w_out * 4 * ci * co
-            n_bytes = (x[..., :w_out + 1, :].numel() + wt.numel()
-                       + b.numel() + want.numel()) * 2
-            xl = x[:, :, :, :w_out + 1].permute(0, 4, 1, 2, 3).contiguous(
-                memory_format=torch.channels_last_3d)
-            wl = wt.permute(4, 3, 0, 1, 2).contiguous(
-                memory_format=torch.channels_last_3d)
-
-            def library():
-                return F.conv3d(xl, wl, b, padding=(1, 0, 0))
-        variants = [(1, 3, -1), (2, 3, -1), (1, 2, -1), (2, 2, -1),
-                    (1, 3, 3), (1, 3, 4), (1, 3, 5)]
+        library, flops, n_bytes = _library_case(name, shape, ops, want)
         checks = []
         for variant in variants:
+            # a fault in a launch ends the process: say which it was
+            print(f"tune {name} {variant}", file=sys.stderr, flush=True)
             got = run(ops, variant)
             torch.cuda.synchronize()
             checks.append(compare(got, want))
@@ -244,15 +343,16 @@ def phase_tune(gen, dev, iters, rounds):
         def stat(k):
             t = sorted(times[k])
             return {"ms": t[len(t) // 2], "min_ms": t[0]}
+        first = "cluster" if name in ("k1", "k5") else "mode"
         rec = {"phase": "tune", "kernel": name, "shape": shape,
                "rounds": rounds, "iters": iters,
                "bound_ms": max(flops / peak, n_bytes / hbm) * 1e3,
                "library": stat("library"), "default": stat("default"),
-               "variants": [dict(cluster=v[0], stages=v[1], log_tw=v[2],
-                                 **stat(v), **c)
+               "variants": [{first: v[0], "stages": v[1], "log_tw": v[2],
+                             **stat(v), **c}
                             for v, c in zip(variants, checks)]}
         emit(rec)
-        del ops, want
+        del ops, want, library
         torch.cuda.empty_cache()
 
 
@@ -263,14 +363,18 @@ def main(argv=None) -> int:
                     help="launches per timing")
     ap.add_argument("--rounds", type=int, default=7,
                     help="timings of each candidate, taken in turn")
+    ap.add_argument("--kernels", default="k1,k5,k3,k4",
+                    help="the kernels to check and tune, of k1, k3, k4, k5")
     args = ap.parse_args(argv)
+    names = args.kernels.split(",")
     if not torch.cuda.is_available():
         print("tune_sm90: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t = time.perf_counter()
-    logs = kernels.build(["pconv_pad11_cat_sm90", "pconv3_valid_sm90"])
+    libs = ["pconv_pad11_cat_sm90", "pconv3_valid_sm90", "pconv2d_sm90"]
+    logs = kernels.build(libs)
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "card": torch.cuda.get_device_name(0),
           "cuda": torch.version.cuda,
@@ -278,12 +382,12 @@ def main(argv=None) -> int:
                         if "Used" in ln or "spill" in ln or "warn" in ln
                         or "Compiling entry" in ln]
                     for k, v in logs.items()}})
-    phase_sass(["pconv_pad11_cat_sm90", "pconv3_valid_sm90"])
+    phase_sass(libs)
     gen = torch.Generator(device=dev).manual_seed(0)
-    ok = phase_check(gen, dev)
+    ok = phase_check(names, gen, dev)
     if not args.check_only:
         phase_probe(dev)
-        phase_tune(gen, dev, args.iters, args.rounds)
+        phase_tune(names, gen, dev, args.iters, args.rounds)
     return 0 if ok else 1
 
 

@@ -78,6 +78,25 @@ def test_none_where_jax_returns_none(case):
     assert conv2x2_valid_bias(_t(x), _t(wk)) is None
 
 
+@pytest.mark.parametrize("n,h,w,c_out", [(1, 8, 21, 2 * C), (2, 2, 5, C)],
+                         ids=["one_and_a_half_tiles_co256",
+                              "below_one_tile"])
+def test_plain_matches_pallas_bf16_odd_widths(n, h, w, c_out):
+    """bf16 at odd output widths, as K3's Hopper kernel serves them on the
+    card (the stored width w + 1 needs no alignment)."""
+    jnp, pc = _jax()
+    x, wk, b = _inputs(n, h, w, seed=2, c_out=c_out)
+    bf = jnp.bfloat16
+    want = pc.conv2x2_valid_bias(jnp.asarray(x, bf), jnp.asarray(wk, bf),
+                                 jnp.asarray(b, bf), interpret=True)
+    got = conv2x2_valid_bias(_t(x, torch.bfloat16), _t(wk, torch.bfloat16),
+                             _t(b, torch.bfloat16))
+    assert got.shape == (n, h, w, c_out) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=0.04,
+                               atol=0.04)
+
+
 def test_height_without_block_divisor_is_covered():
     """h = 3 (JAX refuses it for its TPU block choice): the port computes
     it, equal to a plain VALID conv."""
@@ -98,7 +117,8 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 0.04)])
-@pytest.mark.parametrize("n,h,w", [(2, 8, 12), (3, 17, 33)])
+@pytest.mark.parametrize("n,h,w", [(2, 8, 12), (3, 17, 33), (1, 13, 24),
+                                   (2, 1, 5)])
 def test_kernel_matches_plain(cuda_device, n, h, w, dtype, tol,
                               monkeypatch):
     """The kernel on odd exact widths against its plain version in fp32
