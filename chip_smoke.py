@@ -41,6 +41,11 @@ and nothing of the JAX package. Phases, each printing one JSON line:
            plain versions at that forward's shapes, bf16, and at a small
            fp32 shape: the output's max error and the moment half-sums'
            max relative error, kernel / plain / unfused times and the bound;
+           K6a and K6c (bf16: forms of the wgmma / TMA kernels) also at
+           ragged bf16 shapes (odd heights, one and a half tiles wide, Ca !=
+           Cb, Co = 256 / 384, Ci = 256, D = 1 and 2, an image smaller than a
+           tile), K6a's rim slots and columns > w exact zeros, and K6c with
+           pre alone and with want_stats alone;
   k7       conv2x2_valid_bias on an exact odd width, the same way, with
            cuDNN's time (no path of the port calls it), and at two ragged
            odd-width bf16 shapes;
@@ -147,6 +152,13 @@ K3_RAGGED = ((2, 14, 32, 128, 128), (1, 10, 32, 128, 384),
 K4_RAGGED = ((2, 13, 24, 128, 128), (1, 7, 24, 128, 384),
              (3, 1, 8, 256, 128))
 K7_RAGGED = ((2, 14, 25, 128, 128), (1, 6, 12, 128, 256))
+# K6a as K1 (Co = 384 on the second), K6c as K5 (Ci = 256 on an odd hp)
+K6_RAGGED = {
+    "k6a": ((2, 13, 24, 128, 128, 128), (3, 7, 24, 128, 256, 384),
+            (1, 3, 8, 256, 128, 256)),
+    "k6c": ((2, 1, 14, 32, 128, 128), (1, 2, 10, 32, 128, 384),
+            (2, 3, 5, 16, 256, 128)),
+}
 PCONV_RAGGED = {"k3": K3_RAGGED, "k4": K4_RAGGED, "k5": K5_RAGGED}
 
 
@@ -399,12 +411,14 @@ def check_stats(name, got, want, npix, rtol, atol):
     return out
 
 
-def _k6_case(kernel, shape, dtype, gen, dev):
+def _k6_case(kernel, shape, dtype, gen, dev, use_pre=True, want_stats=True):
     """Operands of one K6 check: (kernel call, plain call, fp32 reference,
     unfused call, FLOP, bytes the function must move, output pixels per
     image). The VALID forms read a raw offset input (nonzero rim, 1e3 in the
     pad columns) through a nonzero pre; their reference applies pre in the
-    working dtype, as the kernel does, then the plain conv in fp32."""
+    working dtype, as the kernel does, then the plain conv in fp32.
+    use_pre / want_stats (the VALID forms): the form with one part alone;
+    without want_stats the calls return y alone."""
     from rehrseg_tpu_torch.ops import pack2d, pconv
 
     def randn(*s):
@@ -440,7 +454,7 @@ def _k6_case(kernel, shape, dtype, gen, dev):
     b = (0.1 * randn(co)).to(dtype)
     sa = (randn(lead[0], 1, ci).abs() + 0.5).expand(-1, 8, -1).to(dtype)
     ta = (0.5 * randn(lead[0], 1, ci)).expand(-1, 8, -1).to(dtype)
-    pre = (sa, ta, SLOPE)
+    pre = (sa, ta, SLOPE) if use_pre else None
     fn = pconv.pconv_valid if kd == 1 else pconv.pconv3_valid
     plain = pconv.pconv_valid_plain if kd == 1 else pconv.pconv3_valid_plain
     x5 = x[:, None] if kd == 1 else x
@@ -459,15 +473,19 @@ def _k6_case(kernel, shape, dtype, gen, dev):
             pack2d.conv_packed(xn, wp, b, in_w=w_out + 1))
 
     def ref():
-        xt = pconv.pre_plain(x[..., :w_out + 1, :], *pre).float()
-        return plain(xt, wt.float(), b.float(), w_out, want_stats=True)
+        xt = x[..., :w_out + 1, :]
+        if use_pre:
+            xt = pconv.pre_plain(xt, *pre)
+        return plain(xt.float(), wt.float(), b.float(), w_out,
+                     want_stats=want_stats)
     # kd = 3: of each batch element's 3D (output z, z tap) pairs, 3D - 2
     # do work (the taps outside [0, D) read zeros)
     planes = lead[0] * (3 * lead[1] - 2) if kd == 3 else lead[0]
     n_img = int(np.prod(lead))
     y_bytes = n_img * (hp - 1) * w_out * co * x.element_size()
-    return (lambda: fn(x, wt, b, w_out=w_out, pre=pre, want_stats=True),
-            lambda: plain(x, wt, b, w_out, pre=pre, want_stats=True),
+    return (lambda: fn(x, wt, b, w_out=w_out, pre=pre,
+                       want_stats=want_stats),
+            lambda: plain(x, wt, b, w_out, pre=pre, want_stats=want_stats),
             ref, unfused, 2 * planes * (hp - 1) * w_out * 4 * ci * co,
             nbytes(x[..., :w_out + 1, :], wt, b, sa[:, 0], ta[:, 0])
             + y_bytes + n_img * 16 * co * 4,
@@ -480,31 +498,52 @@ K6_FNS = {"k6a": "pconv_pad11_cat", "k6b": "pconv_valid",
 
 def phase_k6(gen, dev):
     """K6a/K6b/K6c against their plain versions, bf16 at the "fused"
-    forward's shapes and fp32 at a small one; at the path's shape also the
-    kernel, plain and unfused times and the bound. Returns the bf16
-    records."""
-    from rehrseg_tpu_torch.ops import pconv
+    forward's shapes and fp32 at a small one, K6a and K6c also at ragged
+    bf16 shapes and K6c with pre alone and want_stats alone; at the path's
+    shape also the kernel, plain and unfused times and the bound. Returns
+    the bf16 records."""
+    from rehrseg_tpu_torch.ops import pack2d, pconv
 
+    bf16, both = torch.bfloat16, dict(use_pre=True, want_stats=True)
     out = {}
     for kernel in ("k6a", "k6b", "k6c"):
         counter = getattr(pconv, K6_FNS[kernel])
+        cases = [("bf16_main", K6_SHAPES[kernel][0], bf16, 0.04, both),
+                 ("fp32_small", K6_SHAPES[kernel][1], torch.float32, 2e-5,
+                  both),
+                 *((f"bf16_ragged_{i}", shape, bf16, 0.04, both)
+                   for i, shape in enumerate(K6_RAGGED.get(kernel, ())))]
+        if kernel == "k6c":
+            ragged = K6_RAGGED[kernel][2]
+            cases += [("bf16_pre_only", ragged, bf16, 0.04,
+                       dict(use_pre=True, want_stats=False)),
+                      ("bf16_stats_only", ragged, bf16, 0.04,
+                       dict(use_pre=False, want_stats=True))]
         rec = {}
-        for label, shape, dtype, tol in (
-                ("bf16_main", K6_SHAPES[kernel][0], torch.bfloat16, 0.04),
-                ("fp32_small", K6_SHAPES[kernel][1], torch.float32, 2e-5)):
+        for label, shape, dtype, tol, form in cases:
             call, plain, ref, unfused, flops, n_bytes, npix = _k6_case(
-                kernel, shape, dtype, gen, dev)
+                kernel, shape, dtype, gen, dev, **form)
             before = counter.fused_launches
-            y, stats = call()
+            got, want = call(), ref()
             torch.cuda.synchronize()
             if counter.fused_launches != before + 1:
                 raise AssertionError(f"{kernel}: the wrapper did not count "
                                      f"its launch")
-            ry, rstats = ref()
+            y, stats = got if form["want_stats"] else (got, None)
+            ry, rstats = want if form["want_stats"] else (want, None)
             max_err = check_close(f"{kernel} {label}", y, ry, tol, tol)
             stats_err = check_stats(f"{kernel} {label}", stats, rstats,
-                                    npix, STATS_RTOL[dtype], tol)
-            del ry, rstats
+                                    npix, STATS_RTOL[dtype], tol) \
+                if form["want_stats"] else {}
+            if kernel == "k6a":
+                # the rim slots and the columns > w: exact zeros
+                mask = pack2d.offset_rim_mask(
+                    y.shape[1], y.shape[2], y.shape[3] // 4, torch.bool, dev,
+                    true_w=shape[2] + 1)
+                if bool((y[:, ~mask] != 0).any()):
+                    raise AssertionError(f"K6a {label}: a masked value is "
+                                         f"not an exact zero")
+            del ry, rstats, got, want
             r = dict(shape=list(shape), dtype=str(dtype), max_abs_err=max_err,
                      tolerance=tol, **stats_err, stats_rtol=STATS_RTOL[dtype])
             if label == "bf16_main":
@@ -1014,7 +1053,7 @@ def main() -> int:
              **{k: kp["k5"][k] for k in keys}),
         # the K6 forms: launches on the "fused" path (main_fused)
         dict(name="pconv_pad11_cat(want_stats=True)", route="cuda",
-             source="rehrseg_tpu_torch/csrc/pconv_pad11_cat.cu",
+             source="rehrseg_tpu_torch/csrc/pconv_pad11_cat_sm90.cu",
              replaces="rehrseg_tpu/ops/pallas_pconv.py:641",
              launches=launches_fused["pconv_pad11_cat_stats"],
              launches_in="main_fused", unfused_ms=k6["k6a"]["unfused_ms"],
@@ -1026,7 +1065,7 @@ def main() -> int:
              launches_in="main_fused", unfused_ms=k6["k6b"]["unfused_ms"],
              **{k: k6["k6b"][k] for k in keys}),
         dict(name="pconv3_valid(pre=, want_stats=True)", route="cuda",
-             source="rehrseg_tpu_torch/csrc/pconv_valid.cu",
+             source="rehrseg_tpu_torch/csrc/pconv3_valid_sm90.cu",
              replaces="rehrseg_tpu/ops/pallas_pconv.py:930",
              launches=launches_fused["pconv3_valid_fused"],
              launches_in="main_fused", unfused_ms=k6["k6c"]["unfused_ms"],

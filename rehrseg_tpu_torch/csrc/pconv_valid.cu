@@ -1,8 +1,8 @@
 // K3 and K5: offset -> aligned VALID 2x2 packed conv + bias, kd in {1, 3};
 // K6b and K6c: their deferred-norm forms; K7: the same conv on exact widths.
-// (The bf16 plain forms of K3, K5 and K7 run the Hopper kernels of
-// pconv2d_sm90.cu and pconv3_valid_sm90.cu; the bf16 kernel here runs the
-// deferred-norm forms, the fp32 kernel every form.)
+// (The bf16 forms of K3, K5, K6c and K7 run the Hopper kernels of
+// pconv2d_sm90.cu and pconv3_valid_sm90.cu; the bf16 kernel here runs K6b,
+// the kd = 1 deferred-norm forms, alone; the fp32 kernel every form.)
 //
 // Replaces the TPU kernels rehrseg_tpu/ops/pallas_pconv.py pconv_valid
 // (:519, body _valid_kernel :75; deferred-norm body _valid_fused_kernel
@@ -60,9 +60,9 @@
 // output fragment column by column in shared memory into a per-block
 // (2 images x Co) sum, flushed with one atomic per value. 64 accumulators a
 // thread and two blocks per SM (at most 128 registers). The plain bf16 forms
-// (no PRE, no STATS) have their own wgmma / TMA kernels, kd = 3 in
-// pconv3_valid_sm90.cu and kd = 1 (K3, K7) in pconv2d_sm90.cu, and are not
-// instantiated here.
+// (no PRE, no STATS) and every bf16 kd = 3 form have their own wgmma / TMA
+// kernels, kd = 3 in pconv3_valid_sm90.cu and kd = 1 (K3, K7) in
+// pconv2d_sm90.cu, and are not instantiated here.
 //
 // fp32 inputs take a plain FMA kernel (64 x 64 tiles, one tap per step),
 // with the same PRE and STATS forms.
@@ -560,10 +560,16 @@ template <typename T, int KD>
 int launch_any(const void* x, const void* w, const void* b, void* y, Geo g,
                Fused<T> fz, bool pre, bool stats, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    if (pre && stats) return launch_bf16<KD, true, true>(x, w, b, y, g, fz, stream);
-    if (pre) return launch_bf16<KD, true, false>(x, w, b, y, g, fz, stream);
-    if (stats) return launch_bf16<KD, false, true>(x, w, b, y, g, fz, stream);
-    // the bf16 plain forms are pconv3_valid_sm90.cu's and pconv2d_sm90.cu's
+    // bf16 kd = 3 is pconv3_valid_sm90.cu's, the bf16 plain forms are its
+    // and pconv2d_sm90.cu's
+    if constexpr (KD == 1) {
+      if (pre && stats)
+        return launch_bf16<1, true, true>(x, w, b, y, g, fz, stream);
+      if (pre)
+        return launch_bf16<1, true, false>(x, w, b, y, g, fz, stream);
+      if (stats)
+        return launch_bf16<1, false, true>(x, w, b, y, g, fz, stream);
+    }
     return (int)cudaErrorInvalidValue;
   } else {
     if (pre && stats) return launch_f32<KD, true, true>(x, w, b, y, g, fz, stream);
@@ -589,8 +595,9 @@ int launch_kd(const void* x, const void* w, const void* b, void* y, Geo g,
 // (co) -> y (nb, nd, hp-1, w_out, co); kd 1 or 3. With sa, ta (nb, ci) in
 // x's type the pre transform applies (null: none); with stats (nb * nd, 16,
 // co) fp32, zeroed by the caller, the moment partials accumulate (null:
-// none). The bf16 entry takes the deferred-norm forms alone: without sa, ta
-// and stats it is invalid (pconv3_valid_sm90.cu's and pconv2d_sm90.cu's).
+// none). The bf16 entry takes K6b alone, the kd = 1 deferred-norm forms:
+// kd = 3, or neither sa, ta nor stats, is invalid (pconv3_valid_sm90.cu's and
+// pconv2d_sm90.cu's).
 // Returns cudaGetLastError() after the launch.
 extern "C" int pconv_valid_bf16(const void* x, const void* w, const void* b,
                                 void* y, const void* sa, const void* ta,

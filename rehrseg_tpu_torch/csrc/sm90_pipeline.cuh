@@ -44,6 +44,26 @@
 // once to bf16, transposes 4 x 4 across each lane quad so that a thread
 // owns 8 consecutive channels, and stores 16 bytes, guarded at the ragged
 // edge.
+//
+// The deferred-norm forms (K6a in pconv_pad11_cat_sm90.cu, K6c in
+// pconv3_valid_sm90.cu) are the same kernel with a Conv whose FORM names
+// compile-time parts; a Conv without FORM compiles to the plain kernel:
+// - FORM_PRE: the conv reads leaky(x * sa + ta) * rim_mask. The warpgroup
+//   that owns a slab rewrites it in place in shared memory (Conv::transform)
+//   once it has landed, then fences the async proxy and meets on a named
+//   barrier before its wgmmas read it. The wgmmas of the K step before are
+//   still running then (they are asynchronous), so the rewrite overlaps
+//   them; what it costs is shared-memory traffic beside wgmma's operand
+//   reads and a longer hold on the stage (a form that rewrote the slab of
+//   step ks + 1 after issuing step ks, holding one more stage, timed the
+//   same or slower).
+// - FORM_RIM: the epilogue zeroes the output by the full offset rim mask.
+// - FORM_STATS: the epilogue also sums the stored (rounded) values and
+//   their squares per channel over the tile's stored pixels, in registers,
+//   across lanes by a halving butterfly, across the warpgroup's four warps
+//   in shared memory, and adds them to the image's (16, Co) fp32 partials
+//   with one vector red per four channels, kind and tile
+//   (store_tile_fused).
 
 #pragma once
 
@@ -52,6 +72,9 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace sm90 {
 
@@ -71,9 +94,29 @@ constexpr int B_TAP_BYTES = 2 * B_HALF_BYTES;    // one tap's 64 x 128 tile
 constexpr int STAGE_BYTES = 2 * SLAB_BYTES + 2 * B_TAP_BYTES;
 constexpr int THREADS = 384;
 
-constexpr int smem_bytes(int stages) {
-  // 1024 bytes of slack to align the ring, then the barriers
-  return stages * STAGE_BYTES + 1024 + 2 * stages * 8;
+// The compile-time parts of a deferred-norm form: Conv::FORM is a sum of
+// these (a Conv without the member is the plain form, 0).
+constexpr int FORM_PRE = 1;    // transform the input slabs in shared memory
+constexpr int FORM_STATS = 2;  // moment partials of the stored output
+constexpr int FORM_RIM = 4;    // the full offset rim mask on the output
+
+template <class Conv, class = void>
+struct form_of {
+  static constexpr int value = 0;
+};
+template <class Conv>
+struct form_of<Conv, std::void_t<decltype(Conv::FORM)>> {
+  static constexpr int value = Conv::FORM;
+};
+
+// FORM_STATS: 256 floats for each warp of the two consumer warpgroups
+constexpr int STATS_SCRATCH_BYTES = 2 * 4 * 256 * 4;
+
+constexpr int smem_bytes(int stages, int form = 0) {
+  // 1024 bytes of slack to align the ring, then the barriers, then the
+  // statistics' scratch
+  return stages * STAGE_BYTES + 1024 + 2 * stages * 8 +
+         ((form & FORM_STATS) ? STATS_SCRATCH_BYTES : 0);
 }
 
 // ------------------------------------------------------------ device side
@@ -278,6 +321,95 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// generic-proxy writes to shared memory become visible to the async proxy
+// (wgmma's operand reads, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads') among `threads` threads
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ float4 lds_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts_f2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a),
+               "f"(b)
+               : "memory");
+}
+
+// one atomic add of four consecutive floats (16-byte aligned), no return
+__device__ __forceinline__ void red_add_f4(float* p, float4 v) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// leaky(x * s + t) on a pair of bf16 values, rounded to bf16 after the
+// multiply, the add and the leaky product (the _rn forms are never
+// contracted into one fma, which would round once); slope2 holds the slope
+// twice. MAX_FORM (a slope in [0, 1]): leaky(v) = max(v, v * slope), one
+// instruction where the select by sign takes four; instructions count here,
+// because they run beside the wgmmas. A negative zero takes the product's
+// branch in the select form, which gives a zero too.
+template <bool MAX_FORM>
+__device__ __forceinline__ uint32_t pre_bf16x2(uint32_t x, uint32_t s,
+                                               uint32_t t, uint32_t slope2) {
+  const __nv_bfloat162 v = __hadd2_rn(
+      __hmul2_rn(*reinterpret_cast<const __nv_bfloat162*>(&x),
+                 *reinterpret_cast<const __nv_bfloat162*>(&s)),
+      *reinterpret_cast<const __nv_bfloat162*>(&t));
+  const __nv_bfloat162 m =
+      __hmul2_rn(v, *reinterpret_cast<const __nv_bfloat162*>(&slope2));
+  if constexpr (MAX_FORM) {
+    const __nv_bfloat162 r = __hmax2(v, m);
+    return *reinterpret_cast<const uint32_t*>(&r);
+  } else {
+    const uint32_t vb = *reinterpret_cast<const uint32_t*>(&v);
+    const uint32_t mb = *reinterpret_cast<const uint32_t*>(&m);
+    const uint32_t neg = ((vb >> 15) & 0x00010001u) * 0xffffu;
+    return (mb & neg) | (vb & ~neg);
+  }
+}
+
+// lo <= v < hi, for lo <= hi
+__device__ __forceinline__ bool in_range(int v, int lo, int hi) {
+  return (unsigned)(v - lo) < (unsigned)(hi - lo);
+}
+
+// ops/pack2d.py offset_rim_mask: is (row, col) of channel group grp (dy =
+// grp / 2, dx = grp % 2) inside the image, for an offset tensor hp rows high
+// and tw columns true width? Positions past the tensor are outside.
+__device__ __forceinline__ bool rim_ok(int row, int col, int hp, int tw,
+                                       int grp) {
+  return ((grp & 2) ? row < hp - 1 : (row > 0 && row < hp)) &&
+         ((grp & 1) ? col < tw - 1 : (col > 0 && col < tw));
+}
+
 // 4 x 4 transpose across a lane quad: lane q gives v[k] (its value for
 // column k) and ends with v[k] = lane k's value for column q
 __device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
@@ -360,6 +492,160 @@ __device__ __forceinline__ void store_tile(float (&acc)[2][64],
   }
 }
 
+// Where a FORM_STATS epilogue adds its sums: stats (n_img, 16, co) fp32,
+// zeroed by the caller; rows 0:8 of an image take the sums, rows 8:16 the
+// sums of squares, a tile adding to row tile % 8 of each half so that
+// neighbouring tiles' atomics land on different addresses. no_atomics is
+// for measuring what the atomics cost (tune_sm90): the sums are stored
+// plainly, a wrong result.
+struct StatsOut {
+  float* stats;
+  int no_atomics;
+};
+
+// store_tile for the deferred-norm forms. FORM_RIM: a value is stored as an
+// exact zero where the full offset rim mask of (out_h rows, live_w true
+// columns, channel group c / (co / 4)) is zero, not only at columns >=
+// live_w. FORM_STATS: the sum and the sum of squares, in fp32, of the
+// rounded values as stored, over the tile's stored pixels, go to
+// so.stats[img] (tile numbers past the image's last and the ragged edge stay
+// out: nothing of them is stored). `scratch` is this warpgroup's 4 KB of
+// shared memory and `bar` its named barrier.
+//
+// A thread holds 4 pixels x 32 channels. Channels go in four groups of 32
+// (grp; the 16 bytes a thread stores after the quad transpose lie in one
+// group, and so does a rim-mask channel group, co / 4 being a multiple of
+// 32), outermost, so that only 16 partial sums are live beside the 128
+// accumulators: 4 pixels are summed in registers, the 8 lanes that share a
+// quad position by a halving butterfly (each round sends half of what is
+// left: 8 + 4 + 2 shuffles), after which lane (rq, q) holds kind rq / 4 of
+// the two channels 32 grp + 8 (rq % 4) + 2 q + {0, 1}. The four warps'
+// values meet in shared memory, and 64 threads add four channels each with
+// one vector red (scalar atomics there, or from every warp without the
+// shared-memory sum, timed the same within the spread of the timings).
+template <int FORM>
+__device__ __forceinline__ void store_tile_fused(
+    float (&acc)[2][64], const TileGeo& g, int img, int i0, int j0, int n0,
+    int tile, const bf16* __restrict__ bias, bf16* __restrict__ y,
+    const StatsOut& so, uint32_t scratch, int bar, int warp, int lane) {
+  constexpr bool STATS = (FORM & FORM_STATS) != 0;
+  const int q = lane & 3, rq = lane >> 2;
+  const int tw_mask = (1 << g.log_tw) - 1;
+  int pi[4], pj[4];
+  bool stored[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = (r >> 1) * 64 + warp * 16 + (r & 1) * 8 + rq;
+    pi[r] = i0 + (row >> g.log_tw);
+    pj[r] = j0 + (row & tw_mask);
+    stored[r] = pi[r] < g.out_h && pj[r] < g.out_w;
+  }
+#pragma unroll
+  for (int grp = 0; grp < 4; ++grp) {
+    const int rim_grp = (n0 + 32 * grp) / (g.co >> 2);
+    float2 bv[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      bv[k] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          bias + n0 + 8 * (grp * 4 + k) + 2 * q));
+    float e[16];  // [kind * 8 + 2 k + {0, 1}]
+#pragma unroll
+    for (int i = 0; i < 16; ++i) e[i] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int mi = r >> 1, half = r & 1;
+      bool live = pj[r] < g.live_w;
+      if constexpr ((FORM & FORM_RIM) != 0)
+        live = rim_ok(pi[r], pj[r], g.out_h, g.live_w, rim_grp);
+      uint32_t v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = grp * 4 + k;
+        const __nv_bfloat162 o = __floats2bfloat162_rn(
+            acc[mi][4 * c + 2 * half] + bv[k].x,
+            acc[mi][4 * c + 2 * half + 1] + bv[k].y);
+        v[k] = live ? *reinterpret_cast<const uint32_t*>(&o) : 0u;
+        if constexpr (STATS) {
+          if (stored[r]) {  // the value as stored: bf16 is fp32's top half
+            const float lo = __uint_as_float(v[k] << 16);
+            const float hi = __uint_as_float(v[k] & 0xffff0000u);
+            e[2 * k] += lo;
+            e[2 * k + 1] += hi;
+            e[8 + 2 * k] = fmaf(lo, lo, e[8 + 2 * k]);
+            e[8 + 2 * k + 1] = fmaf(hi, hi, e[8 + 2 * k + 1]);
+          }
+        }
+      }
+      quad_transpose(v, q);
+      if (stored[r])
+        *reinterpret_cast<uint4*>(
+            y + (((int64_t)img * g.out_h + pi[r]) * g.out_w + pj[r]) * g.co +
+            n0 + 8 * (grp * 4 + q)) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    if constexpr (STATS) {
+      const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+      float a8[8], a4[4], a2[2];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {  // keep kind b4
+        const float recv =
+            __shfl_xor_sync(0xffffffffu, b4 ? e[i] : e[8 + i], 16);
+        a8[i] = (b4 ? e[8 + i] : e[i]) + recv;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // keep k / 2 == b3
+        const float recv =
+            __shfl_xor_sync(0xffffffffu, b3 ? a8[i] : a8[4 + i], 8);
+        a4[i] = (b3 ? a8[4 + i] : a8[i]) + recv;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // keep k % 2 == b2
+        const float recv =
+            __shfl_xor_sync(0xffffffffu, b2 ? a4[i] : a4[2 + i], 4);
+        a2[i] = (b2 ? a4[2 + i] : a4[i]) + recv;
+      }
+      // [warp][kind = rq / 4][128 channels]
+      sts_f2(scratch + 4u * (warp * 256 + (rq >> 2) * 128 + 32 * grp +
+                             8 * (rq & 3) + 2 * q),
+             a2[0], a2[1]);
+    }
+  }
+  if constexpr (STATS) {
+    named_barrier(bar, 128);
+    const int t = warp * 32 + lane;
+    if (t < 64) {  // kind t / 32, channels 4 (t % 32) + 0..3, over the warps
+      float4 v = lds_f4(scratch + 16u * t);
+#pragma unroll
+      for (int w = 1; w < 4; ++w) {
+        const float4 u = lds_f4(scratch + 16u * t + 1024u * w);
+        v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+      }
+      float* const p =
+          so.stats + ((int64_t)img * 16 + (t >> 5) * 8 + (tile & 7)) * g.co +
+          n0 + 4 * (t & 31);
+      if (so.no_atomics)
+        *reinterpret_cast<float4*>(p) = v;
+      else
+        red_add_f4(p, v);
+    }
+    named_barrier(bar, 128);  // the scratch is free for the next tile
+  }
+}
+
+// FORM_PRE: thread t of warpgroup wg's 128 waits for the slab of K step ks
+// and rewrites its share of it (Conv::transform). The writes reach the async
+// proxy, and every thread of the warpgroup has made its own, before any
+// wgmma reads the slab: a proxy fence, then the warpgroup's named barrier.
+template <class Conv>
+__device__ __forceinline__ void land_and_transform(
+    const Conv& conv, int ks, int img, int i0, int j0, uint32_t full_bar,
+    uint32_t phase, uint32_t slab, int log_tw, int wg, int t) {
+  const auto operands = conv.pre_operands(ks, img, t);  // in flight early
+  mbar_wait(full_bar, phase);
+  conv.transform(operands, ks, img, i0, j0, slab, log_tw, t);
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);
+}
+
 // Conv supplies the tap geometry:
 //   int ksteps(int img) const            K steps (column tap and the other
 //                                        tap axes, 64-channel chunk) of an
@@ -374,6 +660,15 @@ __device__ __forceinline__ void store_tile(float (&acc)[2][64],
 //                                        first row of the (taps*Ci, Co)
 //                                        weight matrix for row tap s of the
 //                                        K step.
+// and, for a deferred-norm form, static constexpr int FORM and
+//   StatsOut so                          (FORM_STATS) where the sums go;
+//   auto pre_operands(ks, img, t) const  (FORM_PRE) what thread t of the
+//                                        128 of the warpgroup needs from
+//                                        device memory for K step ks,
+//                                        asked for before the slab's wait;
+//   void transform(operands, ks, img, i0, j0, slab, log_tw, t) const
+//                                        (FORM_PRE) thread t rewrites its
+//                                        share of the landed slab.
 template <class Conv, int CLUSTER, int STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
@@ -383,6 +678,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
                   bf16* __restrict__ y) {
   static_assert(CLUSTER == 1 || CLUSTER == 2, "each block loads 1/CLUSTER "
                                               "of the weight tile's 2 boxes");
+  constexpr int FORM = form_of<Conv>::value;
   extern __shared__ unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align the ring to it
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -480,7 +776,12 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
       const int ks_n = conv.ksteps(img);
       int prev = 0;
       for (int ks = 0; ks < ks_n; ++ks) {
-        mbar_wait(full(stage), phase);
+        if constexpr ((FORM & FORM_PRE) != 0)
+          land_and_transform(conv, ks, img, i0, j0, full(stage), phase,
+                             ring + stage * STAGE_BYTES + wg * SLAB_BYTES,
+                             g.log_tw, wg, tid % 128);
+        else
+          mbar_wait(full(stage), phase);
         const uint32_t sa = ring + stage * STAGE_BYTES + wg * SLAB_BYTES;
         const uint32_t sb = ring + stage * STAGE_BYTES + 2 * SLAB_BYTES;
         wgmma_fence();
@@ -512,7 +813,13 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
       release(prev);
       fence_acc(acc[0]);
       fence_acc(acc[1]);
-      store_tile(acc, g, img, i0, j0, n0, true, bias, y, warp, lane);
+      if constexpr ((FORM & (FORM_STATS | FORM_RIM)) != 0)
+        store_tile_fused<FORM>(acc, g, img, i0, j0, n0, tile, bias, y,
+                               conv.so,
+                               bars + 16u * STAGES + wg * 4096u, 1 + wg,
+                               warp, lane);
+      else
+        store_tile(acc, g, img, i0, j0, n0, true, bias, y, warp, lane);
     }
     if constexpr (CLUSTER > 1) cluster_sync();
   }
@@ -569,14 +876,17 @@ inline int make_weight_map(CUtensorMap* map, const void* w, int64_t k_rows,
   return make_map(map, w, 2, dims, strides, box);
 }
 
+// the SMs of the current device (the one the launch goes to), looked up once
+// for each device
 inline int sm_count() {
-  static int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v;
-  }();
-  return n;
+  constexpr int MAX_DEV = 64;
+  static int known[MAX_DEV] = {};
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < MAX_DEV && known[dev]) return known[dev];
+  cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+  if (dev >= 0 && dev < MAX_DEV) known[dev] = v;
+  return v;
 }
 
 // Tile an (out_h, out_w) output image by 128-pixel rectangles 8, 16 or 32
@@ -610,7 +920,7 @@ int launch_conv(const CUtensorMap& a0, const CUtensorMap& a1,
                 const CUtensorMap& w, const Conv& conv, const TileGeo& g,
                 const void* bias, void* y, cudaStream_t stream) {
   auto kern = conv_wgmma_kernel<Conv, CLUSTER, STAGES>;
-  constexpr int smem = smem_bytes(STAGES);
+  constexpr int smem = smem_bytes(STAGES, form_of<Conv>::value);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -649,6 +959,26 @@ int launch_variant(int cluster, int stages, const CUtensorMap& a0,
   if (cluster == 2 && stages == 3)
     return launch_conv<Conv, 2, 3>(a0, a1, w, conv, g, bias, y, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// the deferred-norm forms: one block per cluster, 2 or 3 ring stages
+template <class Conv>
+int launch_fused(int stages, const CUtensorMap& a0, const CUtensorMap& a1,
+                 const CUtensorMap& w, const Conv& conv, const TileGeo& g,
+                 const void* bias, void* y, cudaStream_t stream) {
+  if (stages == 2)
+    return launch_conv<Conv, 1, 2>(a0, a1, w, conv, g, bias, y, stream);
+  if (stages == 3)
+    return launch_conv<Conv, 1, 3>(a0, a1, w, conv, g, bias, y, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// a bf16 value (a float that is exactly one) twice in 32 bits
+inline uint32_t bf16x2_bits(float v) {
+  uint32_t f;
+  memcpy(&f, &v, 4);
+  const uint32_t h = (f + 0x7fffu + ((f >> 16) & 1u)) >> 16;
+  return h | (h << 16);
 }
 
 }  // namespace sm90

@@ -19,8 +19,8 @@ The call contract is JAX's: ``None`` when Ci or Co is not a multiple of
 128. The TPU kernel's block-height choice (``_pick_bi``, which also refuses
 a height with no divisor in (16, 20, 8, 10, 32, 4, 5, 2)) is a TPU limit
 and is not carried over. On CPU tensors the wrapper runs the plain version;
-on CUDA tensors it launches the kernel or raises. ``.launches`` counts its
-launches.
+on CUDA tensors it launches the kernel, on x's device, or raises.
+``.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -60,15 +60,16 @@ def conv2x2_valid_bias(x, w, b=None):
                     device=x.device)
     if y.numel() == 0:
         return y
-    if _suffix(what, x.dtype) == "bf16":
-        # K3's Hopper kernel: stored width wp, output width wp - 1
-        fn, fn_name = _entry("k7_bf16", [_PTR] * 4 + [_INT] * 6)
-        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 n, hp, wp, c_in, c_out, wp - 1, _stream(x))
-    else:
-        fn, fn_name = _entry("k7_f32", [_PTR] * 4 + [_INT] * 5)
-        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 n, hp, wp, c_in, c_out, _stream(x))
+    with torch.cuda.device(x.device):   # the build and the launch: x's device
+        if _suffix(what, x.dtype) == "bf16":
+            # K3's Hopper kernel: stored width wp, output width wp - 1
+            fn, fn_name = _entry("k7_bf16", [_PTR] * 4 + [_INT] * 6)
+            err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                     n, hp, wp, c_in, c_out, wp - 1, _stream(x))
+        else:
+            fn, fn_name = _entry("k7_f32", [_PTR] * 4 + [_INT] * 5)
+            err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                     n, hp, wp, c_in, c_out, _stream(x))
     kernels.check(err, fn_name)
     conv2x2_valid_bias.launches += 1
     return y

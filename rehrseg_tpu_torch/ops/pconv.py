@@ -44,16 +44,18 @@ the per-image scale and shift):
   contract; how they spread over the rows is not.
 
 On the H100 each is an implicit GEMM in CUDA C++ (M = output pixels, N =
-Co, K = taps x Ci). The bf16 plain forms run Hopper kernels (TMA-fed shared
-memory, ``wgmma``; shared code in ``csrc/sm90_pipeline.cuh``): K1
-``csrc/pconv_pad11_cat_sm90.cu`` and K5 ``csrc/pconv3_valid_sm90.cu``
-(weights streamed with the input), K3 and K4 ``csrc/pconv2d_sm90.cu`` (and
-bf16 K7, :mod:`.conv2x2`): the weights resident in shared memory where they
-fit (Ci = 128), the streamed kernel on the same tap geometry where they do
-not. The bf16 K6 forms run a WMMA (``mma.sync``) kernel and every fp32 form
-an FMA kernel: K6a, fp32 K1 and fp32 K4 in ``csrc/pconv_pad11_cat.cu``,
-K6b, K6c and fp32 K3, K5 and K7 in ``csrc/pconv_valid.cu``. Every kernel
-adds the bias in fp32 and rounds once.
+Co, K = taps x Ci). In bf16 all but K6b run Hopper kernels (TMA-fed shared
+memory, ``wgmma``; shared code in ``csrc/sm90_pipeline.cuh``): K1 and K6a
+``csrc/pconv_pad11_cat_sm90.cu``, K5 and K6c ``csrc/pconv3_valid_sm90.cu``
+(weights streamed with the input; the K6 forms add the ``pre`` transform of
+the landed input in shared memory and the rim mask and moment sums to the
+epilogue), K3 and K4 ``csrc/pconv2d_sm90.cu`` (and bf16 K7,
+:mod:`.conv2x2`): the weights resident in shared memory where they fit (Ci =
+128), the streamed kernel on the same tap geometry where they do not. bf16
+K6b runs a WMMA (``mma.sync``) kernel in ``csrc/pconv_valid.cu``, and every
+fp32 form an FMA kernel: K1, K4 and K6a in ``csrc/pconv_pad11_cat.cu``, K3,
+K5, K6b, K6c and K7 in ``csrc/pconv_valid.cu``. Every kernel adds the bias
+in fp32 and rounds once.
 
 Each wrapper keeps the JAX call contract: the same shapes, dtypes, default
 ``w_out`` rule, ``(y, stats)`` when ``want_stats``, and ``None`` where the
@@ -62,14 +64,15 @@ the cuDNN conv at the same site). The TPU's VMEM block choice
 (``_pick_bi``, ``_pick_bi_fused``, ``fits``: they also refuse heights with
 no 2/4/8/16(/32) divisor) is a TPU limit and is not carried over. On CPU
 tensors a wrapper runs its plain version; on CUDA tensors it launches its
-kernel or raises. Each carries a ``.launches`` count of its plain form's
-launches; K1, K3 and K5 also carry ``.fused_launches``, the launches of
-their K6 form.
+kernel, on the tensors' device, or raises. Each carries a ``.launches``
+count of its plain form's launches; K1, K3 and K5 also carry
+``.fused_launches``, the launches of their K6 form.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -186,9 +189,11 @@ C_ENTRIES = {
     "k1_bf16": ("pconv_pad11_cat_sm90", "pconv_pad11_cat_sm90_bf16"),
     "k1_bf16_variant": ("pconv_pad11_cat_sm90",
                         "pconv_pad11_cat_sm90_bf16_variant"),
+    # fp32 K1 and, with stats, fp32 K6a
     "k1_f32": ("pconv_pad11_cat", "pconv_pad11_cat_f32"),
-    "k6a_bf16": ("pconv_pad11_cat", "pconv_pad11_cat_bf16"),
-    "k6a_f32": ("pconv_pad11_cat", "pconv_pad11_cat_f32"),
+    "k6a_bf16": ("pconv_pad11_cat_sm90", "pconv_pad11_cat_stats_sm90_bf16"),
+    "k6a_bf16_variant": ("pconv_pad11_cat_sm90",
+                         "pconv_pad11_cat_stats_sm90_bf16_variant"),
     "k4_bf16": ("pconv2d_sm90", "pconv_pad11_sm90_bf16"),
     "k4_bf16_variant": ("pconv2d_sm90", "pconv_pad11_sm90_bf16_variant"),
     "k4_f32": ("pconv_pad11_cat", "pconv_pad11_f32"),
@@ -197,7 +202,10 @@ C_ENTRIES = {
     "k5_bf16": ("pconv3_valid_sm90", "pconv3_valid_sm90_bf16"),
     "k5_bf16_variant": ("pconv3_valid_sm90",
                         "pconv3_valid_sm90_bf16_variant"),
-    # K6b and K6c; in fp32 also the plain K3 and K5
+    "k6c_bf16": ("pconv3_valid_sm90", "pconv3_valid_fused_sm90_bf16"),
+    "k6c_bf16_variant": ("pconv3_valid_sm90",
+                         "pconv3_valid_fused_sm90_bf16_variant"),
+    # bf16: K6b alone; fp32: K6b, K6c and the plain K3 and K5
     "valid_bf16": ("pconv_valid", "pconv_valid_bf16"),
     "valid_f32": ("pconv_valid", "pconv_valid_f32"),
     "k7_bf16": ("pconv2d_sm90", "pconv_valid_sm90_bf16"),
@@ -209,7 +217,8 @@ def _entry(key: str, argtypes, variant=None):
     """(C launcher, its name) for ``C_ENTRIES[key]``, or for its
     "_variant" twin when a variant (three ints) is named; argtypes lists
     the arguments before the variant's ints and the trailing stream
-    pointer."""
+    pointer. Builds the library at its first use, on the current
+    device."""
     lib, fn_name = C_ENTRIES[key + ("_variant" if variant else "")]
     fn = getattr(kernels.load(lib), fn_name)
     fn.restype = ctypes.c_int
@@ -234,16 +243,31 @@ def _count(counter, attr: str):
     setattr(counter, attr, getattr(counter, attr) + 1)
 
 
+def _on_device(launch):
+    """Run a launcher with the device of x, its first tensor, current: the
+    build at first use, the allocations and the launch go there, whatever
+    device the caller has current."""
+    @functools.wraps(launch)
+    def on_device(counter, x, *args, **kwargs):
+        with torch.cuda.device(x.device):
+            return launch(counter, x, *args, **kwargs)
+    return on_device
+
+
+@_on_device
 def _launch_pad11(counter, x, w, b, xb=None, want_stats=False,
                   variant=None):
     """K1 when xb is given (K6a with want_stats), K4 otherwise: (n, h+1,
     wp8, co) [and (n, 16, co) stats]. Adds one to the counter's
     ``launches`` (``fused_launches`` for K6a) once the kernel is
-    launched. bf16 K1 and bf16 K4 run their Hopper kernels; ``variant``
-    names one of their timed variants: (cluster, stages, log2 tile width)
-    for K1, (mode, stages, log2 tile width) for K4, with mode 0 the
-    streamed weights, 1 resident weights without the overlapped store, 2
-    with it."""
+    launched, on x's device. bf16 K1, K6a and K4 run their Hopper
+    kernels; ``variant`` names one of their timed variants: (cluster,
+    stages, log2 tile width) for K1; (measure, stages, log2 tile width)
+    for K6a, measure 0 the kernel and, for measuring what its epilogue
+    costs (the stats come out wrong), 1 the sums stored without atomics, 2
+    the rim mask alone; (mode, stages, log2 tile width) for K4, with mode 0
+    the streamed weights, 1 resident weights without the overlapped store,
+    2 with it."""
     n, h, w_in, ca = x.shape
     c_out = w.shape[-1]
     what = "pconv_pad11" if xb is None else "pconv_pad11_cat"
@@ -260,6 +284,8 @@ def _launch_pad11(counter, x, w, b, xb=None, want_stats=False,
     if n * (h + 1) * wp8 >= 2 ** 31:
         raise ValueError(f"{what}: output too large for int32 rows")
     y = torch.empty((n, h + 1, wp8, c_out), dtype=x.dtype, device=x.device)
+    stats = (torch.zeros((n, 16, c_out), dtype=torch.float32,
+                         device=x.device) if want_stats else None)
     if xb is None:
         # bf16: the Hopper kernel; fp32: the FMA kernel (no variants)
         fn, fn_name = _entry(f"k4_{sfx}", [_PTR] * 4 + [_INT] * 6, variant)
@@ -270,11 +296,14 @@ def _launch_pad11(counter, x, w, b, xb=None, want_stats=False,
         err = fn(x.data_ptr(), xb.data_ptr(), w.data_ptr(), b.data_ptr(),
                  y.data_ptr(), n, h, w_in, ca, xb.shape[-1], c_out, wp8,
                  *(variant or ()), _stream(x))
+    elif sfx == "bf16":
+        fn, fn_name = _entry("k6a_bf16", [_PTR] * 6 + [_INT] * 7, variant)
+        err = fn(x.data_ptr(), xb.data_ptr(), w.data_ptr(), b.data_ptr(),
+                 y.data_ptr(), stats.data_ptr(), n, h, w_in, ca,
+                 xb.shape[-1], c_out, wp8, *(variant or ()), _stream(x))
     else:
-        stats = (torch.zeros((n, 16, c_out), dtype=torch.float32,
-                             device=x.device) if want_stats else None)
-        fn, fn_name = _entry(f"{'k6a' if want_stats else 'k1'}_{sfx}",
-                             [_PTR] * 6 + [_INT] * 7)
+        # fp32 K1 and K6a: one FMA entry, stats or null (no variants)
+        fn, fn_name = _entry("k1_f32", [_PTR] * 6 + [_INT] * 7)
         err = fn(x.data_ptr(), xb.data_ptr(), w.data_ptr(), b.data_ptr(),
                  y.data_ptr(), stats.data_ptr() if want_stats else None, n,
                  h, w_in, ca, xb.shape[-1], c_out, wp8, _stream(x))
@@ -286,14 +315,16 @@ def _launch_pad11(counter, x, w, b, xb=None, want_stats=False,
     return y
 
 
+@_on_device
 def _launch_valid(counter, x, w, b, w_out, pre=None, want_stats=False,
                   variant=None):
     """K3 (x 4D, w (2, 2, Ci, Co)) or K5 (x 5D, w (3, 2, 2, Ci, Co)); K6b
     / K6c with ``pre`` or ``want_stats``. Adds one to the counter's
     ``launches`` (``fused_launches`` for a K6 form) once the kernel is
-    launched. bf16 K3 and bf16 K5 run their Hopper kernels; ``variant``
-    names one of their timed variants: (cluster, stages, log2 tile width)
-    for K5, (mode, stages, log2 tile width) for K3, as for K4."""
+    launched, on x's device. bf16 K3, K5 and K6c run their Hopper kernels;
+    ``variant`` names one of their timed variants: (cluster, stages, log2
+    tile width) for K5; (mode, stages, log2 tile width) for K3, as for K4;
+    (measure, stages, log2 tile width) for K6c, as for K6a (0, 1)."""
     what = "pconv_valid" if x.ndim == 4 else "pconv3_valid"
     kd = 1 if x.ndim == 4 else 3
     *lead, hp, wp8, c_in = x.shape
@@ -323,11 +354,22 @@ def _launch_valid(counter, x, w, b, w_out, pre=None, want_stats=False,
                          device=x.device) if want_stats else None)
     if y.numel() == 0:
         return (y, stats) if want_stats else y
+    # the deferred-norm operands, null for the part that is not wanted
+    fused_args = (sa.data_ptr() if pre is not None else None,
+                  ta.data_ptr() if pre is not None else None,
+                  stats.data_ptr() if want_stats else None)
+    slope = slope if pre is not None else 0.0
     if kd == 3 and sfx == "bf16" and not fused:
         fn, fn_name = _entry("k5_bf16", [_PTR] * 4 + [_INT] * 7, variant)
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                  nb, nd, hp, wp8, c_in, c_out, w_out, *(variant or ()),
                  _stream(x))
+    elif kd == 3 and sfx == "bf16":
+        fn, fn_name = _entry("k6c_bf16",
+                             [_PTR] * 7 + [_INT] * 7 + [_FLT], variant)
+        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 *fused_args, nb, nd, hp, wp8, c_in, c_out, w_out, slope,
+                 *(variant or ()), _stream(x))
     elif sfx == "bf16" and not fused:
         fn, fn_name = _entry("k3_bf16", [_PTR] * 4 + [_INT] * 6, variant)
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
@@ -337,11 +379,8 @@ def _launch_valid(counter, x, w, b, w_out, pre=None, want_stats=False,
         fn, fn_name = _entry(f"valid_{sfx}",
                              [_PTR] * 7 + [_INT] * 8 + [_FLT])
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 sa.data_ptr() if pre is not None else None,
-                 ta.data_ptr() if pre is not None else None,
-                 stats.data_ptr() if want_stats else None,
-                 nb, nd, hp, wp8, c_in, c_out, w_out, kd,
-                 slope if pre is not None else 0.0, _stream(x))
+                 *fused_args, nb, nd, hp, wp8, c_in, c_out, w_out, kd,
+                 slope, _stream(x))
     kernels.check(err, fn_name)
     _count(counter, "fused_launches" if fused else "launches")
     return (y, stats) if want_stats else y

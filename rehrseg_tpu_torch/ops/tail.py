@@ -101,13 +101,15 @@ def _launch(logits, preds, gaussian, region, z_scale):
     if preds.dtype not in C_ENTRIES:
         raise TypeError(f"accumulate_tta_tile: no kernel for {preds.dtype}")
     lib, fn_name = C_ENTRIES[preds.dtype]
-    fn = getattr(kernels.load(lib), fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 \
-        + [ctypes.c_void_p]
-    stream = torch.cuda.current_stream(logits.device).cuda_stream
-    err = fn(logits.data_ptr(), preds.data_ptr(), gaussian.data_ptr(),
-             c, d, h, w, od, ph, pw, zo, sy, sz, valid, stream)
+    # build (at first use) and launch on the tensors' device
+    with torch.cuda.device(logits.device):
+        fn = getattr(kernels.load(lib), fn_name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 \
+            + [ctypes.c_void_p]
+        stream = torch.cuda.current_stream(logits.device).cuda_stream
+        err = fn(logits.data_ptr(), preds.data_ptr(), gaussian.data_ptr(),
+                 c, d, h, w, od, ph, pw, zo, sy, sz, valid, stream)
     kernels.check(err, fn_name)
     accumulate_tta_tile.launches += 1
     return logits

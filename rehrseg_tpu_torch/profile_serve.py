@@ -34,23 +34,26 @@ import torch
 
 # kernel-name fragments -> class, first match wins. The Hopper kernels are
 # named by their tap geometry: bf16 K1 conv_wgmma_kernel<Pad11Cat, ..>, K5
-# <Valid3, ..>, K4 conv_resident_kernel<Pad11> and K3 (and K7) <Valid2>, or
+# <Valid3, ..>, their deferred-norm forms K6a <K6aPad11Cat<..>, ..> and K6c
+# <K6cValid3<..>, ..> (listed first: their names hold the plain ones'), K4
+# conv_resident_kernel<Pad11> and K3 (and K7) <Valid2>, or
 # conv_wgmma_kernel<Pad11, ..> / <Valid2, ..> where the weights do not fit
-# in shared memory. The WMMA / FMA pad11 kernels are <CAT, STATS>: fp32 K4
-# runs them with CAT false, K6a with STATS true, fp32 K1 with <true,
-# false>; fp32 K3 and K5 and the K6 forms are one kernel <KD, PRE, STATS>.
+# in shared memory. The FMA pad11 kernel is <CAT, STATS>: fp32 K4 runs it
+# with CAT false, fp32 K6a with STATS true, fp32 K1 with <true, false>;
+# fp32 K3 and K5 and the fp32 K6 forms, and bf16 K6b, are one kernel <KD,
+# PRE, STATS>.
 _CLASSES = (
+    ("k6a_pconv_pad11_cat_stats", ("K6aPad11Cat",
+                                   "pad11_cat_f32_kernel<true, true>")),
+    ("k6c_pconv3_valid_fused", ("K6cValid3",
+                                "valid_f32_kernel<3, true, true>")),
     ("k1_pconv_pad11_cat", ("Pad11Cat",)),
     ("k4_pconv_pad11", ("Pad11", "pad11_cat_f32_kernel<false, false>")),
-    ("k6a_pconv_pad11_cat_stats", ("pad11_cat_bf16_kernel<true, true>",
-                                   "pad11_cat_f32_kernel<true, true>")),
     ("k1_pconv_pad11_cat", ("pad11_cat",)),
     ("k3_pconv_valid", ("Valid2", "valid_f32_kernel<1, false, false>")),
     ("k5_pconv3_valid", ("Valid3", "valid_f32_kernel<3, false, false>")),
     ("k6b_pconv_valid_fused", ("valid_bf16_kernel<1, true, true>",
                                "valid_f32_kernel<1, true, true>")),
-    ("k6c_pconv3_valid_fused", ("valid_bf16_kernel<3, true, true>",
-                                "valid_f32_kernel<3, true, true>")),
     ("k2_accumulate_tta_tile", ("accumulate_kernel",)),
     ("conv_and_gemm", ("conv", "gemm", "xmma", "cutlass", "sm90_", "sm80_",
                        "cudnn", "implicit")),

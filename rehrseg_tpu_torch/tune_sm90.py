@@ -1,8 +1,8 @@
-"""Check and time the variants of the Hopper kernels (bf16 K1, K3, K4, K5)
-on the card.
+"""Check and time the variants of the Hopper kernels (bf16 K1, K3, K4, K5,
+K6a, K6c) on the card.
 
     python -m rehrseg_tpu_torch.tune_sm90 [--check-only] [--iters N]
-                                          [--rounds R] [--kernels k3,k4]
+                                          [--rounds R] [--kernels k6a,k6c]
 
 Builds ``csrc/pconv_pad11_cat_sm90.cu``, ``csrc/pconv3_valid_sm90.cu``,
 ``csrc/pconv2d_sm90.cu`` and the probe ``csrc/l2_feed_probe.cu``, then
@@ -13,9 +13,10 @@ prints one JSON line per phase:
           tile-store (``UTMASTG``) instructions ``cuobjdump -sass`` finds
           in each built library;
   check   each kernel against its plain version on fp32 copies (tolerance
-          0.04) at ragged shapes, the default variant and, for K3 and K4,
-          every mode, with the first disagreeing index where one fails
-          (exit code 1 at the end);
+          0.04) at ragged shapes, the default variant and, for K3, K4, K6a
+          and K6c, every variant (K6c also its pre-only and stats-only
+          forms; the K6 forms' moment half-sums within 2e-2), with the first
+          disagreeing index where one fails (exit code 1 at the end);
   probe   the rate at which TMA boxes shaped like the kernels' input tiles
           reach shared memory, from a region that fits in L2 and from one
           that does not (``l2_feed_probe``);
@@ -23,11 +24,15 @@ prints one JSON line per phase:
           (K1, K5: blocks per cluster, ring stages, tile width; K3, K4:
           mode 0 weights streamed with the input, 1 weights resident in
           shared memory, 2 resident with the store overlapped by the other
-          warpgroup's products, then ring stages and tile width), each
-          checked first, beside the default variant, the library call
-          (cuDNN) on the same operands and the kernel's bound: the median
-          and the least of R timings of N launches, the candidates timed
-          in turn.
+          warpgroup's products, then ring stages and tile width; K6a, K6c:
+          ring stages, tile width), each checked first, beside the default
+          variant, the library call (cuDNN) on the same operands (K6: none
+          computes it; the plain K1 / K5 kernel on the same operands
+          instead) and the kernel's bound: the median and the least of R
+          timings of N launches, the candidates timed in turn. K6a and
+          K6c also time what their epilogue costs (the kernel with the rim
+          mask alone, K6a, with the sums but no atomics, and whole) and K6c
+          its pre-only and stats-only forms.
 
 Needs a CUDA card and nvcc.
 """
@@ -76,6 +81,23 @@ K4_CHECKS = ((2, 13, 24, 128, 128), (1, 7, 24, 128, 384),
 # K3 / K4 (mode, stages, log2 tile width): every mode at ragged shapes
 MODE_CHECKS = ((0, 3, -1), (1, 3, -1), (1, 4, 5), (2, 2, -1), (2, 5, 3),
                (2, 4, 5))
+# K6a (n, h, w, ca, cb, co): K1's, and enough tiles that every block goes
+# round its ring several times, w = 8 on two rows
+K6A_CHECKS = (*K1_CHECKS, (40, 33, 64, 128, 128, 128),
+              (2, 2, 8, 128, 128, 256))
+# K6c (b, d, hp, wp8, ci, co) with w_out = wp8 - 8: D = 3, 1, 2 and 4, an
+# odd hp, Ci = 256, several ring rounds a block, w_out = 8
+K6C_CHECKS = ((2, 3, 14, 32, 128, 128), (1, 1, 10, 32, 128, 256),
+              (1, 2, 4, 16, 128, 384), (2, 2, 17, 40, 256, 128),
+              (3, 4, 33, 72, 256, 256), (2, 2, 9, 16, 128, 128))
+# K6a and K6c (measure, stages, log2 tile width), measure 0: the kernel
+K6_VARIANTS = ((0, 3, -1), (0, 2, -1), (0, 3, 3), (0, 3, 4), (0, 3, 5))
+# measuring variants, their stats wrong by design: 1 the sums stored without
+# atomics; 2 K6a's rim mask alone
+K6A_ABLATION = ((1, 3, -1), (2, 3, -1))
+K6C_ABLATION = ((1, 3, -1),)
+STATS_RTOL = 2e-2
+SLOPE = 0.01
 K15_VARIANTS = ((1, 3, -1), (2, 3, -1), (1, 2, -1), (2, 2, -1),
                 (1, 3, 3), (1, 3, 4), (1, 3, 5))
 K34_VARIANTS = ((0, 3, -1), (1, 3, -1), (1, 4, -1), (1, 5, -1), (2, 3, -1),
@@ -142,6 +164,47 @@ def k4_operands(shape, gen, dev):
             (0.1 * randn(co)).bfloat16())
 
 
+def k6c_operands(shape, gen, dev):
+    """K5's operands and sa, ta (b, 8, ci) that differ per channel and per
+    batch element."""
+    b, ci = shape[0], shape[4]
+    x, w, bias = k5_operands(shape, gen, dev)
+    sa = (torch.randn(b, 1, ci, generator=gen, device=dev).abs() + 0.5)
+    ta = 0.5 * torch.randn(b, 1, ci, generator=gen, device=dev)
+    return (x, w, bias, sa.expand(-1, 8, -1).bfloat16(),
+            ta.expand(-1, 8, -1).bfloat16())
+
+
+def run_k6a(ops, variant=None):
+    xa, xb, w, b = ops
+    return pconv._launch_pad11(pconv.pconv_pad11_cat, xa, w, b, xb=xb,
+                               want_stats=True, variant=variant)
+
+
+def run_k6c(ops, variant=None, pre=True, want_stats=True):
+    x, w, b, sa, ta = ops
+    return pconv._launch_valid(pconv.pconv3_valid, x, w, b, x.shape[3] - 8,
+                               pre=(sa, ta, SLOPE) if pre else None,
+                               want_stats=want_stats, variant=variant)
+
+
+def ref_k6a(ops):
+    return pconv.pconv_pad11_cat_plain(*(t.float() for t in ops),
+                                       want_stats=True)
+
+
+def ref_k6c(ops, pre=True, want_stats=True):
+    """The pre transform in bf16, as the kernel's, then the plain conv in
+    fp32."""
+    x, w, b, sa, ta = ops
+    w_out = x.shape[3] - 8
+    xt = x[..., :w_out + 1, :]
+    if pre:
+        xt = pconv.pre_plain(xt, sa, ta, SLOPE)
+    return pconv.pconv3_valid_plain(xt.float(), w.float(), b.float(), w_out,
+                                    want_stats=want_stats)
+
+
 def run_k1(ops, variant=None):
     xa, xb, w, b = ops
     return pconv._launch_pad11(pconv.pconv_pad11_cat, xa, w, b, xb=xb,
@@ -191,12 +254,25 @@ KERNELS = {
     "k5": (K5_MAIN, K5_CHECKS, k5_operands, run_k5, ref_k5, K15_VARIANTS),
     "k3": (K3_MAIN, K3_CHECKS, k3_operands, run_k3, ref_k3, K34_VARIANTS),
     "k4": (K4_MAIN, K4_CHECKS, k4_operands, run_k4, ref_k4, K34_VARIANTS),
+    "k6a": (K1_MAIN, K6A_CHECKS, k1_operands, run_k6a, ref_k6a, K6_VARIANTS),
+    "k6c": (K5_MAIN, K6C_CHECKS, k6c_operands, run_k6c, ref_k6c, K6_VARIANTS),
 }
+ABLATION = {"k6a": K6A_ABLATION, "k6c": K6C_ABLATION}
 
 
-def compare(got, want) -> dict:
+def compare(got, want, stats=True) -> dict:
     """Max abs error and, where it is over the tolerance, how many values
-    disagree and the first one's index."""
+    disagree and the first one's index. A K6 form gives (y, stats): y is
+    compared so, and the stats' two half-sums (rows 0:8 and 8:16 summed) by
+    ``compare_stats`` unless ``stats`` is False (a measuring variant)."""
+    if isinstance(got, tuple):
+        rec = compare(got[0], want[0])
+        if stats:
+            npix = want[0][0].numel() // want[0].shape[-1] \
+                // (want[1].shape[0] // want[0].shape[0])
+            rec.update(compare_stats(got[1], want[1], npix))
+            rec["ok"] = rec["ok"] and rec.pop("stats_ok")
+        return rec
     err = (got.float() - want).abs()
     bad = err > TOL + TOL * want.abs()
     rec = {"max_abs_err": float(err.max()), "ok": not bool(bad.any())}
@@ -205,6 +281,20 @@ def compare(got, want) -> dict:
         rec.update(n_bad=int(bad.sum()), of=bad.numel(), first_bad=idx,
                    got=float(got[tuple(idx)]), want=float(want[tuple(idx)]))
     return rec
+
+
+def compare_stats(got, want, npix) -> dict:
+    """(N, 16, C) moment partials of images of npix pixels as their two
+    half-sums: the sums of squares within STATS_RTOL (+ TOL), the sums
+    within STATS_RTOL + TOL * sqrt(npix) (a signed sum may cancel)."""
+    out, ok = {}, True
+    for part, rows, atol in (("sum", slice(0, 8), TOL * npix ** 0.5),
+                             ("square", slice(8, 16), TOL)):
+        g, w = got[:, rows].sum(1), want[:, rows].sum(1)
+        err = (g - w).abs()
+        ok = ok and not bool((err > atol + STATS_RTOL * w.abs()).any())
+        out[f"stats_{part}_max_abs_err"] = float(err.max())
+    return {**out, "stats_ok": ok}
 
 
 def phase_sass(names):
@@ -236,20 +326,36 @@ def phase_check(names, gen, dev) -> bool:
         for shape in shapes:
             ops = operands(shape, gen, dev)
             want = ref(ops)
-            # K3 / K4: every mode where the weights fit in shared memory
-            modes = MODE_CHECKS if name in ("k3", "k4") and shape[-2] == 128 \
-                else ()
+            # K3 / K4: every mode where the weights fit in shared memory;
+            # K6a / K6c: every variant, the measuring ones on y alone
+            if name in ("k3", "k4"):
+                modes = MODE_CHECKS if shape[-2] == 128 else ()
+            elif name in ABLATION:
+                modes = (*KERNELS[name][5], *ABLATION[name])
+            else:
+                modes = ()
             for variant in (None, *modes):
                 got = run(ops, variant)
                 torch.cuda.synchronize()
-                rec = compare(got, want)
-                if name in ("k1", "k4"):
+                rec = compare(got, want,
+                              stats=variant not in ABLATION.get(name, ()))
+                if name in ("k1", "k4", "k6a"):
+                    y = got[0] if name == "k6a" else got
                     rec["zero_columns"] = not bool(
-                        (got[:, :, shape[2] + 1:] != 0).any())
+                        (y[:, :, shape[2] + 1:] != 0).any())
                     rec["ok"] = rec["ok"] and rec["zero_columns"]
                 ok = ok and rec["ok"]
                 emit({"phase": "check", "kernel": name, "shape": shape,
                       "variant": variant, **rec})
+            if name == "k6c":   # the forms the "fused" forward does not use
+                for form in (dict(pre=True, want_stats=False),
+                             dict(pre=False, want_stats=True)):
+                    got = run(ops, None, **form)
+                    torch.cuda.synchronize()
+                    rec = compare(got, ref(ops, **form))
+                    ok = ok and rec["ok"]
+                    emit({"phase": "check", "kernel": name, "shape": shape,
+                          "form": form, **rec})
     return ok
 
 
@@ -279,9 +385,20 @@ def phase_probe(dev, iters=2000):
 
 def _library_case(name, shape, ops, want):
     """(the library call on the same operands, channels-last; FLOP; the
-    bytes the function must move) at a kernel's main shape."""
+    bytes the function must move) at a kernel's main shape. No library call
+    computes a K6 form: its yardstick here is the plain K1 / K5 kernel on
+    the same operands (no mask, no sums, no pre)."""
     def cl(t, fmt=torch.channels_last):
         return t.contiguous(memory_format=fmt)
+    if name in ("k6a", "k6c"):
+        # K1's operands are K6a's; K6c's are K5's, then sa and ta, of which
+        # row 0 of each (b, 8, ci) block is read
+        plain, conv_ops = ("k1", ops) if name == "k6a" else ("k5", ops[:3])
+        _, flops, n_bytes = _library_case(plain, shape, conv_ops, want[0])
+        n_bytes += sum(t[:, 0].numel() * 2 for t in ops[len(conv_ops):])
+        run_plain = KERNELS[plain][3]
+        return (lambda: run_plain(conv_ops), flops,
+                n_bytes + want[1].numel() * 4)
     if name == "k1":
         n, h, w, ca, cb, co = shape
         xa, xb, wt, b = ops
@@ -333,8 +450,11 @@ def phase_tune(names, gen, dev, iters, rounds):
         # the card's clock drifts under load: time every candidate in turn,
         # several rounds, and keep each one's median and least round
         calls = {"library": library, "default": lambda: run(ops)}
-        for variant in variants:
+        for variant in (*variants, *ABLATION.get(name, ())):
             calls[variant] = lambda v=variant: run(ops, v)
+        if name == "k6c":
+            calls["pre_only"] = lambda: run(ops, None, want_stats=False)
+            calls["stats_only"] = lambda: run(ops, None, pre=False)
         times = {k: [] for k in calls}
         for _ in range(rounds):
             for k, call in calls.items():
@@ -343,7 +463,8 @@ def phase_tune(names, gen, dev, iters, rounds):
         def stat(k):
             t = sorted(times[k])
             return {"ms": t[len(t) // 2], "min_ms": t[0]}
-        first = "cluster" if name in ("k1", "k5") else "mode"
+        first = {"k1": "cluster", "k5": "cluster", "k6a": "measure",
+                 "k6c": "measure"}.get(name, "mode")
         rec = {"phase": "tune", "kernel": name, "shape": shape,
                "rounds": rounds, "iters": iters,
                "bound_ms": max(flops / peak, n_bytes / hbm) * 1e3,
@@ -351,6 +472,13 @@ def phase_tune(names, gen, dev, iters, rounds):
                "variants": [{first: v[0], "stages": v[1], "log_tw": v[2],
                              **stat(v), **c}
                             for v, c in zip(variants, checks)]}
+        if name in ABLATION:
+            # the plain kernel is the "library" entry: no mask, no sums
+            rec["library_is"] = "the plain K1 / K5 kernel, same operands"
+            rec["ablation"] = [{first: v[0], "stages": v[1], "log_tw": v[2],
+                                **stat(v)} for v in ABLATION[name]]
+        if name == "k6c":
+            rec["forms"] = {k: stat(k) for k in ("pre_only", "stats_only")}
         emit(rec)
         del ops, want, library
         torch.cuda.empty_cache()
@@ -363,8 +491,9 @@ def main(argv=None) -> int:
                     help="launches per timing")
     ap.add_argument("--rounds", type=int, default=7,
                     help="timings of each candidate, taken in turn")
-    ap.add_argument("--kernels", default="k1,k5,k3,k4",
-                    help="the kernels to check and tune, of k1, k3, k4, k5")
+    ap.add_argument("--kernels", default="k1,k5,k3,k4,k6a,k6c",
+                    help="the kernels to check and tune, of k1, k3, k4, k5, "
+                         "k6a, k6c")
     args = ap.parse_args(argv)
     names = args.kernels.split(",")
     if not torch.cuda.is_available():
