@@ -41,11 +41,11 @@ and nothing of the JAX package. Phases, each printing one JSON line:
            plain versions at that forward's shapes, bf16, and at a small
            fp32 shape: the output's max error and the moment half-sums'
            max relative error, kernel / plain / unfused times and the bound;
-           K6a and K6c (bf16: forms of the wgmma / TMA kernels) also at
-           ragged bf16 shapes (odd heights, one and a half tiles wide, Ca !=
-           Cb, Co = 256 / 384, Ci = 256, D = 1 and 2, an image smaller than a
-           tile), K6a's rim slots and columns > w exact zeros, and K6c with
-           pre alone and with want_stats alone;
+           each (bf16: forms of the wgmma / TMA kernels) also at ragged bf16
+           shapes (odd heights, one and a half tiles wide, Ca != Cb, Co =
+           256 / 384, Ci = 256, w_out = 8, D = 1 and 2, an image smaller
+           than a tile), K6a's rim slots and columns > w exact zeros, and
+           K6b and K6c with pre alone and with want_stats alone;
   k7       conv2x2_valid_bias on an exact odd width, the same way, with
            cuDNN's time (no path of the port calls it), and at two ragged
            odd-width bf16 shapes;
@@ -152,10 +152,13 @@ K3_RAGGED = ((2, 14, 32, 128, 128), (1, 10, 32, 128, 384),
 K4_RAGGED = ((2, 13, 24, 128, 128), (1, 7, 24, 128, 384),
              (3, 1, 8, 256, 128))
 K7_RAGGED = ((2, 14, 25, 128, 128), (1, 6, 12, 128, 256))
-# K6a as K1 (Co = 384 on the second), K6c as K5 (Ci = 256 on an odd hp)
+# K6a as K1 (Co = 384 on the second), K6c as K5 (Ci = 256 on an odd hp), K6b
+# as K3 (w_out = 8 with Co = 384; Ci = 256, the streamed kernel)
 K6_RAGGED = {
     "k6a": ((2, 13, 24, 128, 128, 128), (3, 7, 24, 128, 256, 384),
             (1, 3, 8, 256, 128, 256)),
+    "k6b": ((2, 14, 32, 128, 128), (1, 10, 16, 128, 384),
+            (3, 9, 40, 256, 128)),
     "k6c": ((2, 1, 14, 32, 128, 128), (1, 2, 10, 32, 128, 384),
             (2, 3, 5, 16, 256, 128)),
 }
@@ -498,10 +501,11 @@ K6_FNS = {"k6a": "pconv_pad11_cat", "k6b": "pconv_valid",
 
 def phase_k6(gen, dev):
     """K6a/K6b/K6c against their plain versions, bf16 at the "fused"
-    forward's shapes and fp32 at a small one, K6a and K6c also at ragged
-    bf16 shapes and K6c with pre alone and want_stats alone; at the path's
-    shape also the kernel, plain and unfused times and the bound. Returns
-    the bf16 records."""
+    forward's shapes and fp32 at a small one, also at ragged bf16 shapes,
+    and K6b and K6c with pre alone and want_stats alone (K6b on the
+    weights-resident kernel of its main path, K6c at Ci = 256); at the
+    path's shape also the kernel, plain and unfused times and the bound.
+    Returns the bf16 records."""
     from rehrseg_tpu_torch.ops import pack2d, pconv
 
     bf16, both = torch.bfloat16, dict(use_pre=True, want_stats=True)
@@ -513,8 +517,8 @@ def phase_k6(gen, dev):
                   both),
                  *((f"bf16_ragged_{i}", shape, bf16, 0.04, both)
                    for i, shape in enumerate(K6_RAGGED.get(kernel, ())))]
-        if kernel == "k6c":
-            ragged = K6_RAGGED[kernel][2]
+        if kernel != "k6a":
+            ragged = K6_RAGGED[kernel][0 if kernel == "k6b" else 2]
             cases += [("bf16_pre_only", ragged, bf16, 0.04,
                        dict(use_pre=True, want_stats=False)),
                       ("bf16_stats_only", ragged, bf16, 0.04,
@@ -1059,7 +1063,7 @@ def main() -> int:
              launches_in="main_fused", unfused_ms=k6["k6a"]["unfused_ms"],
              **{k: k6["k6a"][k] for k in keys}),
         dict(name="pconv_valid(pre=, want_stats=True)", route="cuda",
-             source="rehrseg_tpu_torch/csrc/pconv_valid.cu",
+             source="rehrseg_tpu_torch/csrc/pconv2d_sm90.cu",
              replaces="rehrseg_tpu/ops/pallas_pconv.py:148",
              launches=launches_fused["pconv_valid_fused"],
              launches_in="main_fused", unfused_ms=k6["k6b"]["unfused_ms"],

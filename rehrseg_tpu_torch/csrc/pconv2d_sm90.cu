@@ -1,12 +1,13 @@
-// K4, K3 and K7 on Hopper: the kd = 1 packed 2x2 convs + bias on one
+// K4, K3, K7 and K6b on Hopper: the kd = 1 packed 2x2 convs + bias on one
 // input, bf16, on TMA-fed shared memory and wgmma, with the whole weight
 // tensor resident in shared memory.
 //
 // Replaces the TPU kernels of rehrseg_tpu/ops/pallas_pconv.py pconv_pad11
 // (:576, body _pad11_kernel :272; K4) and pconv_valid (:519, body
-// _valid_kernel :75; K3), plain forms (no pre, no statistics), and of
-// rehrseg_tpu/ops/pallas_conv.py conv2x2_valid_bias (:126, body _kernel
-// :34; K7), which is K3's function on an input stored at its exact width:
+// _valid_kernel :75; K3; the deferred-norm forms, body _valid_fused_kernel
+// :148; K6b), and of rehrseg_tpu/ops/pallas_conv.py conv2x2_valid_bias
+// (:126, body _kernel :34; K7), which is K3's function on an input stored
+// at its exact width:
 //
 //   K4  y[n, i, j, co] = bias[co] + sum_{s,t in {0,1}} sum_c
 //                        x[n, i+s-1, j+t-1, c] * W[s, t, c, co]
@@ -25,16 +26,24 @@
 // 0 (so every row of channels is a multiple of 16 bytes, whatever the
 // width: K7's odd widths need nothing more).
 //
+// K6b is K3 with either or both of sm90_pipeline.cuh's deferred-norm parts
+// (K6bValid2): with pre the conv reads leaky(x * sa[n] + ta[n]) * rim_mask
+// (sa, ta (N, Ci), one row per image; rim_mask of the input's true width
+// w_out + 1), each slab rewritten in shared memory by the warpgroup that
+// reads it; with stats the epilogue adds the sum and the sum of squares of
+// every stored (rounded) output to stats (N, 16, Co) fp32, zeroed by the
+// caller, from 4 KB of scratch a warpgroup past the barriers.
+//
 // What bounds them on the H100: at the path's shapes (N 128, 160 x 192
-// output pixels, Ci = Co = 128) each does 0.52 TFLOP on about 2.03 GB, so
-// the memory rate bounds it, just, and the tensor cores are two thirds
-// busy at that rate: input and output must stream at nearly the memory
-// rate and nothing may stall either. K is only 4 * Ci = 512 deep, so a
-// kernel that streams its weights with the input (sm90_pipeline.cuh's
-// conv_wgmma_kernel) reads the whole 128 KB weight tensor from L2 again
-// for every pair of tiles, as many bytes as the input itself, and its
-// epilogue, as long here as a tile's four K steps, leaves the tensor cores
-// idle. The design here (conv_resident_kernel):
+// output pixels, Ci = Co = 128; K6b's the same) each does 0.52 TFLOP on
+// about 2.03 GB, so the memory rate bounds it, just, and the tensor cores
+// are two thirds busy at that rate: input and output must stream at nearly
+// the memory rate and nothing may stall either. K is only 4 * Ci = 512
+// deep, so a kernel that streams its weights with the input
+// (sm90_pipeline.cuh's conv_wgmma_kernel) reads the whole 128 KB weight
+// tensor from L2 again for every pair of tiles, as many bytes as the input
+// itself, and its epilogue, as long here as a tile's four K steps, leaves
+// the tensor cores idle. The design here (conv_resident_kernel):
 //
 // - The weights are resident. A persistent block keeps one block of 128
 //   output channels: its producer thread loads the (4 Ci, 128) weight tile
@@ -105,18 +114,52 @@ struct Taps {
 struct Pad11 : Taps<-1> {};
 struct Valid2 : Taps<0> {};
 
+// K6b: F of FORM_PRE, FORM_STATS; K3's taps on leaky(x * sa + ta) *
+// rim_mask, sa, ta (N, Ci), one row per image
+template <int F>
+struct K6bValid2 : Valid2, PreSlab {
+  static constexpr int FORM = F;
+  StatsOut so;
+
+  // K step ks is column tap ks % 2 of channel chunk ks / 2 (Taps::load_a)
+  __device__ __forceinline__ Operands pre_operands(int ks, int img,
+                                                   int t) const {
+    return operands(img, ci, (ks >> 1) * BK, t);
+  }
+
+  __device__ __forceinline__ void transform(const Operands& o, int ks, int,
+                                            int i0, int j0, uint32_t slab,
+                                            int log_tw, int t) const {
+    rewrite_slab(o, i0, j0 + (ks & 1), slab, log_tw, t);
+  }
+};
+
 constexpr int MAX_SMEM = 232448;   // what a block may ask for on sm_90
 constexpr int MAX_STAGES = 5;
 // the default ring depth: four and five stages time the same (a third costs
-// 4 %), and four fit beside the weights at every tile width
+// 4 %), and four fit beside the weights at every tile width, with or
+// without the statistics' scratch
 constexpr int DEFAULT_STAGES = 4;
 
+// the barriers' bytes: per stage a full one for each warpgroup and an empty
+// one, then the weights'
+__host__ __device__ constexpr int barrier_bytes(int stages) {
+  return (3 * stages + 1) * 8;
+}
+
+// the offset of FORM_STATS's scratch from the barriers: past them, on the
+// 16-byte boundary its vector loads and stores need
+__host__ __device__ constexpr int scratch_offset(int stages) {
+  return (barrier_bytes(stages) + 15) & ~15;
+}
+
 // 1024 bytes of slack to align, the weights, the ring, then the barriers
-// (per stage a full one for each warpgroup and an empty one; the weights')
-constexpr int resident_smem(int ci, int stages, int log_tw) {
+// and, for FORM_STATS, the two consumer warpgroups' 4 KB of scratch
+constexpr int resident_smem(int ci, int stages, int log_tw, int form) {
   return 1024 + 4 * ci * BN * 2 +
          stages * (A_BOX_BYTES + (ROW_BYTES << log_tw)) +
-         (3 * stages + 1) * 8;
+         ((form & FORM_STATS) ? scratch_offset(stages) + STATS_SCRATCH_BYTES
+                              : barrier_bytes(stages));
 }
 
 // A block's tiles are numbered lane, lane + lanes, ... over all images
@@ -126,6 +169,13 @@ constexpr int resident_smem(int ci, int stages, int log_tw) {
 // k * ks_n + ks), or, without the overlap, K step by K step for a pair of
 // tiles (slot ((k / 2) * ks_n + ks) * 2 + k % 2; an odd tile count is
 // rounded up by a tile past the last, computed on zero fill, not stored).
+//
+// A deferred-norm Conv (K6b) adds sm90_pipeline.cuh's parts: FORM_PRE, the
+// warpgroup that reads a slab rewrites it after its full-barrier wait
+// (land_and_transform, on the warpgroup's named barrier 1 + wg); FORM_STATS,
+// store_tile_fused with the warpgroup's 4 KB of scratch past the barriers.
+// The tile past the last has no image: its operands are image 0's, and it
+// neither stores nor sums.
 template <class Conv>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_resident_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -133,6 +183,7 @@ conv_resident_kernel(const __grid_constant__ CUtensorMap map_a,
                      const Conv conv, const TileGeo g, const int stages,
                      const int alternate, const bf16* __restrict__ bias,
                      bf16* __restrict__ y) {
+  constexpr int FORM = form_of<Conv>::value;
   extern __shared__ unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align everything to it
   const uint32_t wres = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -230,9 +281,15 @@ conv_resident_kernel(const __grid_constant__ CUtensorMap map_a,
         const int slot =
             alternate ? k * ks_n + ks : ((k >> 1) * ks_n + ks) * 2 + (k & 1);
         const int stage = slot % stages;
-        mbar_wait(full(wg, stage), (seen >> stage) & 1u);
+        const uint32_t parity = (seen >> stage) & 1u;
         seen ^= 1u << stage;
         const uint32_t sa = ring + (uint32_t)stage * slab_bytes;
+        if constexpr ((FORM & FORM_PRE) != 0)
+          land_and_transform(conv, ks, valid ? img : 0, i0, j0,
+                             full(wg, stage), parity, sa, g.log_tw, wg,
+                             tid % 128);
+        else
+          mbar_wait(full(wg, stage), parity);
         wgmma_fence();
 #pragma unroll
         for (int s = 0; s < 2; ++s) {
@@ -262,7 +319,16 @@ conv_resident_kernel(const __grid_constant__ CUtensorMap map_a,
       if (lane == 0) mbar_arrive(empty(prev));
       fence_acc(acc[0]);
       fence_acc(acc[1]);
-      store_tile(acc, g, img, i0, j0, n0, valid, bias, y, warp, lane);
+      if constexpr ((FORM & (FORM_STATS | FORM_RIM)) != 0) {
+        // valid is the same for the whole warpgroup: its named barrier
+        // inside is met by all 128 threads or by none
+        if (valid)
+          store_tile_fused<FORM>(
+              acc, g, img, i0, j0, n0, lane_b + k * lanes, bias, y, conv.so,
+              bars + scratch_offset(stages) + wg * 4096u, 1 + wg, warp, lane);
+      } else {
+        store_tile(acc, g, img, i0, j0, n0, valid, bias, y, warp, lane);
+      }
     }
   }
 }
@@ -273,7 +339,8 @@ int launch_resident(const CUtensorMap& ma, const CUtensorMap& mw,
                     int alternate, const void* bias, void* y,
                     cudaStream_t stream) {
   auto kern = conv_resident_kernel<Conv>;
-  const int smem = resident_smem(conv.ci, stages, g.log_tw);
+  const int smem =
+      resident_smem(conv.ci, stages, g.log_tw, form_of<Conv>::value);
   // in step, each warpgroup holds a slab while it waits for its next
   if (stages < (alternate ? 2 : 3) || smem > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
@@ -304,10 +371,11 @@ int launch_resident(const CUtensorMap& ma, const CUtensorMap& mw,
 //
 // x is read through a map of (n, map_h, map_w, ci) whose rows are pitch_w
 // pixels apart; y is (n, out_h, out_w, co), its columns >= live_w zeros.
+// proto carries a deferred-norm form's operands.
 template <class Conv>
-int launch(const void* x, const void* w, const void* b, void* y, int n,
-           int map_h, int map_w, int pitch_w, int ci, int co, int out_h,
-           int out_w, int live_w, int mode, int stages, int log_tw,
+int launch(const Conv& proto, const void* x, const void* w, const void* b,
+           void* y, int n, int map_h, int map_w, int pitch_w, int ci, int co,
+           int out_h, int out_w, int live_w, int mode, int stages, int log_tw,
            void* stream) {
   if (ci % 128 || co % 128 || ci < 128 || co < 128 || n < 1 || map_h < 1 ||
       map_w < 1 || pitch_w < map_w || out_h < 1 || out_w < 1 || mode > 2)
@@ -323,11 +391,13 @@ int launch(const void* x, const void* w, const void* b, void* y, int n,
   const uint32_t box[4] = {BK, 1u << g.log_tw, (uint32_t)g.th + 1, 1};
   if ((err = make_map(&mx, x, 4, dims, strides, box))) return err;
   if ((err = make_weight_map(&mw, w, (int64_t)4 * ci, co))) return err;
-  Conv conv;
+  Conv conv = proto;
   conv.ci = ci;
   if (stages > MAX_STAGES) return (int)cudaErrorInvalidValue;
   int fit = stages > 0 ? stages : DEFAULT_STAGES;
-  while (fit >= 2 && resident_smem(ci, fit, g.log_tw) > MAX_SMEM) --fit;
+  while (fit >= 2 &&
+         resident_smem(ci, fit, g.log_tw, form_of<Conv>::value) > MAX_SMEM)
+    --fit;
   if (mode < 0) mode = fit >= 2 ? 2 : 0;
   if (mode == 0)
     return stages > 0 && stages != 3
@@ -337,6 +407,26 @@ int launch(const void* x, const void* w, const void* b, void* y, int n,
   if (stages > 0 && fit != stages) return (int)cudaErrorInvalidValue;
   return launch_resident(mx, mw, conv, g, fit, mode == 2, b, y,
                          (cudaStream_t)stream);
+}
+
+// K6b: sa, ta (both or neither) and stats may be null; the form follows from
+// what is given. measure 1: the sums stored without atomics (stats wrong);
+// 2 and 3: PreSlab's measuring forms (y and stats wrong).
+int launch_k6b(const void* x, const void* w, const void* b, void* y,
+               const void* sa, const void* ta, void* stats, int n, int hp,
+               int wp8, int ci, int co, int w_out, float slope, int measure,
+               int mode, int stages, int log_tw, void* stream) {
+  if (hp < 2 || (sa == nullptr) != (ta == nullptr) || (!sa && !stats) ||
+      measure < 0 || measure > 3)
+    return (int)cudaErrorInvalidValue;
+  auto run = [&](auto conv) {
+    set_pre(conv, sa, ta, slope, hp, w_out + 1, measure);
+    conv.so = StatsOut{(float*)stats, measure == 1};
+    return launch(conv, x, w, b, y, n, hp, w_out + 1, wp8, ci, co, hp - 1,
+                  w_out, w_out, mode, stages, log_tw, stream);
+  };
+  if (sa && stats) return run(K6bValid2<FORM_PRE | FORM_STATS>{});
+  return sa ? run(K6bValid2<FORM_PRE>{}) : run(K6bValid2<FORM_STATS>{});
 }
 
 }  // namespace
@@ -349,8 +439,8 @@ extern "C" int pconv_pad11_sm90_bf16(const void* x, const void* w,
                                      int w_in, int ci, int co, int wp8,
                                      void* stream) {
   if (wp8 < w_in + 1) return (int)cudaErrorInvalidValue;
-  return launch<Pad11>(x, w, b, y, n, h, w_in, w_in, ci, co, h + 1, wp8,
-                       w_in + 1, -1, 0, -1, stream);
+  return launch(Pad11{}, x, w, b, y, n, h, w_in, w_in, ci, co, h + 1, wp8,
+                w_in + 1, -1, 0, -1, stream);
 }
 
 // the same with the variant named (mode, stages, log_tw: see launch)
@@ -360,8 +450,8 @@ extern "C" int pconv_pad11_sm90_bf16_variant(const void* x, const void* w,
                                              int wp8, int mode, int stages,
                                              int log_tw, void* stream) {
   if (wp8 < w_in + 1) return (int)cudaErrorInvalidValue;
-  return launch<Pad11>(x, w, b, y, n, h, w_in, w_in, ci, co, h + 1, wp8,
-                       w_in + 1, mode, stages, log_tw, stream);
+  return launch(Pad11{}, x, w, b, y, n, h, w_in, w_in, ci, co, h + 1, wp8,
+                w_in + 1, mode, stages, log_tw, stream);
 }
 
 // K3 (and K7 with wp8 = w_out + 1): x (n, hp, wp8, ci), w (2, 2, ci, co), b
@@ -371,8 +461,8 @@ extern "C" int pconv_valid_sm90_bf16(const void* x, const void* w,
                                      int wp8, int ci, int co, int w_out,
                                      void* stream) {
   if (hp < 2) return (int)cudaErrorInvalidValue;
-  return launch<Valid2>(x, w, b, y, n, hp, w_out + 1, wp8, ci, co, hp - 1,
-                        w_out, w_out, -1, 0, -1, stream);
+  return launch(Valid2{}, x, w, b, y, n, hp, w_out + 1, wp8, ci, co, hp - 1,
+                w_out, w_out, -1, 0, -1, stream);
 }
 
 extern "C" int pconv_valid_sm90_bf16_variant(const void* x, const void* w,
@@ -381,6 +471,31 @@ extern "C" int pconv_valid_sm90_bf16_variant(const void* x, const void* w,
                                              int w_out, int mode, int stages,
                                              int log_tw, void* stream) {
   if (hp < 2) return (int)cudaErrorInvalidValue;
-  return launch<Valid2>(x, w, b, y, n, hp, w_out + 1, wp8, ci, co, hp - 1,
-                        w_out, w_out, mode, stages, log_tw, stream);
+  return launch(Valid2{}, x, w, b, y, n, hp, w_out + 1, wp8, ci, co, hp - 1,
+                w_out, w_out, mode, stages, log_tw, stream);
+}
+
+// K6b: the same operands and, each or both, sa, ta (n, ci) bf16 for the pre
+// transform with its leaky slope (a bf16 value), and stats (n, 16, co) fp32,
+// zeroed by the caller, for the moment partials; null for the part that is
+// not wanted. Returns as above.
+extern "C" int pconv_valid_fused_sm90_bf16(
+    const void* x, const void* w, const void* b, void* y, const void* sa,
+    const void* ta, void* stats, int n, int hp, int wp8, int ci, int co,
+    int w_out, float slope, void* stream) {
+  return launch_k6b(x, w, b, y, sa, ta, stats, n, hp, wp8, ci, co, w_out,
+                    slope, 0, -1, 0, -1, stream);
+}
+
+// the same with the variant named: a measuring form (0 none: K6b; 1 the sums
+// stored without atomics, stats left wrong; with y wrong too, 2 the pre
+// rewrite skipped, 3 its loads and stores alone), then mode, stages, log_tw
+// as for K3 (see launch)
+extern "C" int pconv_valid_fused_sm90_bf16_variant(
+    const void* x, const void* w, const void* b, void* y, const void* sa,
+    const void* ta, void* stats, int n, int hp, int wp8, int ci, int co,
+    int w_out, float slope, int measure, int mode, int stages, int log_tw,
+    void* stream) {
+  return launch_k6b(x, w, b, y, sa, ta, stats, n, hp, wp8, ci, co, w_out,
+                    slope, measure, mode, stages, log_tw, stream);
 }

@@ -22,21 +22,15 @@
 // column and channel group g = c / (Ci/4), dy = g/2, dx = g%2); sa, ta are
 // (B, Ci), one row per batch element; z planes outside [0, D) stay zero
 // (their K steps do not run). The warpgroup that owns a slab rewrites it in
-// place in shared memory once it has landed (K6cValid3::transform), while
-// the wgmmas of the K step before run. A slab row is one pixel's 64
-// channels, stored under the 128-byte swizzle: its logical 16-byte chunk k
-// sits at physical chunk k ^ (row & 7). Thread t takes physical chunk t % 8
-// of rows t / 8, t / 8 + 16, ..., whose row & 7 never changes, so its eight
-// channels, and with them its sa, ta and mask group, are fixed for the K
-// step. What TMA zero-filled (past row hp - 1 or column w_out) is outside
-// the mask and stays zero. The rewrite is kept to few instructions (a slab
-// inside the rim skips the mask; a slope in [0, 1] takes leaky as one max):
-// what it costs is its 2 x 18 KB of shared-memory traffic a slab, beside
-// wgmma's operand reads and TMA's writes, which already fill most of what
-// shared memory can move. With stats the epilogue adds the sum and the sum
-// of squares of every stored (rounded) output, per (b, z) image and channel,
-// to stats (B*D, 16, Co) fp32, zeroed by the caller: rows 0:8 sum to the
-// sum, rows 8:16 to the sum of squares (sm90_pipeline.cuh, store_tile_fused).
+// place in shared memory once it has landed (K6cValid3::transform, through
+// sm90_pipeline.cuh's PreSlab, which K6b shares), while the wgmmas of the K
+// step before run; what it costs is its 2 x 18 KB of shared-memory traffic
+// a slab, beside wgmma's operand reads and TMA's writes, which already fill
+// most of what shared memory can move. With stats the epilogue adds the sum
+// and the sum of squares of every stored (rounded) output, per (b, z) image
+// and channel, to stats (B*D, 16, Co) fp32, zeroed by the caller: rows 0:8
+// sum to the sum, rows 8:16 to the sum of squares (sm90_pipeline.cuh,
+// store_tile_fused).
 //
 // What bounds it on the H100: at the path's shape (8, 16, 81, 104, 256 ->
 // 256) it does 1.48 TFLOP on about 1.06 GB, so the tensor-core rate bounds
@@ -109,54 +103,17 @@ struct Valid3 {
   }
 };
 
-// K6c: F of FORM_PRE, FORM_STATS
+// K6c: F of FORM_PRE, FORM_STATS; sa, ta (B, Ci), one row per batch element
 template <int F>
-struct K6cValid3 : Valid3 {
+struct K6cValid3 : Valid3, PreSlab {
   static constexpr int FORM = F;
-  const bf16* sa;   // (B, Ci)
-  const bf16* ta;
-  uint32_t slope2;  // the leaky slope, bf16, twice
-  int hp, tw;       // the input's rows and true width w_out + 1
-  int max_form;     // the slope lies in [0, 1]: leaky(v) = max(v, v * slope)
   StatsOut so;
-
-  // thread t's scale and shift: it takes physical chunk t % 8 of slab rows
-  // t / 8 (mod 16), which is logical chunk (t % 8) ^ (row % 8), and row % 8
-  // == (t / 8) % 8 on all of them, so its 8 channels are fixed for a K step
-  struct Operands {
-    uint4 sv, tv;
-    int grp;  // the channels' rim-mask group
-  };
 
   __device__ __forceinline__ Operands pre_operands(int ks, int img,
                                                    int t) const {
     int z, u, tap, c0;
     decode(ks, img, z, u, tap, c0);
-    const int c = c0 + 8 * ((t & 7) ^ ((t >> 3) & 7));
-    const int64_t off = (int64_t)(img / nd) * ci + c;
-    return Operands{__ldg(reinterpret_cast<const uint4*>(sa + off)),
-                    __ldg(reinterpret_cast<const uint4*>(ta + off)),
-                    c / (ci >> 2)};
-  }
-
-  template <bool MAX_FORM, bool MASKED>
-  __device__ __forceinline__ void rewrite(const Operands& o, uint32_t addr,
-                                          int p, int rows, int log_tw,
-                                          int r_lo, int r_hi, int c_lo,
-                                          int c_hi) const {
-    const int tw_mask = (1 << log_tw) - 1;
-    for (; p < rows; p += 16, addr += 16 * ROW_BYTES) {
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (!MASKED || (in_range(p >> log_tw, r_lo, r_hi) &&
-                      in_range(p & tw_mask, c_lo, c_hi))) {
-        v = lds128(addr);
-        v.x = pre_bf16x2<MAX_FORM>(v.x, o.sv.x, o.tv.x, slope2);
-        v.y = pre_bf16x2<MAX_FORM>(v.y, o.sv.y, o.tv.y, slope2);
-        v.z = pre_bf16x2<MAX_FORM>(v.z, o.sv.z, o.tv.z, slope2);
-        v.w = pre_bf16x2<MAX_FORM>(v.w, o.sv.w, o.tv.w, slope2);
-      }
-      sts128(addr, v);
-    }
+    return operands(img / nd, ci, c0, t);
   }
 
   __device__ __forceinline__ void transform(const Operands& o, int ks,
@@ -165,28 +122,7 @@ struct K6cValid3 : Valid3 {
                                             int t) const {
     int z, u, tap, c0;
     decode(ks, img, z, u, tap, c0);
-    // the slab's rows [r_lo, r_hi) and columns [c_lo, c_hi) that lie inside
-    // the rim mask of this thread's channel group: input rows from i0,
-    // columns from j0 + tap (rim_ok, as ranges)
-    const int dy = o.grp >> 1, dx = o.grp & 1, th1 = (TILE_PIX >> log_tw) + 1;
-    // (an empty range has hi == lo: a tile past the ragged edge)
-    const int r_lo = max(0, 1 - dy - i0);
-    const int r_hi = max(r_lo, min(th1, hp - dy - i0));
-    const int c_lo = max(0, 1 - dx - (j0 + tap));
-    const int c_hi = max(c_lo, min(1 << log_tw, tw - dx - (j0 + tap)));
-    const bool inside = r_lo == 0 && r_hi == th1 && c_lo == 0 &&
-                        c_hi == (1 << log_tw);
-    const int rows = TILE_PIX + (1 << log_tw), p = t >> 3;
-    const uint32_t addr = slab + p * ROW_BYTES + (t & 7) * 16;
-    if (max_form) {
-      if (inside)
-        rewrite<true, false>(o, addr, p, rows, log_tw, 0, 0, 0, 0);
-      else
-        rewrite<true, true>(o, addr, p, rows, log_tw, r_lo, r_hi, c_lo,
-                            c_hi);
-    } else {
-      rewrite<false, true>(o, addr, p, rows, log_tw, r_lo, r_hi, c_lo, c_hi);
-    }
+    rewrite_slab(o, i0, j0 + tap, slab, log_tw, t);
   }
 };
 
@@ -228,23 +164,19 @@ int launch(const void* x, const void* w, const void* b, void* y,
 }
 
 // K6c: sa, ta (both or neither) and stats may be null; the form follows from
-// what is given. measure 1: the sums stored without atomics (stats wrong).
+// what is given. measure 1: the sums stored without atomics (stats wrong);
+// 2 and 3: PreSlab's measuring forms (y and stats wrong).
 int launch_fused_form(const void* x, const void* w, const void* b, void* y,
                       const void* sa, const void* ta, void* stats, int nb,
                       int nd, int hp, int wp8, int ci, int co, int w_out,
                       float slope, int measure, int stages, int log_tw,
                       void* stream) {
   if ((sa == nullptr) != (ta == nullptr) || (!sa && !stats) || measure < 0 ||
-      measure > 1)
+      measure > 3)
     return (int)cudaErrorInvalidValue;
   auto run = [&](auto conv) {
-    conv.sa = (const bf16*)sa;
-    conv.ta = (const bf16*)ta;
-    conv.slope2 = bf16x2_bits(slope);
-    conv.hp = hp;
-    conv.tw = w_out + 1;
-    conv.max_form = slope >= 0.0f && slope <= 1.0f;
-    conv.so = StatsOut{(float*)stats, measure};
+    set_pre(conv, sa, ta, slope, hp, w_out + 1, measure);
+    conv.so = StatsOut{(float*)stats, measure == 1};
     return launch(x, w, b, y, conv, nb, nd, hp, wp8, ci, co, w_out, 1, stages,
                   log_tw, stream);
   };
@@ -288,7 +220,8 @@ extern "C" int pconv3_valid_fused_sm90_bf16(
 }
 
 // the same with the variant named: a measuring form (0 none: K6c; 1 the sums
-// stored without atomics, stats left wrong), ring stages (2, 3; 3 unless
+// stored without atomics, stats left wrong; with y wrong too, 2 the pre
+// rewrite skipped, 3 its loads and stores alone), ring stages (2, 3; 3 unless
 // both pre and stats are given), log2 of the tile width (3..5, or -1 for the
 // fewest tiles)
 extern "C" int pconv3_valid_fused_sm90_bf16_variant(

@@ -2,11 +2,12 @@
 // kernel they share: TMA tensor maps and loads, mbarriers, wgmma with its
 // shared-memory descriptors, register reallocation, and a persistent,
 // warp-specialised implicit-GEMM conv (conv_wgmma_kernel) that
-// pconv3_valid_sm90.cu (K5) and pconv_pad11_cat_sm90.cu (K1) instantiate
-// with their own tap geometry. pconv2d_sm90.cu (K3, K4, K7) builds its
-// weights-resident kernel from the same parts (the tile geometry, the slab
-// shared by the two row taps, store_tile), and instantiates this one where
-// its weights do not fit in shared memory.
+// pconv3_valid_sm90.cu (K5, K6c) and pconv_pad11_cat_sm90.cu (K1, K6a)
+// instantiate with their own tap geometry. pconv2d_sm90.cu (K3, K4, K7,
+// K6b) builds its weights-resident kernel from the same parts (the tile
+// geometry, the slab shared by the two row taps, store_tile and the
+// deferred-norm parts below), and instantiates this one where its weights
+// do not fit in shared memory.
 //
 // The conv: M = output pixels, N = Co, K = taps x Ci. The A operand of one
 // (tap, 64-channel chunk) for a rectangle of TH x TW = 128 output pixels is
@@ -46,17 +47,19 @@
 // edge.
 //
 // The deferred-norm forms (K6a in pconv_pad11_cat_sm90.cu, K6c in
-// pconv3_valid_sm90.cu) are the same kernel with a Conv whose FORM names
-// compile-time parts; a Conv without FORM compiles to the plain kernel:
+// pconv3_valid_sm90.cu: this kernel; K6b in pconv2d_sm90.cu: its
+// weights-resident kernel, or this one where the weights do not fit) are
+// the plain kernels with a Conv whose FORM names compile-time parts; a Conv
+// without FORM compiles to the plain kernel:
 // - FORM_PRE: the conv reads leaky(x * sa + ta) * rim_mask. The warpgroup
-//   that owns a slab rewrites it in place in shared memory (Conv::transform)
-//   once it has landed, then fences the async proxy and meets on a named
-//   barrier before its wgmmas read it. The wgmmas of the K step before are
-//   still running then (they are asynchronous), so the rewrite overlaps
-//   them; what it costs is shared-memory traffic beside wgmma's operand
-//   reads and a longer hold on the stage (a form that rewrote the slab of
-//   step ks + 1 after issuing step ks, holding one more stage, timed the
-//   same or slower).
+//   that owns a slab rewrites it in place in shared memory (Conv::transform,
+//   PreSlab's rewrite_slab) once it has landed, then fences the async proxy
+//   and meets on a named barrier before its wgmmas read it. The wgmmas of
+//   the K step before are still running then (they are asynchronous), so
+//   the rewrite overlaps them; what it costs is shared-memory traffic beside
+//   wgmma's operand reads and a longer hold on the stage (a form that
+//   rewrote the slab of step ks + 1 after issuing step ks, holding one more
+//   stage, timed the same or slower).
 // - FORM_RIM: the epilogue zeroes the output by the full offset rim mask.
 // - FORM_STATS: the epilogue also sums the stored (rounded) values and
 //   their squares per channel over the tile's stored pixels, in registers,
@@ -631,6 +634,103 @@ __device__ __forceinline__ void store_tile_fused(
   }
 }
 
+// FORM_PRE's operands and its rewrite of a landed slab, shared by the
+// deferred-norm Convs (K6b, K6c), which add the K step's tap and channels
+// and the row of sa / ta (an image for K6b, a batch element for K6c).
+//
+// A slab row is one pixel's 64 channels, stored under the 128-byte
+// swizzle: its logical 16-byte chunk k sits at physical chunk k ^ (row & 7).
+// Thread t of the warpgroup's 128 takes physical chunk t % 8 of rows t / 8,
+// t / 8 + 16, ..., whose row & 7 never changes, so its eight channels, and
+// with them its sa, ta and rim-mask group, are fixed for a K step. What TMA
+// zero-filled (past row hp - 1 or column tw - 1) is outside the mask and
+// stays zero. The rewrite is kept to few instructions (a slab inside the
+// rim skips the mask; a slope in [0, 1] takes leaky as one max): what it
+// costs is its 2 x 18 KB of shared-memory traffic a slab, beside wgmma's
+// operand reads and TMA's writes.
+struct PreSlab {
+  const bf16* sa;   // (rows, Ci)
+  const bf16* ta;
+  uint32_t slope2;  // the leaky slope, bf16, twice
+  int hp, tw;       // the input's rows and true width w_out + 1
+  int max_form;     // the slope lies in [0, 1]: leaky(v) = max(v, v * slope)
+  // measuring forms (tune_sm90), the conv's output wrong: 2 the rewrite
+  // skipped (its wait, fence and barrier alone), 3 its loads and stores
+  // alone; 0 the transform
+  int measure;
+
+  struct Operands {
+    uint4 sv, tv;
+    int grp;  // the channels' rim-mask group
+  };
+
+  // thread t's scale and shift for channels c0 .. c0 + 63 of sa / ta row
+  // `row` (of ci channels)
+  __device__ __forceinline__ Operands operands(int64_t row, int ci, int c0,
+                                               int t) const {
+    const int c = c0 + 8 * ((t & 7) ^ ((t >> 3) & 7));
+    const int64_t off = row * ci + c;
+    return Operands{__ldg(reinterpret_cast<const uint4*>(sa + off)),
+                    __ldg(reinterpret_cast<const uint4*>(ta + off)),
+                    c / (ci >> 2)};
+  }
+
+  template <bool MAX_FORM, bool MASKED>
+  __device__ __forceinline__ void rewrite(const Operands& o, uint32_t addr,
+                                          int p, int rows, int log_tw,
+                                          int r_lo, int r_hi, int c_lo,
+                                          int c_hi) const {
+    const int tw_mask = (1 << log_tw) - 1;
+    for (; p < rows; p += 16, addr += 16 * ROW_BYTES) {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (!MASKED || (in_range(p >> log_tw, r_lo, r_hi) &&
+                      in_range(p & tw_mask, c_lo, c_hi))) {
+        v = lds128(addr);
+        v.x = pre_bf16x2<MAX_FORM>(v.x, o.sv.x, o.tv.x, slope2);
+        v.y = pre_bf16x2<MAX_FORM>(v.y, o.sv.y, o.tv.y, slope2);
+        v.z = pre_bf16x2<MAX_FORM>(v.z, o.sv.z, o.tv.z, slope2);
+        v.w = pre_bf16x2<MAX_FORM>(v.w, o.sv.w, o.tv.w, slope2);
+      }
+      sts128(addr, v);
+    }
+  }
+
+  // thread t of the warpgroup's 128 rewrites its share of the landed slab
+  // whose first row is input row i0 and first column input column jc (the
+  // tap's)
+  __device__ __forceinline__ void rewrite_slab(const Operands& o, int i0,
+                                               int jc, uint32_t slab,
+                                               int log_tw, int t) const {
+    // the slab's rows [r_lo, r_hi) and columns [c_lo, c_hi) that lie inside
+    // the rim mask of this thread's channel group (rim_ok, as ranges; an
+    // empty range has hi == lo: a tile past the ragged edge)
+    const int dy = o.grp >> 1, dx = o.grp & 1, th1 = (TILE_PIX >> log_tw) + 1;
+    const int r_lo = max(0, 1 - dy - i0);
+    const int r_hi = max(r_lo, min(th1, hp - dy - i0));
+    const int c_lo = max(0, 1 - dx - jc);
+    const int c_hi = max(c_lo, min(1 << log_tw, tw - dx - jc));
+    const bool inside = r_lo == 0 && r_hi == th1 && c_lo == 0 &&
+                        c_hi == (1 << log_tw);
+    const int rows = TILE_PIX + (1 << log_tw), p = t >> 3;
+    uint32_t addr = slab + p * ROW_BYTES + (t & 7) * 16;
+    if (measure == 2) return;
+    if (measure == 3) {
+      for (int q = p; q < rows; q += 16, addr += 16 * ROW_BYTES)
+        sts128(addr, lds128(addr));
+      return;
+    }
+    if (max_form) {
+      if (inside)
+        rewrite<true, false>(o, addr, p, rows, log_tw, 0, 0, 0, 0);
+      else
+        rewrite<true, true>(o, addr, p, rows, log_tw, r_lo, r_hi, c_lo,
+                            c_hi);
+    } else {
+      rewrite<false, true>(o, addr, p, rows, log_tw, r_lo, r_hi, c_lo, c_hi);
+    }
+  }
+};
+
 // FORM_PRE: thread t of warpgroup wg's 128 waits for the slab of K step ks
 // and rewrites its share of it (Conv::transform). The writes reach the async
 // proxy, and every thread of the warpgroup has made its own, before any
@@ -979,6 +1079,20 @@ inline uint32_t bf16x2_bits(float v) {
   memcpy(&f, &v, 4);
   const uint32_t h = (f + 0x7fffu + ((f >> 16) & 1u)) >> 16;
   return h | (h << 16);
+}
+
+// a deferred-norm form's FORM_PRE operands: sa, ta (rows, Ci) bf16, the
+// leaky slope (a bf16 value), the input's rows and true width, and the
+// measuring form (PreSlab::measure; 0 none)
+inline void set_pre(PreSlab& p, const void* sa, const void* ta, float slope,
+                    int hp, int tw, int measure) {
+  p.sa = (const bf16*)sa;
+  p.ta = (const bf16*)ta;
+  p.slope2 = bf16x2_bits(slope);
+  p.hp = hp;
+  p.tw = tw;
+  p.max_form = slope >= 0.0f && slope <= 1.0f;
+  p.measure = measure;
 }
 
 }  // namespace sm90

@@ -44,18 +44,18 @@ the per-image scale and shift):
   contract; how they spread over the rows is not.
 
 On the H100 each is an implicit GEMM in CUDA C++ (M = output pixels, N =
-Co, K = taps x Ci). In bf16 all but K6b run Hopper kernels (TMA-fed shared
-memory, ``wgmma``; shared code in ``csrc/sm90_pipeline.cuh``): K1 and K6a
+Co, K = taps x Ci). In bf16 every form runs a Hopper kernel (TMA-fed shared
+memory, ``wgmma``; shared code in ``csrc/sm90_pipeline.cuh``, where the K6
+forms' parts are: the ``pre`` transform of the landed input in shared
+memory, the rim mask and moment sums in the epilogue): K1 and K6a
 ``csrc/pconv_pad11_cat_sm90.cu``, K5 and K6c ``csrc/pconv3_valid_sm90.cu``
-(weights streamed with the input; the K6 forms add the ``pre`` transform of
-the landed input in shared memory and the rim mask and moment sums to the
-epilogue), K3 and K4 ``csrc/pconv2d_sm90.cu`` (and bf16 K7,
-:mod:`.conv2x2`): the weights resident in shared memory where they fit (Ci =
-128), the streamed kernel on the same tap geometry where they do not. bf16
-K6b runs a WMMA (``mma.sync``) kernel in ``csrc/pconv_valid.cu``, and every
-fp32 form an FMA kernel: K1, K4 and K6a in ``csrc/pconv_pad11_cat.cu``, K3,
-K5, K6b, K6c and K7 in ``csrc/pconv_valid.cu``. Every kernel adds the bias
-in fp32 and rounds once.
+(weights streamed with the input), K3, K6b and K4 ``csrc/pconv2d_sm90.cu``
+(and bf16 K7, :mod:`.conv2x2`): the weights resident in shared memory where
+they fit (Ci = 128), the streamed kernel on the same tap geometry where they
+do not. Every fp32 form runs an FMA kernel: K1, K4 and K6a in
+``csrc/pconv_pad11_cat.cu``, K3, K5, K6b, K6c and K7 in
+``csrc/pconv_valid.cu``. Every kernel adds the bias in fp32 and rounds
+once.
 
 Each wrapper keeps the JAX call contract: the same shapes, dtypes, default
 ``w_out`` rule, ``(y, stats)`` when ``want_stats``, and ``None`` where the
@@ -184,7 +184,7 @@ _PTR, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every C launcher this package's conv wrappers call: form and dtype ->
 # (library of ``kernels.SOURCES``, entry declared ``extern "C"`` in its
 # source). A "_variant" key is the same Hopper kernel with its timed variant
-# named by three more ints.
+# named by more ints (three; four for K6b).
 C_ENTRIES = {
     "k1_bf16": ("pconv_pad11_cat_sm90", "pconv_pad11_cat_sm90_bf16"),
     "k1_bf16_variant": ("pconv_pad11_cat_sm90",
@@ -205,8 +205,10 @@ C_ENTRIES = {
     "k6c_bf16": ("pconv3_valid_sm90", "pconv3_valid_fused_sm90_bf16"),
     "k6c_bf16_variant": ("pconv3_valid_sm90",
                          "pconv3_valid_fused_sm90_bf16_variant"),
-    # bf16: K6b alone; fp32: K6b, K6c and the plain K3 and K5
-    "valid_bf16": ("pconv_valid", "pconv_valid_bf16"),
+    "k6b_bf16": ("pconv2d_sm90", "pconv_valid_fused_sm90_bf16"),
+    "k6b_bf16_variant": ("pconv2d_sm90",
+                         "pconv_valid_fused_sm90_bf16_variant"),
+    # fp32 K3, K5, K6b and K6c
     "valid_f32": ("pconv_valid", "pconv_valid_f32"),
     "k7_bf16": ("pconv2d_sm90", "pconv_valid_sm90_bf16"),
     "k7_f32": ("pconv_valid", "conv2x2_valid_bias_f32"),
@@ -215,15 +217,14 @@ C_ENTRIES = {
 
 def _entry(key: str, argtypes, variant=None):
     """(C launcher, its name) for ``C_ENTRIES[key]``, or for its
-    "_variant" twin when a variant (three ints) is named; argtypes lists
-    the arguments before the variant's ints and the trailing stream
+    "_variant" twin when a variant (a tuple of ints) is named; argtypes
+    lists the arguments before the variant's ints and the trailing stream
     pointer. Builds the library at its first use, on the current
     device."""
     lib, fn_name = C_ENTRIES[key + ("_variant" if variant else "")]
     fn = getattr(kernels.load(lib), fn_name)
     fn.restype = ctypes.c_int
-    fn.argtypes = (list(argtypes) + [_INT] * (3 if variant else 0)
-                   + [_PTR])
+    fn.argtypes = list(argtypes) + [_INT] * len(variant or ()) + [_PTR]
     return fn, fn_name
 
 
@@ -321,10 +322,13 @@ def _launch_valid(counter, x, w, b, w_out, pre=None, want_stats=False,
     """K3 (x 4D, w (2, 2, Ci, Co)) or K5 (x 5D, w (3, 2, 2, Ci, Co)); K6b
     / K6c with ``pre`` or ``want_stats``. Adds one to the counter's
     ``launches`` (``fused_launches`` for a K6 form) once the kernel is
-    launched, on x's device. bf16 K3, K5 and K6c run their Hopper kernels;
-    ``variant`` names one of their timed variants: (cluster, stages, log2
-    tile width) for K5; (mode, stages, log2 tile width) for K3, as for K4;
-    (measure, stages, log2 tile width) for K6c, as for K6a (0, 1)."""
+    launched, on x's device. bf16 K3, K5, K6b and K6c run their Hopper
+    kernels; ``variant`` names one of their timed variants: (cluster,
+    stages, log2 tile width) for K5; (mode, stages, log2 tile width) for K3,
+    as for K4; (measure, stages, log2 tile width) for K6c and (measure,
+    mode, stages, log2 tile width) for K6b, measure 0 the kernel, 1 as for
+    K6a, and, with y wrong too, 2 the ``pre`` rewrite skipped, 3 its loads
+    and stores alone."""
     what = "pconv_valid" if x.ndim == 4 else "pconv3_valid"
     kd = 1 if x.ndim == 4 else 3
     *lead, hp, wp8, c_in = x.shape
@@ -359,28 +363,34 @@ def _launch_valid(counter, x, w, b, w_out, pre=None, want_stats=False,
                   ta.data_ptr() if pre is not None else None,
                   stats.data_ptr() if want_stats else None)
     slope = slope if pre is not None else 0.0
-    if kd == 3 and sfx == "bf16" and not fused:
+    if sfx == "f32":
+        # every fp32 form: one FMA entry (no variants)
+        fn, fn_name = _entry("valid_f32", [_PTR] * 7 + [_INT] * 8 + [_FLT])
+        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 *fused_args, nb, nd, hp, wp8, c_in, c_out, w_out, kd,
+                 slope, _stream(x))
+    elif kd == 3 and not fused:
         fn, fn_name = _entry("k5_bf16", [_PTR] * 4 + [_INT] * 7, variant)
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                  nb, nd, hp, wp8, c_in, c_out, w_out, *(variant or ()),
                  _stream(x))
-    elif kd == 3 and sfx == "bf16":
+    elif kd == 3:
         fn, fn_name = _entry("k6c_bf16",
                              [_PTR] * 7 + [_INT] * 7 + [_FLT], variant)
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                  *fused_args, nb, nd, hp, wp8, c_in, c_out, w_out, slope,
                  *(variant or ()), _stream(x))
-    elif sfx == "bf16" and not fused:
+    elif not fused:
         fn, fn_name = _entry("k3_bf16", [_PTR] * 4 + [_INT] * 6, variant)
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                  nb, hp, wp8, c_in, c_out, w_out, *(variant or ()),
                  _stream(x))
     else:
-        fn, fn_name = _entry(f"valid_{sfx}",
-                             [_PTR] * 7 + [_INT] * 8 + [_FLT])
+        fn, fn_name = _entry("k6b_bf16",
+                             [_PTR] * 7 + [_INT] * 6 + [_FLT], variant)
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 *fused_args, nb, nd, hp, wp8, c_in, c_out, w_out, kd,
-                 slope, _stream(x))
+                 *fused_args, nb, hp, wp8, c_in, c_out, w_out, slope,
+                 *(variant or ()), _stream(x))
     kernels.check(err, fn_name)
     _count(counter, "fused_launches" if fused else "launches")
     return (y, stats) if want_stats else y

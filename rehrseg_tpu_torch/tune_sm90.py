@@ -1,8 +1,8 @@
 """Check and time the variants of the Hopper kernels (bf16 K1, K3, K4, K5,
-K6a, K6c) on the card.
+K6a, K6b, K6c) on the card.
 
     python -m rehrseg_tpu_torch.tune_sm90 [--check-only] [--iters N]
-                                          [--rounds R] [--kernels k6a,k6c]
+                                          [--rounds R] [--kernels k6b]
 
 Builds ``csrc/pconv_pad11_cat_sm90.cu``, ``csrc/pconv3_valid_sm90.cu``,
 ``csrc/pconv2d_sm90.cu`` and the probe ``csrc/l2_feed_probe.cu``, then
@@ -13,10 +13,11 @@ prints one JSON line per phase:
           tile-store (``UTMASTG``) instructions ``cuobjdump -sass`` finds
           in each built library;
   check   each kernel against its plain version on fp32 copies (tolerance
-          0.04) at ragged shapes, the default variant and, for K3, K4, K6a
-          and K6c, every variant (K6c also its pre-only and stats-only
-          forms; the K6 forms' moment half-sums within 2e-2), with the first
-          disagreeing index where one fails (exit code 1 at the end);
+          0.04) at ragged shapes, the default variant and, for K3, K4, K6a,
+          K6b and K6c, every variant (K6b and K6c also their pre-only and
+          stats-only forms; the K6 forms' moment half-sums within 2e-2),
+          with the first disagreeing index where one fails (exit code 1 at
+          the end);
   probe   the rate at which TMA boxes shaped like the kernels' input tiles
           reach shared memory, from a region that fits in L2 and from one
           that does not (``l2_feed_probe``);
@@ -25,14 +26,16 @@ prints one JSON line per phase:
           mode 0 weights streamed with the input, 1 weights resident in
           shared memory, 2 resident with the store overlapped by the other
           warpgroup's products, then ring stages and tile width; K6a, K6c:
-          ring stages, tile width), each checked first, beside the default
-          variant, the library call (cuDNN) on the same operands (K6: none
-          computes it; the plain K1 / K5 kernel on the same operands
-          instead) and the kernel's bound: the median and the least of R
-          timings of N launches, the candidates timed in turn. K6a and
-          K6c also time what their epilogue costs (the kernel with the rim
-          mask alone, K6a, with the sums but no atomics, and whole) and K6c
-          its pre-only and stats-only forms.
+          ring stages, tile width; K6b: K3's modes, stages and widths),
+          each checked first, beside the default variant, the library call
+          (cuDNN) on the same operands (K6: none computes it; the plain K1
+          / K3 / K5 kernel on the same operands instead) and the kernel's
+          bound: the median and the least of R timings of N launches, the
+          candidates timed in turn, each round in its own order. The
+          K6 forms also time what their parts cost (the kernel with the rim
+          mask alone, K6a, with the sums but no atomics, and whole; K6b and
+          K6c with the pre rewrite skipped and with its loads and stores
+          alone) and K6b and K6c their pre-only and stats-only forms.
 
 Needs a CUDA card and nvcc.
 """
@@ -42,6 +45,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import random
 import re
 import shutil
 import subprocess
@@ -90,12 +94,23 @@ K6A_CHECKS = (*K1_CHECKS, (40, 33, 64, 128, 128, 128),
 K6C_CHECKS = ((2, 3, 14, 32, 128, 128), (1, 1, 10, 32, 128, 256),
               (1, 2, 4, 16, 128, 384), (2, 2, 17, 40, 256, 128),
               (3, 4, 33, 72, 256, 256), (2, 2, 9, 16, 128, 128))
+# K6b (n, hp, wp8, ci, co) with w_out = wp8 - 8: K3's, w_out = 8, and 40
+# images whose 800 tiles leave some blocks an odd count (mode 1 computes a
+# tile past the last there, of an image past the last)
+K6B_CHECKS = (*K3_CHECKS[:4], (2, 11, 16, 128, 256), K3_CHECKS[5])
 # K6a and K6c (measure, stages, log2 tile width), measure 0: the kernel
 K6_VARIANTS = ((0, 3, -1), (0, 2, -1), (0, 3, 3), (0, 3, 4), (0, 3, 5))
+# K6b (measure, mode, stages, log2 tile width): K3's modes; with the stats'
+# scratch five stages fit beside the weights only at 8-wide tiles
+K6B_VARIANTS = ((0, 0, 3, -1), (0, 1, 4, -1), (0, 1, 5, 3), (0, 2, 3, -1),
+                (0, 2, 4, -1), (0, 2, 5, 3), (0, 2, 4, 3), (0, 2, 4, 5))
 # measuring variants, their stats wrong by design: 1 the sums stored without
-# atomics; 2 K6a's rim mask alone
+# atomics; 2 K6a's rim mask alone. K6b's and K6c's 2 and 3 leave y wrong too
+# (2 the pre rewrite skipped: its wait, fence and barrier alone; 3 its loads
+# and stores alone): they are timed, not checked.
 K6A_ABLATION = ((1, 3, -1), (2, 3, -1))
-K6C_ABLATION = ((1, 3, -1),)
+K6C_ABLATION = ((1, 3, -1), (2, 3, -1), (3, 3, -1))
+K6B_ABLATION = ((1, -1, 0, -1), (2, -1, 0, -1), (3, -1, 0, -1))
 STATS_RTOL = 2e-2
 SLOPE = 0.01
 K15_VARIANTS = ((1, 3, -1), (2, 3, -1), (1, 2, -1), (2, 2, -1),
@@ -175,6 +190,17 @@ def k6c_operands(shape, gen, dev):
             ta.expand(-1, 8, -1).bfloat16())
 
 
+def k6b_operands(shape, gen, dev):
+    """K3's operands and sa, ta (n, 8, ci) that differ per channel and per
+    image."""
+    n, ci = shape[0], shape[3]
+    x, w, bias = k3_operands(shape, gen, dev)
+    sa = (torch.randn(n, 1, ci, generator=gen, device=dev).abs() + 0.5)
+    ta = 0.5 * torch.randn(n, 1, ci, generator=gen, device=dev)
+    return (x, w, bias, sa.expand(-1, 8, -1).bfloat16(),
+            ta.expand(-1, 8, -1).bfloat16())
+
+
 def run_k6a(ops, variant=None):
     xa, xb, w, b = ops
     return pconv._launch_pad11(pconv.pconv_pad11_cat, xa, w, b, xb=xb,
@@ -184,6 +210,13 @@ def run_k6a(ops, variant=None):
 def run_k6c(ops, variant=None, pre=True, want_stats=True):
     x, w, b, sa, ta = ops
     return pconv._launch_valid(pconv.pconv3_valid, x, w, b, x.shape[3] - 8,
+                               pre=(sa, ta, SLOPE) if pre else None,
+                               want_stats=want_stats, variant=variant)
+
+
+def run_k6b(ops, variant=None, pre=True, want_stats=True):
+    x, w, b, sa, ta = ops
+    return pconv._launch_valid(pconv.pconv_valid, x, w, b, x.shape[2] - 8,
                                pre=(sa, ta, SLOPE) if pre else None,
                                want_stats=want_stats, variant=variant)
 
@@ -203,6 +236,16 @@ def ref_k6c(ops, pre=True, want_stats=True):
         xt = pconv.pre_plain(xt, sa, ta, SLOPE)
     return pconv.pconv3_valid_plain(xt.float(), w.float(), b.float(), w_out,
                                     want_stats=want_stats)
+
+
+def ref_k6b(ops, pre=True, want_stats=True):
+    x, w, b, sa, ta = ops
+    w_out = x.shape[2] - 8
+    xt = x[..., :w_out + 1, :]
+    if pre:
+        xt = pconv.pre_plain(xt, sa, ta, SLOPE)
+    return pconv.pconv_valid_plain(xt.float(), w.float(), b.float(), w_out,
+                                   want_stats=want_stats)
 
 
 def run_k1(ops, variant=None):
@@ -256,8 +299,23 @@ KERNELS = {
     "k4": (K4_MAIN, K4_CHECKS, k4_operands, run_k4, ref_k4, K34_VARIANTS),
     "k6a": (K1_MAIN, K6A_CHECKS, k1_operands, run_k6a, ref_k6a, K6_VARIANTS),
     "k6c": (K5_MAIN, K6C_CHECKS, k6c_operands, run_k6c, ref_k6c, K6_VARIANTS),
+    "k6b": (K3_MAIN, K6B_CHECKS, k6b_operands, run_k6b, ref_k6b,
+            K6B_VARIANTS),
 }
-ABLATION = {"k6a": K6A_ABLATION, "k6c": K6C_ABLATION}
+ABLATION = {"k6a": K6A_ABLATION, "k6c": K6C_ABLATION, "k6b": K6B_ABLATION}
+# the K6 forms with one part alone: pre without stats, stats without pre
+FORMS = {"pre_only": dict(want_stats=False), "stats_only": dict(pre=False)}
+# the names of a variant's ints
+VARIANT_KEYS = {"k1": ("cluster", "stages", "log_tw"),
+                "k5": ("cluster", "stages", "log_tw"),
+                "k6a": ("measure", "stages", "log_tw"),
+                "k6c": ("measure", "stages", "log_tw"),
+                "k6b": ("measure", "mode", "stages", "log_tw")}
+
+
+def y_wrong(name, variant) -> bool:
+    """A measuring variant whose output is wrong by design (timed only)."""
+    return name in ("k6b", "k6c") and variant[0] >= 2
 
 
 def compare(got, want, stats=True) -> dict:
@@ -327,11 +385,16 @@ def phase_check(names, gen, dev) -> bool:
             ops = operands(shape, gen, dev)
             want = ref(ops)
             # K3 / K4: every mode where the weights fit in shared memory;
-            # K6a / K6c: every variant, the measuring ones on y alone
+            # the K6 forms: every variant, the measuring ones on y alone
             if name in ("k3", "k4"):
                 modes = MODE_CHECKS if shape[-2] == 128 else ()
             elif name in ABLATION:
-                modes = (*KERNELS[name][5], *ABLATION[name])
+                modes = (*KERNELS[name][5],
+                         *(v for v in ABLATION[name]
+                           if not y_wrong(name, v)))
+                if name == "k6b" and shape[-2] != 128:
+                    # the streamed kernel only (modes 0 and -1)
+                    modes = tuple(v for v in modes if v[1] <= 0)
             else:
                 modes = ()
             for variant in (None, *modes):
@@ -347,9 +410,8 @@ def phase_check(names, gen, dev) -> bool:
                 ok = ok and rec["ok"]
                 emit({"phase": "check", "kernel": name, "shape": shape,
                       "variant": variant, **rec})
-            if name == "k6c":   # the forms the "fused" forward does not use
-                for form in (dict(pre=True, want_stats=False),
-                             dict(pre=False, want_stats=True)):
+            if name in ("k6b", "k6c"):   # the forms "fused" does not use
+                for form in FORMS.values():
                     got = run(ops, None, **form)
                     torch.cuda.synchronize()
                     rec = compare(got, ref(ops, **form))
@@ -386,14 +448,15 @@ def phase_probe(dev, iters=2000):
 def _library_case(name, shape, ops, want):
     """(the library call on the same operands, channels-last; FLOP; the
     bytes the function must move) at a kernel's main shape. No library call
-    computes a K6 form: its yardstick here is the plain K1 / K5 kernel on
-    the same operands (no mask, no sums, no pre)."""
+    computes a K6 form: its yardstick here is the plain K1 / K3 / K5 kernel
+    on the same operands (no mask, no sums, no pre)."""
     def cl(t, fmt=torch.channels_last):
         return t.contiguous(memory_format=fmt)
-    if name in ("k6a", "k6c"):
-        # K1's operands are K6a's; K6c's are K5's, then sa and ta, of which
-        # row 0 of each (b, 8, ci) block is read
-        plain, conv_ops = ("k1", ops) if name == "k6a" else ("k5", ops[:3])
+    if name in ("k6a", "k6b", "k6c"):
+        # K1's operands are K6a's; K6b's and K6c's are K3's and K5's, then
+        # sa and ta, of which row 0 of each (., 8, ci) block is read
+        plain, conv_ops = {"k6a": ("k1", ops), "k6b": ("k3", ops[:3]),
+                           "k6c": ("k5", ops[:3])}[name]
         _, flops, n_bytes = _library_case(plain, shape, conv_ops, want[0])
         n_bytes += sum(t[:, 0].numel() * 2 for t in ops[len(conv_ops):])
         run_plain = KERNELS[plain][3]
@@ -452,33 +515,33 @@ def phase_tune(names, gen, dev, iters, rounds):
         calls = {"library": library, "default": lambda: run(ops)}
         for variant in (*variants, *ABLATION.get(name, ())):
             calls[variant] = lambda v=variant: run(ops, v)
-        if name == "k6c":
-            calls["pre_only"] = lambda: run(ops, None, want_stats=False)
-            calls["stats_only"] = lambda: run(ops, None, pre=False)
+        if name in ("k6b", "k6c"):
+            for form, kw in FORMS.items():
+                calls[form] = lambda kw=kw: run(ops, None, **kw)
         times = {k: [] for k in calls}
-        for _ in range(rounds):
-            for k, call in calls.items():
-                times[k].append(cuda_ms(call, iters, warmup=1))
+        for r in range(rounds):
+            # each round in its own order (seeded): no candidate always
+            # follows the same one
+            for k in random.Random(r).sample(list(calls), len(calls)):
+                times[k].append(cuda_ms(calls[k], iters, warmup=1))
 
         def stat(k):
             t = sorted(times[k])
             return {"ms": t[len(t) // 2], "min_ms": t[0]}
-        first = {"k1": "cluster", "k5": "cluster", "k6a": "measure",
-                 "k6c": "measure"}.get(name, "mode")
+        keys = VARIANT_KEYS.get(name, ("mode", "stages", "log_tw"))
         rec = {"phase": "tune", "kernel": name, "shape": shape,
                "rounds": rounds, "iters": iters,
                "bound_ms": max(flops / peak, n_bytes / hbm) * 1e3,
                "library": stat("library"), "default": stat("default"),
-               "variants": [{first: v[0], "stages": v[1], "log_tw": v[2],
-                             **stat(v), **c}
+               "variants": [{**dict(zip(keys, v)), **stat(v), **c}
                             for v, c in zip(variants, checks)]}
         if name in ABLATION:
             # the plain kernel is the "library" entry: no mask, no sums
-            rec["library_is"] = "the plain K1 / K5 kernel, same operands"
-            rec["ablation"] = [{first: v[0], "stages": v[1], "log_tw": v[2],
-                                **stat(v)} for v in ABLATION[name]]
-        if name == "k6c":
-            rec["forms"] = {k: stat(k) for k in ("pre_only", "stats_only")}
+            rec["library_is"] = "the plain K1 / K3 / K5 kernel, same operands"
+            rec["ablation"] = [{**dict(zip(keys, v)), **stat(v)}
+                               for v in ABLATION[name]]
+        if name in ("k6b", "k6c"):
+            rec["forms"] = {k: stat(k) for k in FORMS}
         emit(rec)
         del ops, want, library
         torch.cuda.empty_cache()
@@ -491,9 +554,9 @@ def main(argv=None) -> int:
                     help="launches per timing")
     ap.add_argument("--rounds", type=int, default=7,
                     help="timings of each candidate, taken in turn")
-    ap.add_argument("--kernels", default="k1,k5,k3,k4,k6a,k6c",
+    ap.add_argument("--kernels", default="k1,k5,k3,k4,k6a,k6b,k6c",
                     help="the kernels to check and tune, of k1, k3, k4, k5, "
-                         "k6a, k6c")
+                         "k6a, k6b, k6c")
     args = ap.parse_args(argv)
     names = args.kernels.split(",")
     if not torch.cuda.is_available():

@@ -2,9 +2,9 @@
 True)``, ``pconv_valid(pre=, want_stats=, wide=)``, ``pconv3_valid(pre=,
 want_stats=)``): the port's plain PyTorch versions against the JAX Pallas
 kernels in interpret mode, on the same numpy inputs; and, on a machine
-with a card, each CUDA kernel against its plain version (bf16 K6a and K6c,
-the forms of the Hopper kernels, also at shapes that reach their tiling's
-edges).
+with a card, each CUDA kernel against its plain version (bf16 K6a, K6b and
+K6c, the forms of the Hopper kernels, also at shapes that reach their
+tiling's edges, K6b also in each of its kernel's timed variants).
 
 The outputs are compared elementwise; the statistics only as their two
 half-sums (rows 0:8, the sum, and rows 8:16, the sum of squares), which
@@ -171,6 +171,11 @@ def test_k6a_plain_matches_pallas(dt):
 # w, Ca, Cb, Co): h + 1 and w + 1 no multiple of a tile, w = 8, Ca != Cb, Co
 # = 256 and 384. K6c (B, D, hp, wp8, Ci, Co, w_out): w_out = 8, Ci = 256, an
 # image smaller than a tile, one and a half and two and a half tiles wide.
+# K6b (n, hp, wp8, Ci, Co, w_out): w_out = 8 with Co = 256 on hp - 1 = 10;
+# Ci = 256 on hp - 1 = 12, w_out = 32 (hp - 1 must have a small divisor: the
+# TPU kernel's block choice).
+K6B_EDGE = {"w_out8_co256": (2, 11, 16, C, 2 * C, 8),
+            "ci256": (1, 13, 40, 2 * C, C, 32)}
 K6A_EDGE = {"w8_co256": (2, 10, 8, C, C, 2 * C),
             "ca_ne_cb": (2, 12, 24, C, 2 * C, 2 * C),
             "co384": (2, 6, 8, C, C, 3 * C)}
@@ -221,6 +226,20 @@ def test_k6c_plain_matches_pallas_edge_shapes(dt, case, form):
     use_pre, want_stats = K6C_FORMS[form]
     _run_both("pconv3_valid", dt, x, w, b, pre=pre if use_pre else None,
               w_out=w_out, want_stats=want_stats)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("form", list(K6C_FORMS))
+@pytest.mark.parametrize("case", list(K6B_EDGE))
+def test_k6b_plain_matches_pallas_edge_shapes(dt, case, form):
+    n, hp, wp8, ci, co, w_out = K6B_EDGE[case]
+    use_pre, want_stats = K6C_FORMS[form]
+    got = _run_both("pconv_valid", dt, _offset((n,), hp, wp8, w_out, c=ci),
+                    *_weights(1, c_in=ci, c_out=co),
+                    pre=_pre(n, c=ci) if use_pre else None, w_out=w_out,
+                    want_stats=want_stats)
+    y = got[0] if want_stats else got
+    assert y.shape == (n, hp - 1, w_out, co)
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
@@ -417,6 +436,132 @@ def test_k6c_hopper_slope_outside_unit_interval(cuda_device, slope,
     want = pconv.pconv3_valid_plain(xt.float(), wt.float(), bias.float(),
                                     w_out)
     torch.testing.assert_close(y.float(), want, rtol=0.04, atol=0.04)
+
+
+# K6b (n, hp, wp8, Ci, Co), w_out = wp8 - 8, on the weights-resident kernel
+# (Ci = 128) and the streamed one (Ci = 256): hp - 1 and w_out no multiple
+# of a tile; w_out = 8 with Co = 384 on an image smaller than a tile; Co =
+# 256; 40 images of 20 tiles, so that every block goes round its ring
+# several times and, in the timed variant without the overlapped store
+# (mode 1), blocks with an odd tile count compute a tile past the last.
+K6B_CARD = {"odd": (2, 14, 32, C, C),
+            "w_out8_co384": (1, 10, 16, C, 3 * C),
+            "co256": (3, 9, 40, C, 2 * C),
+            "ci256": (3, 9, 40, 2 * C, C),
+            "ci256_co256": (2, 19, 40, 2 * C, 2 * C),
+            "ring_rounds": (40, 34, 72, C, C)}
+# (measure, mode, stages, log2 tile width): mode 0 the streamed kernel, 1
+# resident in step (a tile past the last where a block's count is odd), 2
+# resident with the overlapped store, at 2-5 stages and each tile width
+K6B_VARIANTS = {"streamed": (0, 0, 3, -1), "in_step": (0, 1, 3, -1),
+                "in_step_w32": (0, 1, 4, 5), "stages2": (0, 2, 2, -1),
+                "stages5_w8": (0, 2, 5, 3)}
+
+
+def _k6b_card(shape, dev, use_pre=True, slope=SLOPE, seed=0):
+    """bf16 card tensors of one K6b check: x, w, b and pre (None without
+    use_pre), then the reference: pre in bf16, as the kernel's, then the
+    plain conv in fp32."""
+    n, hp, wp8, ci, co = shape
+    w_out = wp8 - 8
+    x, w, b = [_t(a, torch.bfloat16).to(dev) for a in (
+        _offset((n,), hp, wp8, w_out, seed=seed, c=ci),
+        *_weights(1, c_in=ci, c_out=co))]
+    pre = None
+    if use_pre:
+        sa, ta = _pre(n, c=ci)
+        pre = (_t(sa, torch.bfloat16).to(dev),
+               _t(ta, torch.bfloat16).to(dev), slope)
+
+    def ref(want_stats):
+        xt = x[..., :w_out + 1, :]
+        if use_pre:
+            xt = pconv.pre_plain(xt, *pre)
+        return pconv.pconv_valid_plain(xt.float(), w.float(), b.float(),
+                                       w_out, want_stats=want_stats)
+    return x, w, b, pre, w_out, ref
+
+
+def _check_k6b(got, want, want_stats, shape):
+    y, ry = (got[0], want[0]) if want_stats else (got, want)
+    n, hp, _, _, co = shape
+    assert y.shape == (n, hp - 1, shape[2] - 8, co)
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), ry, rtol=0.04, atol=0.04)
+    if want_stats:
+        check_stats(got[1].cpu().numpy(), want[1].cpu().numpy(), ry.cpu(),
+                    "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(K6C_FORMS))
+@pytest.mark.parametrize("case", list(K6B_CARD))
+def test_k6b_hopper_matches_plain(cuda_device, case, form, monkeypatch):
+    """bf16 K6b on the wgmma / TMA kernels with pre, want_stats or both
+    (scale and shift differ per channel and per image, the input's rim is
+    nonzero, its pad columns hold 1e3) against the plain version."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    use_pre, want_stats = K6C_FORMS[form]
+    x, w, b, pre, w_out, ref = _k6b_card(K6B_CARD[case], cuda_device,
+                                         use_pre)
+    before = pconv.pconv_valid.fused_launches
+    got = pconv.pconv_valid(x, w, b, w_out=w_out, pre=pre,
+                            want_stats=want_stats)
+    torch.cuda.synchronize()
+    assert pconv.pconv_valid.fused_launches == before + 1
+    _check_k6b(got, ref(want_stats), want_stats, K6B_CARD[case])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(K6B_VARIANTS))
+def test_k6b_hopper_variants_match_plain(cuda_device, variant, monkeypatch):
+    """Each timed variant of bf16 K6b (pre and stats) at the shape with the
+    most tiles, mode 1's tile past the last included: it must neither
+    store nor add to the statistics."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    shape = K6B_CARD["ring_rounds"]
+    x, w, b, pre, w_out, ref = _k6b_card(shape, cuda_device)
+    got = pconv._launch_valid(pconv.pconv_valid, x, w, b, w_out, pre=pre,
+                              want_stats=True,
+                              variant=K6B_VARIANTS[variant])
+    torch.cuda.synchronize()
+    _check_k6b(got, ref(True), True, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ci", [C, 2 * C], ids=["resident", "streamed"])
+@pytest.mark.parametrize("slope", [1.5, -0.25])
+def test_k6b_hopper_slope_outside_unit_interval(cuda_device, slope, ci,
+                                                monkeypatch):
+    """A leaky slope outside [0, 1] takes the select-by-sign form of the
+    pre transform: against the plain version."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    shape = (3, 9, 40, ci, C)
+    x, w, b, pre, w_out, ref = _k6b_card(shape, cuda_device, slope=slope)
+    got = pconv.pconv_valid(x, w, b, w_out=w_out, pre=pre, want_stats=True)
+    torch.cuda.synchronize()
+    _check_k6b(got, ref(True), True, shape)
+
+
+def test_profile_classes_tell_the_k6_forms_from_the_plain_kernels():
+    """The profiler's kernel classes: a deferred-norm form's name holds its
+    plain form's (K6bValid2 holds Valid2), so the K6 forms match first."""
+    from rehrseg_tpu_torch.profile_serve import _classify
+    want = {
+        "void conv_resident_kernel<K6bValid2<3>>(...)": "k6b_pconv_valid_fused",
+        "void conv_wgmma_kernel<K6bValid2<1>, 1, 3>(...)":
+            "k6b_pconv_valid_fused",
+        "void conv_resident_kernel<Valid2>(...)": "k3_pconv_valid",
+        "void conv_wgmma_kernel<K6cValid3<3>, 1, 3>(...)":
+            "k6c_pconv3_valid_fused",
+        "void conv_wgmma_kernel<Valid3, 1, 3>(...)": "k5_pconv3_valid",
+        "void conv_wgmma_kernel<K6aPad11Cat<6>, 1, 3>(...)":
+            "k6a_pconv_pad11_cat_stats",
+        "void conv_wgmma_kernel<Pad11Cat, 1, 3>(...)": "k1_pconv_pad11_cat",
+        "void conv_resident_kernel<Pad11>(...)": "k4_pconv_pad11",
+        "void valid_f32_kernel<1, true, true>(...)": "k6b_pconv_valid_fused",
+    }
+    assert {name: _classify(name) for name in want} == want
 
 
 def test_launchers_make_the_tensor_device_current(monkeypatch):
