@@ -57,6 +57,28 @@ and nothing of the JAX package. Phases, each printing one JSON line:
            Segmenter(pallas_conv="fused"): launch counts of K1-K7 and the
            K6 forms (asserted against the tile count), seconds, voxels/s,
            and label agreement with the "cat" Segmenter (LR gated at 98 %);
+  cli      the serving CLI at full width: a seeded volume written as NIfTI,
+           the seeded weights saved with ``train.checkpoint`` (step 1 and
+           the tag "best"), a JSON config; ``python -m
+           rehrseg_tpu_torch.serve IN --ckpt --config --out --hr --step
+           best`` as a subprocess on the same checkout and build; the LR and
+           HR masks read back (shapes, spacings, labels in {0, 1}) and held
+           against the in-process ``load_segmenter_from_checkpoint(..)
+           .segment(hr=True)`` (agreement gated at 99.9 %), K1's launches
+           in that call asserted against the parity grid's tile count; the
+           subprocess's wall seconds beside what a process takes to start
+           and reach the card, and the in-process seconds of the first
+           volume, of a warm one and of a warm ``segment_file``;
+  evaluate fold evaluation at full width: two seeded subjects (image and
+           a thresholded smooth field as label) as NIfTI, ``pipeline
+           .evaluate`` with fp32 weights, ``eval_hr`` and ``save_path``: each
+           saved prediction's dice against its label equals the printed
+           one, the returned value is their mean, saved shapes and
+           spacings, K1 launches = tiles per subject (its fp32 kernel);
+           seconds a subject, peak device memory and one fp32 8-way dual
+           tile forward (CUDA events); then K1's fp32 kernel
+           against its plain version at that path's shape, with kernel /
+           plain / library times and the bound;
   kernels  every ported kernel with launches, error, times and bound.
 
 Then the card's name and power limit, and last the result line
@@ -66,9 +88,14 @@ exits nonzero and prints no result line.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -132,6 +159,11 @@ def check_close(name, got, want, rtol, atol):
     return max_err
 
 
+# K1's shape on the served path: decoder stage 4 conv_0 of an 8-way TTA
+# batch of PATCH tiles, 32 + 32 features packed to 128 + 128 lanes
+K1_MAIN = (128, 160, 192, 128, 128, 128)
+
+
 # ragged bf16 shapes for the wgmma / TMA kernels, beside the main path's:
 # K1 (n, h, w, Ca, Cb, Co): an odd height and one and a half 16-wide tiles;
 # Ca != Cb and Co = 256; an image smaller than one tile, a batch of one.
@@ -171,11 +203,8 @@ def phase_k1(gen, dev):
     import torch.nn.functional as F
 
     out = {}
-    # the served shape: decoder stage 4 conv_0 of an 8-way TTA batch of
-    # (16, 320, 384) tiles, 32 + 32 features packed to 128 + 128 lanes
     for label, (n, h, w, ca, cb, co), dtype, tol in (
-            ("bf16_main", (128, 160, 192, 128, 128, 128), torch.bfloat16,
-             0.04),
+            ("bf16_main", K1_MAIN, torch.bfloat16, 0.04),
             ("fp32_small", (4, 16, 32, 128, 128, 128), torch.float32,
              2e-5),
             *((f"bf16_ragged_{i}", shape, torch.bfloat16, 0.04)
@@ -969,6 +998,266 @@ def phase_main_fused(params, dev, gpu):
     return launches
 
 
+def json_with_dots(obj) -> str:
+    """JSON whose exponent floats carry a dot ("1.0e-05", not "1e-05"):
+    YAML 1.1, which the JAX package reads configs with, takes the latter
+    for a string. String literals are matched first and kept as they are."""
+    def dot(m):
+        return m[0] if m[1] is None else f"{m[1]}.0{m[2]}"
+    return re.sub(r'"(?:[^"\\]|\\.)*"|(?<![\d.])(-?\d+)(e[-+]?\d+)', dot,
+                  json.dumps(obj))
+
+
+SPACING = (0.9, 0.8, 4.0)      # (x, y, z) mm, as NIfTI stores it
+
+
+def phase_cli(params, dev, gpu, work: Path, here: Path):
+    """The served CLI: checkpoint + JSON config + NIfTI in, LR and HR NIfTI
+    out, run as ``python -m rehrseg_tpu_torch.serve`` in a subprocess on
+    this checkout and its built kernels, then held against the in-process
+    Segmenter on the same checkpoint. Returns K1's launches in the
+    in-process call."""
+    from rehrseg_tpu_torch import kernels
+    from rehrseg_tpu_torch.infer import sliding_window as sw
+    from rehrseg_tpu_torch.io import nifti
+    from rehrseg_tpu_torch.models import convert
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH, SegModel
+    from rehrseg_tpu_torch.ops.pconv import pconv_pad11_cat
+    from rehrseg_tpu_torch.serve import load_segmenter_from_checkpoint
+    from rehrseg_tpu_torch.train import checkpoint as ckpt
+
+    vol = np.random.default_rng(SEED + 3).normal(size=VOLUME).astype(
+        np.float32)
+    in_path, out, hr_out = (work / "case_0000.nii.gz", work / "seg.nii.gz",
+                            work / "hr_seg.nii.gz")
+    nifti.write_image_itk(nifti.ItkLikeImage(vol, SPACING), str(in_path))
+    model = SegModel(2, 4, arch=DEFAULT_ARCH)
+    convert.load_flax_params(model, params)
+    ckpt_dir = work / "ckpt"
+    ckpt.save_checkpoint(str(ckpt_dir), model, step=1)
+    ckpt.save_checkpoint(str(ckpt_dir), model, step=1, tag="best")
+    del model
+    arch = {k: [list(x) if isinstance(x, tuple) else x for x in v]
+            if isinstance(v, tuple) else v for k, v in DEFAULT_ARCH.items()}
+    cfg = work / "cfg.json"
+    cfg.write_text(json_with_dots({
+        "slice_thickness": 4.0, "target_thickness": 1.0,
+        "arch_override": arch, "patch_size_zyx": list(PATCH)}))
+
+    env = dict(os.environ, PYTHONPATH=str(here),
+               REHRSEG_TORCH_BUILD_DIR=str(kernels.BUILD_DIR))
+    # what any process pays before its first volume: interpreter, imports,
+    # the card's context
+    t = time.perf_counter()
+    subprocess.run([sys.executable, "-c",
+                    "import torch, rehrseg_tpu_torch.serve; "
+                    "torch.zeros(1, device='cuda').sum().item()"],
+                   cwd=here, env=env, check=True, capture_output=True,
+                   timeout=300)
+    t_start = time.perf_counter() - t
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rehrseg_tpu_torch.serve", str(in_path),
+         "--ckpt", str(ckpt_dir), "--config", str(cfg), "--out", str(out),
+         "--hr", str(hr_out), "--step", "best"],
+        cwd=here, env=env, capture_output=True, text=True, timeout=900)
+    t_cli = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"cli: the serve CLI exited {proc.returncode}:"
+                             f"\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    d, h, w = VOLUME
+    lr, hr = nifti.read_image_itk(str(out)), nifti.read_image_itk(str(hr_out))
+    for name, img, shape, spacing in (
+            ("lr", lr, VOLUME, SPACING),
+            ("hr", hr, (4 * d, h, w), SPACING[:2] + (SPACING[2] / 4,))):
+        if (img.array.shape != shape or img.array.dtype != np.uint8
+                or img.array.max() > 1
+                or not np.allclose(img.spacing, spacing)):
+            raise AssertionError(f"cli {name}: {img.array.shape} "
+                                 f"{img.array.dtype} spacing {img.spacing}")
+
+    seg = load_segmenter_from_checkpoint(str(ckpt_dir), DEFAULT_ARCH, PATCH,
+                                         step="best", device=dev)
+    t = time.perf_counter()
+    seg.segment(vol, hr=True)      # warm-up, not counted
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t
+    _zero_counts()
+    t = time.perf_counter()
+    lr_in, hr_in = seg.segment(vol, hr=True)
+    torch.cuda.synchronize()
+    t_in = time.perf_counter() - t
+    launches = pconv_pad11_cat.launches
+    n_tiles = len(sw.sliding_window_starts(VOLUME, PATCH))
+    if launches != n_tiles:
+        raise AssertionError(f"cli: K1 launched {launches} times over "
+                             f"{n_tiles} parity tiles")
+    t = time.perf_counter()
+    seg.segment_file(str(in_path), str(work / "seg2.nii.gz"),
+                     hr_out_path=str(work / "hr_seg2.nii.gz"))
+    t_file = time.perf_counter() - t
+    agree = {"lr": float(np.mean(lr.array == lr_in)),
+             "hr": float(np.mean(hr.array == hr_in))}
+    if min(agree.values()) < 0.999:
+        raise AssertionError(f"cli: the CLI's masks agree with the "
+                             f"in-process Segmenter's on {agree}")
+    emit({"phase": "cli", "card": gpu, "volume": list(VOLUME),
+          "patch": list(PATCH), "dtype": "bf16", "grid": "parity",
+          "tiles": n_tiles, "cli_wall_seconds": t_cli,
+          "process_start_seconds": t_start,
+          "in_process_first_volume_seconds": t_first,
+          "in_process_seconds_per_volume": t_in,
+          "in_process_segment_file_seconds": t_file, "k1_launches": launches,
+          "agree_with_in_process": agree, "lr_foreground": float(
+              lr.array.mean()), "cli_stdout": proc.stdout.strip()})
+    return launches
+
+
+def _smooth_field(rng, shape, sigma):
+    """A seeded normal field low-passed by a gaussian of ``sigma`` voxels
+    per axis (in the Fourier domain)."""
+    f = np.fft.rfftn(rng.normal(size=shape))
+    q = np.meshgrid(*(np.fft.fftfreq(n) for n in shape[:-1]),
+                    np.fft.rfftfreq(shape[-1]), indexing="ij")
+    f *= np.exp(-2 * np.pi ** 2 * sum((s * qi) ** 2
+                                      for s, qi in zip(sigma, q)))
+    return np.fft.irfftn(f, s=shape, axes=tuple(range(len(shape))))
+
+
+def _k1_fp32_main(gen, dev):
+    """K1's fp32 kernel at the shape fold evaluation gives it (the bf16
+    main shape), against its plain version (TF32 off), with kernel / plain
+    / library times and the bound at fp32's peak outside the tensor
+    cores."""
+    from rehrseg_tpu_torch.ops.pconv import (pconv_pad11_cat,
+                                             pconv_pad11_cat_plain)
+    import torch.nn.functional as F
+
+    n, h, w, ca, cb, co = K1_MAIN
+    xa = torch.randn(n, h, w, ca, generator=gen, device=dev)
+    xb = torch.randn(n, h, w, cb, generator=gen, device=dev)
+    wt = torch.randn(2, 2, ca + cb, co, generator=gen, device=dev) \
+        / (4 * (ca + cb)) ** 0.5
+    b = 0.1 * torch.randn(co, generator=gen, device=dev)
+    y = pconv_pad11_cat(xa, xb, wt, b)
+    torch.cuda.synchronize()
+    tol = 2e-5
+    max_err = check_close("K1 fp32_main", y, pconv_pad11_cat_plain(
+        xa, xb, wt, b), tol, tol)
+    rec = dict(shape=[n, h, w, ca, cb, co], dtype=str(torch.float32),
+               max_abs_err=max_err, tolerance=tol)
+    rec["ms"] = cuda_ms(lambda: pconv_pad11_cat(xa, xb, wt, b), iters=5)
+    rec["plain_ms"] = cuda_ms(lambda: pconv_pad11_cat_plain(xa, xb, wt, b),
+                              iters=5)
+    cat = torch.cat([xa, xb], -1).permute(0, 3, 1, 2)
+    wl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    rec["library_ms"] = cuda_ms(lambda: F.conv2d(cat, wl, b, padding=1),
+                                iters=5)
+    flops = 2 * n * h * w * 4 * (ca + cb) * co
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes(xa, xb, wt, b, y), flops,
+                                             FP32_FLOPS)
+    rec["tflops"] = flops / 1e12
+    rec["gbytes"] = nbytes(xa, xb, wt, b, y) / 1e9
+    return rec
+
+
+def phase_evaluate(params, dev, gpu, work: Path, gen):
+    """Fold evaluation of two seeded subjects through pipeline.evaluate
+    with fp32 weights on the card (the bf16-uploaded volume meets them in
+    fp32: K1's fp32 kernel), eval_hr and save_path. Returns (K1 launches,
+    the fp32 K1 record)."""
+    from rehrseg_tpu_torch import pipeline
+    from rehrseg_tpu_torch.infer import sliding_window as sw
+    from rehrseg_tpu_torch.io import nifti
+    from rehrseg_tpu_torch.losses import calculate_dice
+    from rehrseg_tpu_torch.models import convert
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH, SegModel
+    from rehrseg_tpu_torch.ops.pconv import pconv_pad11_cat
+
+    img_dir, lab_dir, save = work / "imagesTr", work / "labelsTr", work / "ev"
+    img_dir.mkdir()
+    lab_dir.mkdir()
+    rng = np.random.default_rng(SEED + 4)
+    subjects = ["sub_a", "sub_b"]
+    labels = {}
+    for s in subjects:
+        field = _smooth_field(rng, VOLUME, (2.0, 12.0, 12.0))
+        field /= field.std()
+        labels[s] = (field > 0.3).astype(np.uint8)
+        image = (field + 0.5 * rng.normal(size=VOLUME)).astype(np.float32)
+        nifti.write_image_itk(nifti.ItkLikeImage(image, SPACING),
+                              str(img_dir / f"{s}_0000.nii.gz"))
+        nifti.write_image_itk(nifti.ItkLikeImage(labels[s], SPACING),
+                              str(lab_dir / f"{s}.nii.gz"))
+    model = SegModel(2, 4, arch=DEFAULT_ARCH)
+    convert.load_flax_params(model, params)
+    kw = dict(patch_size=PATCH, val_img_path=str(img_dir),
+              val_label_path=str(lab_dir), slice_separation=4,
+              eval_hr=True, device=dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        pipeline.evaluate(model, split=subjects[:1], **kw)   # warm-up
+    if next(model.parameters()).dtype != torch.float32:
+        raise AssertionError("evaluate: the weights are not fp32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    printed = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        mean = pipeline.evaluate(model, split=subjects, save_path=str(save),
+                                 **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = pconv_pad11_cat.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # one fp32 8-way dual tile forward on a bf16 tile, as evaluate runs it
+    tile = torch.randn(8, *PATCH, 1, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: pipeline.seg_model_fns(model)[1](tile),
+                         iters=3, warmup=1)
+    del model, tile
+    n_tiles = len(sw.sliding_window_starts(VOLUME, PATCH))
+    if launches != n_tiles * len(subjects):
+        raise AssertionError(f"evaluate: K1 launched {launches} times, "
+                             f"{n_tiles} tiles x {len(subjects)} subjects")
+    dice = {}
+    for line in printed.getvalue().splitlines():
+        if line.startswith("Subject "):
+            name, value = line[len("Subject "):].split(": ")
+            dice[name] = float(value)
+    if list(dice) != subjects:
+        raise AssertionError(f"evaluate printed {printed.getvalue()!r}")
+    d, h, w = VOLUME
+    for s in subjects:
+        for kind, shape, spacing in (
+                ("lr", VOLUME, SPACING),
+                ("hr", (4 * d, h, w), SPACING[:2] + (SPACING[2] / 4,))):
+            img = nifti.read_image_itk(
+                str(save / "val" / f"{s}_pred_{kind}.nii.gz"))
+            if (img.array.shape != shape or img.array.max() > 1
+                    or not np.allclose(img.spacing, spacing)):
+                raise AssertionError(f"evaluate {s} {kind}: "
+                                     f"{img.array.shape} {img.spacing}")
+            if kind == "lr" and calculate_dice(img.array,
+                                               labels[s]) != dice[s]:
+                raise AssertionError(f"evaluate {s}: the saved mask's dice "
+                                     f"is not the printed {dice[s]}")
+    if mean != sum(dice.values()) / len(dice):
+        raise AssertionError(f"evaluate returned {mean}, not the mean of "
+                             f"{dice}")
+    torch.cuda.empty_cache()
+    k1 = _k1_fp32_main(gen, dev)
+    emit({"phase": "evaluate", "card": gpu, "volume": list(VOLUME),
+          "patch": list(PATCH), "dtype": "fp32 weights, bf16 upload",
+          "grid": "parity", "eval_hr": True, "subjects": len(subjects),
+          "seconds": secs, "seconds_per_subject": secs / len(subjects),
+          "dice": dice, "mean_dice": mean, "k1_launches": launches,
+          "peak_mem_gb": peak, "tile_dual_forward_ms_fp32": fwd_ms,
+          "k1_fp32": k1,
+          "printed": printed.getvalue().strip().splitlines()})
+    return launches, k1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1023,6 +1312,13 @@ def main() -> int:
     phase_tile_fused(params, dev)
     torch.cuda.empty_cache()
     launches_fused = phase_main_fused(params, dev, gpu)
+    torch.cuda.empty_cache()
+    (here / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=here / "build") as work:
+        launches_cli = phase_cli(params, dev, gpu, Path(work), here)
+        torch.cuda.empty_cache()
+        launches_eval, k1_fp32 = phase_evaluate(params, dev, gpu, Path(work),
+                                                gen)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1031,7 +1327,13 @@ def main() -> int:
              source="rehrseg_tpu_torch/csrc/pconv_pad11_cat_sm90.cu",
              replaces="rehrseg_tpu/ops/pallas_pconv.py:889",
              launches=launches["pconv_pad11_cat"],
-             **{k: k1[k] for k in keys}),
+             launches_cli=launches_cli, **{k: k1[k] for k in keys}),
+        # fp32 K1: fold evaluation's path (trainer weights are fp32)
+        dict(name="pconv_pad11_cat (fp32)", route="cuda",
+             source="rehrseg_tpu_torch/csrc/pconv_pad11_cat.cu",
+             replaces="rehrseg_tpu/ops/pallas_pconv.py:889",
+             launches=launches_eval, launches_in="evaluate",
+             **{k: k1_fp32[k] for k in keys}),
         dict(name="accumulate_tta_tile", route="cuda",
              source="rehrseg_tpu_torch/csrc/accumulate_tta_tile.cu",
              replaces="rehrseg_tpu/ops/pallas_tail.py:222",

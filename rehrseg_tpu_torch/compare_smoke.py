@@ -10,9 +10,9 @@ module was imported from. Each letter of ``--order`` is one whole run of
 that tree's ``chip_smoke.py`` in a process of its own (p: parent, c:
 change), so both trees are timed on the same card under the same power
 limit. Prints one JSON line: for every kernel of the ``kernels`` line its
-``ms`` and ``library_ms`` in each run, and for the volume and tile-forward
-phases their seconds and milliseconds, then the ratio change / parent of
-the means. Exits with 1 if a run failed.
+``ms`` and ``library_ms`` in each run, and for the volume, tile-forward,
+CLI and fold-evaluation phases their seconds and milliseconds, then the
+ratio change / parent of the means (of the metrics both trees print). Exits with 1 if a run failed.
 """
 
 from __future__ import annotations
@@ -52,6 +52,11 @@ def run_smoke(root: Path) -> dict:
             out["main aligned_many2 s"] = rec["aligned_many2"]["seconds"]
         elif phase in ("main_pallas", "main_fused"):
             out[f"{phase} s"] = rec["seconds"]
+        elif phase == "cli":
+            out["cli wall s"] = rec["cli_wall_seconds"]
+            out["cli in_process s"] = rec["in_process_seconds_per_volume"]
+        elif phase == "evaluate":
+            out["evaluate s/subject"] = rec["seconds_per_subject"]
         if phase in ("main", "main_pallas", "tile_fused"):
             for key, val in rec.items():
                 if key.startswith("tile_dual_forward_ms"):

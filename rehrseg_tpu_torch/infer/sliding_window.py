@@ -22,7 +22,9 @@ Two tile grids:
 ``model_fn(batch)`` maps a (B, pd, ph, pw, C) batch to logits; unlike the
 JAX engines it takes no params argument (a torch model holds its own).
 The volume is uploaded as bf16 by default, as the JAX engines do, whatever
-the compute dtype.
+the compute dtype. On the card the upload and the label fetch go through
+pinned host memory without blocking, so the ``_many`` engines enqueue every
+volume's tiles and argmax before they wait once for all label maps.
 """
 
 from __future__ import annotations
@@ -33,9 +35,12 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..data.normalize import zscore_normalization
+from ..losses import calculate_dice
 from ..ops.gaussian import compute_gaussian
 from ..ops.tail import accumulate_tta_tile, zgrouped_combos
 from ..utils.device import resolve_device
+from ..utils.pad import crop, target_pad
 
 
 def compute_steps_for_sliding_window(image_size, tile_size, tile_step_size):
@@ -100,44 +105,86 @@ def _gaussian(out_patch, use_gaussian: bool, device) -> torch.Tensor:
 
 
 def _upload(data: np.ndarray, input_dtype, device) -> torch.Tensor:
+    """The volume on ``device``; a copy to the card is enqueued from pinned
+    memory and does not wait for the work queued before it."""
     t = torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32))
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
     return t.to(device=device, dtype=input_dtype or torch.float32)
 
 
-def _argmax_uint8(logits: torch.Tensor, dim: int = -1) -> np.ndarray:
-    return logits.argmax(dim).to(torch.uint8).cpu().numpy()
+def _argmax_uint8(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The uint8 label map, on the logits' device (nothing waits)."""
+    return logits.argmax(dim).to(torch.uint8)
+
+
+def _to_host(labels: Sequence[torch.Tensor]) -> list:
+    """Label maps as numpy arrays. From the card: one non-blocking copy
+    into pinned host memory per map, then one wait for all of them, before
+    any array is handed back."""
+    if not labels or labels[0].device.type != "cuda":
+        return [t.numpy() for t in labels]
+    host = []
+    for t in labels:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    torch.cuda.current_stream(labels[0].device).synchronize()
+    return [h.numpy() for h in host]
+
+
+def _padded_starts(image_size, patch_size, tile_step_size,
+                   tiles_per_step: int) -> list:
+    """(sx, sy, sz, valid) rows of the parity grid, padded to a multiple of
+    tiles_per_step with repeats of the last start at valid = 0."""
+    starts = sliding_window_starts(image_size, patch_size,
+                                   tile_step_size).tolist()
+    rows = [(*s, 1) for s in starts]
+    rows += [(*starts[-1], 0)] * ((-len(rows)) % tiles_per_step)
+    return rows
 
 
 @torch.no_grad()
 def _run_sliding_window(model_fn: Callable, data: np.ndarray, patch_size,
                         slice_separation, tile_step_size, use_gaussian,
                         mirror, num_classes, input_dtype=torch.bfloat16,
-                        need_weights: bool = True, device=None):
+                        need_weights: bool = True, device=None,
+                        tiles_per_step: int = 1):
     """The tile loop; returns (logits (D*sep, H, W, C) fp32, weights or
     None) on the device. need_weights=False skips the weight accumulator:
     argmax(logits / weights) == argmax(logits) since the weights are
-    strictly positive."""
+    strictly positive. tiles_per_step: k tiles' mirror stacks go through
+    one forward of batch k * n_tta; the padded rows (valid = 0) of the last
+    forward add nothing."""
     device = resolve_device(device)
     pd, ph, pw = (int(p) for p in patch_size)
     z_scale = int(slice_separation)
     od = pd * z_scale
+    k = int(tiles_per_step)
     g = _gaussian((od, ph, pw), bool(use_gaussian), device)
     combos = _flip_axes_combinations(3) if mirror else [()]
+    n_tta = len(combos)
     vol = _upload(data, input_dtype, device)
     out_shape = (vol.shape[0] * z_scale, vol.shape[1], vol.shape[2])
     logits = torch.zeros((*out_shape, num_classes), dtype=torch.float32,
                          device=device)
     weights = (torch.zeros(out_shape, dtype=torch.float32, device=device)
                if need_weights else None)
-    for sx, sy, sz in sliding_window_starts(vol.shape[:3], (pd, ph, pw),
-                                            tile_step_size).tolist():
-        tile = vol[sx:sx + pd, sy:sy + ph, sz:sz + pw]
-        preds = model_fn(_mirror_batch(tile, combos))
-        pred = _unmirror_mean(preds, combos).float() * g[..., None]
-        zo = sx * z_scale
-        logits[zo:zo + od, sy:sy + ph, sz:sz + pw] += pred
-        if need_weights:
-            weights[zo:zo + od, sy:sy + ph, sz:sz + pw] += g
+    rows = _padded_starts(vol.shape[:3], (pd, ph, pw), tile_step_size, k)
+    for i in range(0, len(rows), k):
+        group = rows[i:i + k]
+        stacks = [_mirror_batch(vol[sx:sx + pd, sy:sy + ph, sz:sz + pw],
+                                combos) for sx, sy, sz, _ in group]
+        preds = model_fn(stacks[0] if k == 1 else torch.cat(stacks))
+        for j, (sx, sy, sz, valid) in enumerate(group):
+            if not valid:
+                continue
+            pred = _unmirror_mean(preds[j * n_tta:(j + 1) * n_tta],
+                                  combos).float() * g[..., None]
+            zo = sx * z_scale
+            logits[zo:zo + od, sy:sy + ph, sz:sz + pw] += pred
+            if need_weights:
+                weights[zo:zo + od, sy:sy + ph, sz:sz + pw] += g
     return logits, weights
 
 
@@ -149,18 +196,30 @@ def predict_sliding_window_logits(model_fn: Callable, data: np.ndarray,
                                   mirror: bool = True,
                                   num_classes: int = 2,
                                   input_dtype=torch.bfloat16,
-                                  device=None) -> np.ndarray:
+                                  device=None,
+                                  tiles_per_step: int = 1) -> np.ndarray:
     """Full sliding-window prediction of one volume. model_fn maps
     (B, pd, ph, pw, C) -> (B, pd*slice_separation, ph, pw, num_classes).
     data: (D, H, W, C) numpy, already normalized. Returns
     (D*slice_separation, H, W, num_classes) fp32 logits."""
     logits, weights = _run_sliding_window(
         model_fn, data, patch_size, slice_separation, tile_step_size,
-        use_gaussian, mirror, num_classes, input_dtype, device=device)
+        use_gaussian, mirror, num_classes, input_dtype, device=device,
+        tiles_per_step=tiles_per_step)
     logits = (logits / weights[..., None]).cpu().numpy()
     if np.any(np.isinf(logits)):
         raise RuntimeError("Encountered inf in predicted array.")
     return logits
+
+
+def _labels_on_device(model_fn, data, patch_size, slice_separation,
+                      tile_step_size, use_gaussian, mirror, num_classes,
+                      input_dtype, device, tiles_per_step) -> torch.Tensor:
+    logits, _ = _run_sliding_window(
+        model_fn, data, patch_size, slice_separation, tile_step_size,
+        use_gaussian, mirror, num_classes, input_dtype, need_weights=False,
+        device=device, tiles_per_step=tiles_per_step)
+    return _argmax_uint8(logits)
 
 
 def predict_sliding_window_labels(model_fn: Callable, data: np.ndarray,
@@ -171,14 +230,14 @@ def predict_sliding_window_labels(model_fn: Callable, data: np.ndarray,
                                   mirror: bool = True,
                                   num_classes: int = 2,
                                   input_dtype=torch.bfloat16,
-                                  device=None) -> np.ndarray:
+                                  device=None,
+                                  tiles_per_step: int = 1) -> np.ndarray:
     """Like :func:`predict_sliding_window_logits` but returns the uint8
     argmax label map (D*slice_separation, H, W)."""
-    logits, _ = _run_sliding_window(
+    return _to_host([_labels_on_device(
         model_fn, data, patch_size, slice_separation, tile_step_size,
-        use_gaussian, mirror, num_classes, input_dtype, need_weights=False,
-        device=device)
-    return _argmax_uint8(logits)
+        use_gaussian, mirror, num_classes, input_dtype, device,
+        tiles_per_step)])[0]
 
 
 def predict_sliding_window_labels_many(model_fn: Callable, volumes,
@@ -189,13 +248,15 @@ def predict_sliding_window_labels_many(model_fn: Callable, volumes,
                                        mirror: bool = True,
                                        num_classes: int = 2,
                                        input_dtype=torch.bfloat16,
-                                       device=None):
-    """Label maps of many volumes, in order."""
-    return [predict_sliding_window_labels(
-        model_fn, data, patch_size, slice_separation=slice_separation,
-        tile_step_size=tile_step_size, use_gaussian=use_gaussian,
-        mirror=mirror, num_classes=num_classes, input_dtype=input_dtype,
-        device=device) for data in volumes]
+                                       device=None,
+                                       tiles_per_step: int = 1):
+    """Label maps of many volumes, in order. Every volume's tiles and
+    argmax are enqueued before any label map is fetched, so one volume's
+    upload and the fetches overlap the card's work on the others."""
+    return _to_host([_labels_on_device(
+        model_fn, data, patch_size, slice_separation, tile_step_size,
+        use_gaussian, mirror, num_classes, input_dtype, device,
+        tiles_per_step) for data in volumes])
 
 
 @torch.no_grad()
@@ -243,7 +304,7 @@ def predict_sliding_window_dual_labels(model_fn: Callable, data: np.ndarray,
     llr, lhr = _dual_logits(model_fn, data, patch_size, slice_separation,
                             tile_step_size, use_gaussian, mirror,
                             num_classes, input_dtype, device)
-    return _argmax_uint8(llr), _argmax_uint8(lhr)
+    return tuple(_to_host([_argmax_uint8(llr), _argmax_uint8(lhr)]))
 
 
 # --------------------------------------------------------------- aligned grid
@@ -353,24 +414,26 @@ def predict_sliding_window_labels_aligned(model_fn: Callable,
     """Aligned-grid label prediction (always 8-way mirror TTA). model_fn
     emits per-class planes. Returns (D, H, W) uint8 cropped to the input
     size."""
-    d0, h0, w0 = data.shape[:3]
-    logits = _aligned_logits(model_fn, data, patch_size,
-                             tile_step_size=tile_step_size,
-                             use_gaussian=use_gaussian,
-                             num_classes=num_classes,
-                             input_dtype=input_dtype, device=device)
-    return _argmax_uint8(logits, 0)[:d0, :h0, :w0]
+    return predict_sliding_window_labels_aligned_many(
+        model_fn, [data], patch_size, tile_step_size=tile_step_size,
+        use_gaussian=use_gaussian, num_classes=num_classes,
+        input_dtype=input_dtype, device=device)[0]
 
 
 def predict_sliding_window_labels_aligned_many(
         model_fn: Callable, volumes, patch_size, *,
         tile_step_size: float = 0.5, use_gaussian: bool = True,
         num_classes: int = 2, input_dtype=torch.bfloat16, device=None):
-    """Aligned-grid label maps of many volumes, in order."""
-    return [predict_sliding_window_labels_aligned(
+    """Aligned-grid label maps of many volumes, in order; like
+    :func:`predict_sliding_window_labels_many`, every volume is enqueued
+    before the first fetch."""
+    labels = [_argmax_uint8(_aligned_logits(
         model_fn, data, patch_size, tile_step_size=tile_step_size,
         use_gaussian=use_gaussian, num_classes=num_classes,
-        input_dtype=input_dtype, device=device) for data in volumes]
+        input_dtype=input_dtype, device=device), 0)
+        for data in volumes]
+    return [lab[:d, :h, :w] for lab, (d, h, w) in zip(
+        _to_host(labels), (v.shape[:3] for v in volumes))]
 
 
 def predict_sliding_window_dual_labels_aligned(
@@ -389,5 +452,49 @@ def predict_sliding_window_dual_labels_aligned(
                                use_gaussian=use_gaussian,
                                num_classes=num_classes,
                                input_dtype=input_dtype, device=device)
-    return (_argmax_uint8(llr, 0)[:d0, :h0, :w0],
-            _argmax_uint8(lhr, 0)[:d0 * sep, :h0, :w0])
+    lr, hr = _to_host([_argmax_uint8(llr, 0), _argmax_uint8(lhr, 0)])
+    return lr[:d0, :h0, :w0], hr[:d0 * sep, :h0, :w0]
+
+
+def evaluate_case_volume(model_fn: Callable, volume: np.ndarray,
+                         label: np.ndarray | None, patch_size, *,
+                         slice_separation: int = 1,
+                         hr_model_fn: Callable | None = None,
+                         dual_model_fn: Callable | None = None,
+                         tile_step_size: float = 0.5,
+                         mirror: bool = True, num_classes: int = 2,
+                         device=None):
+    """Sliding-window evaluation of one (D, H, W) volume: z-score, pad to
+    at least the patch, LR labels on the parity grid, padding cropped,
+    dice against ``label``. With ``dual_model_fn`` one pass gives the LR
+    and the HR labels; else with ``hr_model_fn`` a second pass gives the
+    HR labels; else the HR labels are the LR ones. HR labels are cropped
+    by the z-pads times ``slice_separation``.
+
+    Returns (pred_lr, pred_hr, dice_lr); dice_lr is None without a label.
+    """
+    vol = zscore_normalization(volume)[..., None]  # (D, H, W, 1)
+    target_shape = [max(s, p) for s, p in zip(vol.shape[:3], patch_size)]
+    vol_p, pads = target_pad(vol, target_shape + [1], mode="constant")
+    sep = int(slice_separation)
+    hr_pads = ((pads[0][0] * sep, pads[0][1] * sep),) + tuple(pads[1:3])
+    common = dict(tile_step_size=tile_step_size, use_gaussian=True,
+                  mirror=mirror, num_classes=num_classes, device=device)
+
+    if dual_model_fn is not None:
+        pred_lr_full, pred_hr_full = predict_sliding_window_dual_labels(
+            dual_model_fn, vol_p, patch_size, slice_separation=sep, **common)
+        pred_lr = crop(pred_lr_full, pads[:3])
+        pred_hr = crop(pred_hr_full, hr_pads)
+    else:
+        pred_lr = crop(predict_sliding_window_labels(
+            model_fn, vol_p, patch_size, slice_separation=1, **common),
+            pads[:3])
+        pred_hr = pred_lr
+        if hr_model_fn is not None:
+            pred_hr = crop(predict_sliding_window_labels(
+                hr_model_fn, vol_p, patch_size, slice_separation=sep,
+                **common), hr_pads)
+    dice_lr = (calculate_dice(pred_lr, label.astype(np.uint8))
+               if label is not None else None)
+    return pred_lr, pred_hr, dice_lr

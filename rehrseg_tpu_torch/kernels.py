@@ -2,8 +2,8 @@
 
 Each ``csrc/*.cu`` source has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
-``build/rehrseg_tpu_torch/`` at the repo root (git-ignored), then loaded
-with ``ctypes``. A library's file name carries a hash of its source, of
+:data:`BUILD_DIR` (see :func:`default_build_dir`), then loaded with
+``ctypes``. A library's file name carries a hash of its source, of
 every ``csrc/*.cuh`` header and of the flags, so an edited source or header
 is rebuilt at its next use and an unchanged one is loaded as built. Nothing
 here runs at import time.
@@ -35,9 +35,29 @@ SOURCES = {
 PROBES = {
     "l2_feed_probe": "l2_feed_probe.cu",
 }
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
-    "rehrseg_tpu_torch"
+PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC = PACKAGE_DIR / "csrc"
+
+
+def default_build_dir(package_dir: Path = PACKAGE_DIR) -> Path:
+    """Where the kernel libraries go: ``$REHRSEG_TORCH_BUILD_DIR`` when it
+    is set; ``build/rehrseg_tpu_torch/`` at the root of a checkout (the
+    package's parent holds ``pyproject.toml``; git-ignored); else, for an
+    installed package, the user's cache directory
+    (``$XDG_CACHE_HOME/rehrseg_tpu_torch``, default ``~/.cache``), never
+    site-packages."""
+    override = os.environ.get("REHRSEG_TORCH_BUILD_DIR")
+    if override:
+        return Path(override)
+    root = Path(package_dir).parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "rehrseg_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / "rehrseg_tpu_torch"
+
+
+BUILD_DIR = default_build_dir()
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-ldl"]
 

@@ -1,5 +1,5 @@
-"""Serving API: volume in -> segmentation mask out
-(``rehrseg_tpu.serve.Segmenter`` in PyTorch).
+"""Serving API: NIfTI in -> segmentation NIfTI out
+(``rehrseg_tpu.serve`` in PyTorch).
 
 Load SegModel weights once, then segment volumes: z-score, pad to at least
 the patch, gaussian-weighted sliding window with mirror TTA through the
@@ -12,22 +12,34 @@ the z-upscaled HR mask from the same pass.
 Runs on the card unless constructed with ``device="cpu"``; without a card
 and without that, construction raises.
 
-Not ported yet: ``segment_file`` / NIfTI I/O, checkpoint loading and the
-CLI (ROADMAP queue 1 item 5), ``mesh`` and ``streaming`` (item 6).
+``segment_file`` reads and writes NIfTI, :func:`load_segmenter_from_checkpoint`
+restores a checkpoint of ``train.checkpoint``, and the CLI serves files::
+
+    python -m rehrseg_tpu_torch.serve IN.nii.gz --ckpt DIR --config CFG \
+        --out OUT.nii.gz [--hr HR.nii.gz] [--step N|best] [--device cpu]
+
+Not ported yet: ``mesh`` and ``streaming`` (ROADMAP queue 1, item 6) and
+``--mode sr`` (item 10).
 """
 
 from __future__ import annotations
 
+import argparse
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .config import load_config
 from .data.normalize import zscore_normalization
 from .infer import sliding_window as sw
+from .io import nifti
 from .models import convert
 from .models.segnet import SegModel
 from .models.segnet_packed import segmodel_apply_packed
+from .pipeline import seg_arch_and_patches
+from .train import checkpoint as ckpt
 from .utils.device import resolve_device
 from .utils.pad import target_pad, crop
 
@@ -181,3 +193,116 @@ class Segmenter:
                 self.patch_size, slice_separation=1, mirror=self.mirror,
                 **common)
         return [crop(p, pads[:3]) for p, (_, pads) in zip(preds, prepped)]
+
+    # ------------------------------------------------------------- files
+
+    def segment_file(self, in_path: str, out_path: str,
+                     hr_out_path: str | None = None) -> None:
+        """NIfTI in -> segmentation NIfTI out, geometry copied from the
+        input; the HR mask's z-spacing is the input's / slice_separation."""
+        ref = nifti.read_image_itk(in_path)
+        if hr_out_path is not None:
+            pred_lr, pred_hr = self.segment(ref.array.astype(np.float32),
+                                            hr=True)
+        else:
+            pred_lr = self.segment(ref.array.astype(np.float32))
+        nifti.write_image_itk(
+            nifti.ItkLikeImage(pred_lr.astype(np.uint8), ref.spacing,
+                               ref.origin, ref.direction), out_path)
+        if hr_out_path is not None:
+            sp = ref.spacing
+            nifti.write_image_itk(
+                nifti.ItkLikeImage(
+                    pred_hr.astype(np.uint8),
+                    (sp[0], sp[1], sp[2] / self.slice_separation),
+                    ref.origin, ref.direction), hr_out_path)
+
+
+def load_segmenter_from_checkpoint(ckpt_dir: str, arch: dict, patch_size,
+                                   slice_separation: int = 4,
+                                   num_classes: int = 2,
+                                   step: int | str | None = None,
+                                   **kw) -> Segmenter:
+    """A Segmenter over a stage-2 checkpoint of ``train.checkpoint``.
+
+    Its params are the SegModel's state dict, or ``{"seg": ...,
+    "distiller": ...}`` from distillation training (the "seg" part is
+    served). ``step``: a step number, the tag "best", or None for the
+    latest step."""
+    model = SegModel(num_classes=num_classes, upscale=slice_separation,
+                     arch=arch)
+    p = ckpt.restore_checkpoint_raw(ckpt_dir, step=step)["params"]
+    if "seg" in p:
+        p = p["seg"]
+    model.load_state_dict(p, strict=True)
+    return Segmenter(model=model, patch_size=tuple(patch_size),
+                     slice_separation=slice_separation,
+                     num_classes=num_classes, **kw)
+
+
+def main(argv=None):
+    """CLI serving: ``python -m rehrseg_tpu_torch.serve IN.nii.gz --ckpt
+    DIR --config CFG --out OUT.nii.gz [--hr HR.nii.gz]``, or many inputs
+    with ``--out-dir``. ``--device`` picks the device (default: the
+    card)."""
+    parser = argparse.ArgumentParser(
+        description="REHRSeg volume segmentation serving (PyTorch)")
+    parser.add_argument("inputs", nargs="+",
+                        help="input NIfTI(s); with --out-dir, many at once")
+    parser.add_argument("--ckpt", required=True,
+                        help="stage-2 checkpoint dir (<dir>/<step>/state.pt)")
+    parser.add_argument("--config", required=True,
+                        help="pipeline config, YAML or JSON (for arch, "
+                             "patch, separation)")
+    parser.add_argument("--step", default=None,
+                        help="checkpoint step number or 'best'")
+    parser.add_argument("--out", default=None, help="output path (1 input)")
+    parser.add_argument("--hr", default=None, help="HR output path")
+    parser.add_argument("--out-dir", default=None,
+                        help="output directory for many inputs")
+    parser.add_argument("--no-mirror", action="store_true",
+                        help="disable 8-way TTA")
+    parser.add_argument("--mode", choices=("seg", "sr"), default="seg",
+                        help="seg (default); sr is not ported yet")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the CUDA card)")
+    args = parser.parse_args(argv)
+
+    if args.mode == "sr":
+        raise NotImplementedError(
+            "--mode sr (stage-1 SR volume serving) is still to be ported "
+            "(ROADMAP queue 1, item 10)")
+    if not args.out_dir and (len(args.inputs) != 1 or not args.out):
+        parser.error("a single input needs --out (or use --out-dir)")
+
+    cfg = load_config(args.config)
+    arch, patch_size_zyx, _, _ = seg_arch_and_patches(cfg)
+    step = args.step
+    if step is not None and step != "best":
+        step = int(step)
+    seg = load_segmenter_from_checkpoint(
+        args.ckpt, arch, patch_size=patch_size_zyx,
+        slice_separation=int(cfg.slice_separation), step=step,
+        mirror=not args.no_mirror, device=args.device)
+
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+        for path in args.inputs:
+            base = os.path.basename(path).replace(".nii.gz", "_seg.nii.gz")
+            hr_out = None
+            if args.hr:
+                # with --out-dir, --hr means "also write HR", one per input
+                hr_out = os.path.join(args.out_dir, base.replace(
+                    "_seg.nii.gz", "_hr_seg.nii.gz"))
+            seg.segment_file(path, os.path.join(args.out_dir, base),
+                             hr_out_path=hr_out)
+            print(f"{path} -> {os.path.join(args.out_dir, base)}"
+                  + (f" + {hr_out}" if hr_out else ""))
+    else:
+        seg.segment_file(args.inputs[0], args.out, hr_out_path=args.hr)
+        print(f"{args.inputs[0]} -> {args.out}"
+              + (f" + {args.hr}" if args.hr else ""))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,230 @@
+"""The port's serving CLI against the JAX package's on the same weights and
+inputs (--out, --out-dir with --hr, --step best; the port on the CPU with
+--device cpu, reading a JSON config), the CLI in a process where pyyaml,
+orbax and JAX cannot be imported, and the port's packaging: where the
+kernels are built and that the CUDA sources ship with the package.
+
+Both CLIs serve bf16; for the comparisons both build their Segmenter at
+fp32, where labels agree on at least 99.9 % of voxels (fp32 summation
+order differs between XLA and PyTorch). In bf16 the two roundings differ
+on about 0.5 % of these random-weight voxels."""
+
+import functools
+import os
+import subprocess
+import sys
+import tomllib
+from pathlib import Path
+
+import numpy as np
+import optax
+import pytest
+import torch
+import yaml
+
+import jax.numpy as jnp
+
+import rehrseg_tpu.serve as jserve
+from chip_smoke import json_with_dots
+import rehrseg_tpu_torch.serve as tserve
+from rehrseg_tpu.io import nifti as jnifti
+from rehrseg_tpu.serve import main as jax_serve_main
+from rehrseg_tpu.train import TrainState
+from rehrseg_tpu.train import checkpoint as jckpt
+from rehrseg_tpu_torch import kernels
+from rehrseg_tpu_torch.io import nifti
+from rehrseg_tpu_torch.models import convert
+from rehrseg_tpu_torch.models.segnet import SegModel
+from rehrseg_tpu_torch.serve import main as serve_main
+from rehrseg_tpu_torch.train import checkpoint as ckpt
+from tests.test_aligned_engine import _blob_volume
+from tests.test_models import SMALL_ARCH
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+PATCH = [4, 16, 16]
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """Checkpoints of the same weights for both packages (step 1 and the
+    tag "best", each its own weights), configs (YAML for JAX, JSON for the
+    port) and two input volumes; returns their paths."""
+    root = tmp_path_factory.mktemp("served")
+    jdir, tdir = root / "jax_ckpt", root / "port_ckpt"
+    for step, seed in ((1, 21), ("best", 22)):
+        params = convert.random_flax_params(SMALL_ARCH, seed)
+        state = TrainState.create(params, optax.sgd(1e-3))
+        jckpt.save_checkpoint(str(jdir), state, step=step)
+        model = SegModel(2, 4, arch=SMALL_ARCH)
+        convert.load_flax_params(model, params)
+        ckpt.save_checkpoint(str(tdir), model, step=1,
+                             tag=None if step == 1 else step)
+    arch = {k: [list(x) if isinstance(x, tuple) else x for x in v]
+            if isinstance(v, tuple) else v for k, v in SMALL_ARCH.items()}
+    cfg = {"slice_thickness": 4.0, "target_thickness": 1.0,
+           "smore_initialization": False, "enable_distillation": False,
+           "arch_override": arch, "patch_size_zyx": PATCH}
+    (root / "cfg.yaml").write_text(yaml.safe_dump(cfg))
+    (root / "cfg.json").write_text(json_with_dots(cfg))
+    affine = np.diag([0.9, 0.8, 4.0, 1.0])
+    inputs = []
+    for i, shape in enumerate([(6, 20, 24), (5, 18, 16)]):
+        vol = _blob_volume(shape, np.random.default_rng(30 + i))
+        path = root / f"case{i}_0000.nii.gz"
+        nifti.save(nifti.NiftiImage(data=vol.transpose(2, 1, 0),
+                                    affine=affine), str(path))
+        inputs.append(str(path))
+    return dict(root=root, jax_ckpt=str(jdir), port_ckpt=str(tdir),
+                yaml=str(root / "cfg.yaml"), json=str(root / "cfg.json"),
+                inputs=inputs)
+
+
+def _agree(got, want, max_frac=1e-3):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert np.mean(got != want) <= max_frac, np.mean(got != want)
+
+
+@pytest.fixture
+def fp32(monkeypatch):
+    """Both CLIs build their Segmenter at fp32."""
+    for mod, dtype in ((jserve, jnp.float32), (tserve, torch.float32)):
+        monkeypatch.setattr(mod, "load_segmenter_from_checkpoint",
+                            functools.partial(
+                                mod.load_segmenter_from_checkpoint,
+                                compute_dtype=dtype))
+
+
+def _run_both(served, monkeypatch, tmp_path, args_for):
+    """Run JAX's serve_main and the port's main with ``args_for(out_root)``
+    under out roots tmp/jax and tmp/port."""
+    jout, tout = tmp_path / "jax", tmp_path / "port"
+    jout.mkdir()
+    tout.mkdir()
+    monkeypatch.setattr("sys.argv", ["serve", *args_for(jout),
+                                     "--ckpt", served["jax_ckpt"],
+                                     "--config", served["yaml"]])
+    jax_serve_main()
+    serve_main([*args_for(tout), "--ckpt", served["port_ckpt"],
+                "--config", served["json"], "--device", "cpu"])
+    return jout, tout
+
+
+def _read(path):
+    return jnifti.read_image_itk(str(path))
+
+
+def test_cli_out_matches_jax(served, fp32, monkeypatch, tmp_path, capsys):
+    inp = served["inputs"][0]
+    jout, tout = _run_both(served, monkeypatch, tmp_path,
+                           lambda d: [inp, "--out", str(d / "seg.nii.gz")])
+    assert f"{inp} -> {tout / 'seg.nii.gz'}" in capsys.readouterr().out
+    got, want = _read(tout / "seg.nii.gz"), _read(jout / "seg.nii.gz")
+    assert got.array.shape == (6, 20, 24)
+    assert set(np.unique(got.array)) <= {0, 1}
+    _agree(got.array, want.array)
+    assert got.GetSpacing() == want.GetSpacing() == pytest.approx(
+        (0.9, 0.8, 4.0))
+
+
+def test_cli_out_dir_hr_matches_jax(served, fp32, monkeypatch, tmp_path):
+    """Many inputs with --out-dir; --hr then means "also write HR", one
+    ``_hr_seg`` file per input at z-spacing / slice_separation."""
+    jout, tout = _run_both(
+        served, monkeypatch, tmp_path,
+        lambda d: [*served["inputs"], "--out-dir", str(d), "--hr", "yes"])
+    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout)) == [
+        "case0_0000_hr_seg.nii.gz", "case0_0000_seg.nii.gz",
+        "case1_0000_hr_seg.nii.gz", "case1_0000_seg.nii.gz"]
+    for name, shape in (("case0_0000", (6, 20, 24)),
+                        ("case1_0000", (5, 18, 16))):
+        lr, hr = _read(tout / f"{name}_seg.nii.gz"), \
+            _read(tout / f"{name}_hr_seg.nii.gz")
+        assert lr.array.shape == shape
+        assert hr.array.shape == (4 * shape[0],) + shape[1:]
+        assert hr.GetSpacing() == pytest.approx((0.9, 0.8, 1.0))
+        _agree(lr.array, _read(jout / f"{name}_seg.nii.gz").array)
+        _agree(hr.array, _read(jout / f"{name}_hr_seg.nii.gz").array)
+
+
+def test_cli_step_best_matches_jax(served, fp32, monkeypatch, tmp_path):
+    inp = served["inputs"][0]
+    jout, tout = _run_both(
+        served, monkeypatch, tmp_path,
+        lambda d: [inp, "--out", str(d / "seg.nii.gz"), "--step", "best",
+                   "--hr", str(d / "hr.nii.gz"), "--no-mirror"])
+    for name in ("seg.nii.gz", "hr.nii.gz"):
+        _agree(_read(tout / name).array, _read(jout / name).array)
+    # the tag's weights, not step 1's
+    serve_main([inp, "--out", str(tmp_path / "step1.nii.gz"), "--step", "1",
+                "--no-mirror", "--ckpt", served["port_ckpt"], "--config",
+                served["json"], "--device", "cpu"])
+    assert np.mean(_read(tmp_path / "step1.nii.gz").array
+                   != _read(tout / "seg.nii.gz").array) > 0.01
+
+
+def test_cli_refusals(served, tmp_path):
+    base = ["--ckpt", served["port_ckpt"], "--config", served["json"],
+            "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve_main([served["inputs"][0], "--out", str(tmp_path / "o.nii.gz"),
+                    "--mode", "sr", *base])
+    with pytest.raises(SystemExit):
+        serve_main([*served["inputs"], "--out", str(tmp_path / "o.nii.gz"),
+                    *base])
+
+
+def test_cli_runs_without_pyyaml_orbax_or_jax(served, tmp_path):
+    """``python -m rehrseg_tpu_torch.serve`` in a process where yaml,
+    orbax and jax cannot be imported, with the JSON config."""
+    out = tmp_path / "seg.nii.gz"
+    code = ("import runpy, sys\n"
+            "for m in ('yaml', 'orbax', 'jax', 'rehrseg_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "sys.argv = ['serve'] + sys.argv[1:]\n"
+            "runpy.run_module('rehrseg_tpu_torch.serve', run_name='__main__')\n")
+    r = subprocess.run(
+        [sys.executable, "-c", code, served["inputs"][1], "--out", str(out),
+         "--ckpt", served["port_ckpt"], "--config", served["json"],
+         "--step", "1", "--device", "cpu"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO),
+                           OMP_NUM_THREADS="2"),
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert _read(out).array.shape == (5, 18, 16)
+
+
+def test_build_dir_resolution(tmp_path, monkeypatch):
+    """$REHRSEG_TORCH_BUILD_DIR wins; in a checkout the build stays in
+    build/rehrseg_tpu_torch/; installed, it goes to the user's cache."""
+    monkeypatch.delenv("REHRSEG_TORCH_BUILD_DIR", raising=False)
+    monkeypatch.delenv("XDG_CACHE_HOME", raising=False)
+    assert kernels.default_build_dir() == \
+        REPO / "build" / "rehrseg_tpu_torch"
+    assert kernels.BUILD_DIR == REPO / "build" / "rehrseg_tpu_torch"
+    site = tmp_path / "site-packages" / "rehrseg_tpu_torch"
+    site.mkdir(parents=True)
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert kernels.default_build_dir(site) == \
+        tmp_path / "home" / ".cache" / "rehrseg_tpu_torch"
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    assert kernels.default_build_dir(site) == \
+        tmp_path / "xdg" / "rehrseg_tpu_torch"
+    monkeypatch.setenv("REHRSEG_TORCH_BUILD_DIR", str(tmp_path / "mine"))
+    for pkg in (site, kernels.PACKAGE_DIR):
+        assert kernels.default_build_dir(pkg) == tmp_path / "mine"
+
+
+def test_pyproject_ships_the_cuda_sources():
+    with open(REPO / "pyproject.toml", "rb") as f:
+        project = tomllib.load(f)
+    patterns = project["tool"]["setuptools"]["package-data"][
+        "rehrseg_tpu_torch"]
+    shipped = {p.name for pat in patterns
+               for p in kernels.PACKAGE_DIR.glob(pat)}
+    needed = {*kernels.SOURCES.values(), *kernels.PROBES.values(),
+              *(p.name for p in kernels.CSRC.glob("*.cuh"))}
+    assert needed <= shipped
+    assert "torch" in project["project"]["optional-dependencies"]["torch"]
+    assert "jax" in project["project"]["dependencies"]

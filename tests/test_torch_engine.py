@@ -236,3 +236,106 @@ def test_engines_refuse_a_missing_card(monkeypatch):
     vol = np.zeros((4, 16, 16, 1), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         tsw.predict_sliding_window_labels(lambda b: b, vol, (4, 16, 16))
+
+
+def test_tiles_per_step_matches_jax(params):
+    """k = 1, 2, 3 tiles per forward on 7 tiles (neither 2 nor 3 divides
+    it: the last forward carries 1 or 2 padded rows at valid = 0): the
+    port's labels are equal for every k, and equal to JAX's with the same
+    k wherever the logit margin decides."""
+    jfn, tfn = _fns(params)
+    vol = _blob_volume((4, 16, 64), np.random.default_rng(6))[..., None]
+    patch = (4, 16, 16)
+    assert len(tsw.sliding_window_starts(vol.shape[:3], patch)) == 7
+    batches = []
+
+    def spy(b):
+        batches.append(b.shape[0])
+        return tfn(b)
+
+    logits, _ = tsw._run_sliding_window(tfn, vol, patch, 1, 0.5, True, True,
+                                        2, torch.float32, device="cpu")
+    got = {}
+    for k in (1, 2, 3):
+        batches.clear()
+        got[k] = tsw.predict_sliding_window_labels(
+            spy, vol, patch, input_dtype=torch.float32, tiles_per_step=k,
+            **CPU)
+        assert batches == [8 * k] * -(-7 // k)
+        want = jsw.predict_sliding_window_labels(
+            jfn, params, vol, patch, input_dtype=jnp.float32,
+            tiles_per_step=k)
+        _labels_agree(got[k], want, logits.numpy())
+    np.testing.assert_array_equal(got[2], got[1])
+    np.testing.assert_array_equal(got[3], got[1])
+    many = tsw.predict_sliding_window_labels_many(
+        tfn, [vol, vol[:, :, :48]], patch, input_dtype=torch.float32,
+        tiles_per_step=3, **CPU)
+    np.testing.assert_array_equal(many[0], got[1])
+
+
+def test_padded_starts():
+    rows = tsw._padded_starts((4, 16, 64), (4, 16, 16), 0.5, 3)
+    starts = tsw.sliding_window_starts((4, 16, 64), (4, 16, 16)).tolist()
+    assert rows == [(*s, 1) for s in starts] + [(*starts[-1], 0)] * 2
+    assert tsw._padded_starts((4, 16, 64), (4, 16, 16), 0.5, 7) == \
+        [(*s, 1) for s in starts]
+
+
+def _spy_order(monkeypatch, fn):
+    """A model_fn spy and a spied host copy logging into one list."""
+    events = []
+
+    def model_fn(b):
+        events.append("forward")
+        return fn(b)
+
+    to_host = tsw._to_host
+
+    def spied(labels):
+        events.append("fetch")
+        return to_host(labels)
+
+    monkeypatch.setattr(tsw, "_to_host", spied)
+    return model_fn, events
+
+
+def test_many_enqueues_every_volume_before_fetching(params, monkeypatch):
+    """predict_sliding_window_labels_many: labels equal to single-volume
+    calls, and every volume's forwards run before the first label fetch
+    (one fetch for all volumes)."""
+    _, tfn = _fns(params)
+    rng = np.random.default_rng(7)
+    vols = [_blob_volume(s, rng)[..., None]
+            for s in ((6, 24, 24), (4, 16, 40), (5, 20, 16))]
+    patch = (4, 16, 16)
+    single = [tsw.predict_sliding_window_labels(tfn, v, patch, **CPU)
+              for v in vols]
+    model_fn, events = _spy_order(monkeypatch, tfn)
+    many = tsw.predict_sliding_window_labels_many(model_fn, vols, patch,
+                                                  **CPU)
+    n_fwd = sum(len(tsw.sliding_window_starts(v.shape[:3], patch))
+                for v in vols)
+    assert events == ["forward"] * n_fwd + ["fetch"]
+    for got, want in zip(many, single):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_aligned_many_enqueues_every_volume_before_fetching(params,
+                                                            monkeypatch):
+    _, tfn = _fns(params, plane_out=True)
+    rng = np.random.default_rng(8)
+    vols = [_blob_volume(s, rng)[..., None]
+            for s in ((6, 24, 16), (5, 16, 16))]
+    patch = (4, 16, 16)
+    single = [tsw.predict_sliding_window_labels_aligned(tfn, v, patch, **CPU)
+              for v in vols]
+    model_fn, events = _spy_order(monkeypatch, tfn)
+    many = tsw.predict_sliding_window_labels_aligned_many(model_fn, vols,
+                                                          patch, **CPU)
+    n_fwd = sum(len(tsw.aligned_sliding_window_starts(
+        v.shape[:3], patch)[0]) for v in vols)
+    assert events == ["forward"] * n_fwd + ["fetch"]
+    for got, want, v in zip(many, single, vols):
+        assert got.shape == v.shape[:3]
+        np.testing.assert_array_equal(got, want)
