@@ -79,6 +79,28 @@ and nothing of the JAX package. Phases, each printing one JSON line:
            tile forward (CUDA events); then K1's fp32 kernel
            against its plain version at that path's shape, with kernel /
            plain / library times and the bound;
+  streamed the served dual parity path through Segmenter(streaming=1) (two
+           z-slabs of 6 tiles at the bench geometry, "cat", bf16) beside
+           the whole-volume Segmenter in the same process: seconds a
+           volume and peak device memory of each engine, LR and HR labels
+           equal outside near-ties (normalized logit margin below 1e-3,
+           their share printed), K1 launches = the tile count (12);
+  sr       FLAVR SR volume inference at the bench volume's geometry seen
+           as SR input: a merged 2-channel (x, y, z) = (633, 455, 20)
+           volume through UNet3D (NF 512..64, 4 -> 4 slices) seeded
+           through the flax bridge: the plain head in fp32 (TF32 off) and
+           in bf16, the UASR head in fp32; seconds a volume after a
+           warm-up, windows a second, peak memory, the bound from the
+           convs' in-range operations; the resident path against the host
+           loop (fp32), bf16 against fp32, output shapes; a small fp32
+           UNet3D forward on the card against the same module on the CPU;
+  cli_sr   ``python -m rehrseg_tpu_torch.serve IN --mode sr --ckpt
+           --config --out`` as a subprocess on a merged NIfTI, and again
+           with ``--sr-uncertainty`` on a UASR checkpoint (8 slices):
+           wall seconds split into process start, NIfTI I/O and volume;
+           output shapes, z spacing 1.0 mm, seg in {0, 1}; the image and
+           map against an in-process SRVolumizer under the CLI's TF32
+           setting, seg agreement gated at 99.9 %;
   kernels  every ported kernel with launches, error, times and bound.
 
 Then the card's name and power limit, and last the result line
@@ -1011,13 +1033,21 @@ def json_with_dots(obj) -> str:
 SPACING = (0.9, 0.8, 4.0)      # (x, y, z) mm, as NIfTI stores it
 
 
+def _subprocess_env(here: Path) -> dict:
+    """A subprocess's environment: this checkout and its built kernels."""
+    from rehrseg_tpu_torch import kernels
+
+    return dict(os.environ, PYTHONPATH=str(here),
+                REHRSEG_TORCH_BUILD_DIR=str(kernels.BUILD_DIR))
+
+
 def phase_cli(params, dev, gpu, work: Path, here: Path):
     """The served CLI: checkpoint + JSON config + NIfTI in, LR and HR NIfTI
     out, run as ``python -m rehrseg_tpu_torch.serve`` in a subprocess on
     this checkout and its built kernels, then held against the in-process
-    Segmenter on the same checkpoint. Returns K1's launches in the
-    in-process call."""
-    from rehrseg_tpu_torch import kernels
+    Segmenter on the same checkpoint. Returns (K1's launches in the
+    in-process call, the seconds a process takes to start and reach the
+    card)."""
     from rehrseg_tpu_torch.infer import sliding_window as sw
     from rehrseg_tpu_torch.io import nifti
     from rehrseg_tpu_torch.models import convert
@@ -1044,8 +1074,7 @@ def phase_cli(params, dev, gpu, work: Path, here: Path):
         "slice_thickness": 4.0, "target_thickness": 1.0,
         "arch_override": arch, "patch_size_zyx": list(PATCH)}))
 
-    env = dict(os.environ, PYTHONPATH=str(here),
-               REHRSEG_TORCH_BUILD_DIR=str(kernels.BUILD_DIR))
+    env = _subprocess_env(here)
     # what any process pays before its first volume: interpreter, imports,
     # the card's context
     t = time.perf_counter()
@@ -1110,7 +1139,358 @@ def phase_cli(params, dev, gpu, work: Path, here: Path):
           "in_process_segment_file_seconds": t_file, "k1_launches": launches,
           "agree_with_in_process": agree, "lr_foreground": float(
               lr.array.mean()), "cli_stdout": proc.stdout.strip()})
+    return launches, t_start
+
+
+def _decided(logits, weights, margin=1e-3):
+    """Host mask of the voxels whose normalized top-two logit margin is at
+    least ``margin`` (computed on the card)."""
+    top2 = (logits / weights).topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1] >= margin).cpu().numpy()
+
+
+def phase_streamed(params, dev, gpu):
+    """The served dual parity path with z-slab streaming
+    (Segmenter(streaming=1): at z = 20 the 16-deep patch has two z-starts,
+    so two slabs) beside the whole-volume Segmenter, bf16, "cat". Returns
+    K1's launches in the streamed call."""
+    from rehrseg_tpu_torch.infer import sliding_window as sw
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH
+    from rehrseg_tpu_torch.ops.pconv import pconv_pad11_cat
+    from rehrseg_tpu_torch.serve import Segmenter
+
+    vol = np.random.default_rng(SEED + 5).normal(size=VOLUME).astype(
+        np.float32)
+    kw = dict(patch_size=PATCH, compute_dtype=torch.bfloat16, device=dev)
+    segs = {"streamed": Segmenter.from_flax(params, DEFAULT_ARCH,
+                                            streaming=1, **kw),
+            "whole": Segmenter.from_flax(params, DEFAULT_ARCH, **kw)}
+    n_tiles = len(sw.sliding_window_starts(VOLUME, PATCH))
+    n_slabs = len(list(sw._slabs(VOLUME, PATCH, 0.5, 1)))
+    rec, out = {}, {}
+    for name, seg in segs.items():
+        seg.segment(vol, hr=True)       # warm-up, not counted
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t = time.perf_counter()
+        out[name] = seg.segment(vol, hr=True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        rec[name] = dict(seconds=time.perf_counter() - t,
+                         k1=pconv_pad11_cat.launches,
+                         peak_mem_gb=peak / 1e9,
+                         peak_above_start_gb=(peak - base) / 1e9)
+    launches = rec["streamed"]["k1"]
+    if launches != n_tiles or rec["whole"]["k1"] != n_tiles:
+        raise AssertionError(f"streamed: K1 launched {launches} (streamed) /"
+                             f" {rec['whole']['k1']} (whole) times over "
+                             f"{n_tiles} tiles")
+    # the whole-volume logits and gaussian weight sums: the margin reference
+    vol_p, _ = segs["whole"]._prep(vol)
+    args = (vol_p, PATCH, 4, 0.5, True, True)
+    llr, lhr = sw._dual_logits(segs["whole"]._fn(True), *args, 2,
+                               torch.bfloat16, dev)
+
+    def ones(b):
+        o = torch.ones(*b.shape[:-1], 1, device=dev)
+        return o, o.repeat_interleave(4, 1)
+
+    wlr, whr = sw._dual_logits(ones, *args, 1, torch.bfloat16, dev)
+    d, h, w = VOLUME
+    agree = {}
+    for i, (name, logits, weights, shape) in enumerate((
+            ("lr", llr, wlr, VOLUME), ("hr", lhr, whr, (4 * d, h, w)))):
+        got, want = out["streamed"][i], out["whole"][i]
+        if got.shape != shape or got.dtype != np.uint8 or got.max() > 1:
+            raise AssertionError(f"streamed {name}: {got.shape} {got.dtype}")
+        decided = _decided(logits, weights)
+        if not np.array_equal(got[decided], want[decided]):
+            raise AssertionError(f"streamed {name}: labels differ from the "
+                                 f"whole-volume engine's outside near-ties")
+        agree[name] = dict(equal=float(np.mean(got == want)),
+                           near_tie_share=float(1.0 - decided.mean()))
+    del llr, lhr, wlr, whr, segs
+    torch.cuda.empty_cache()
+    # the streamed engine's host argmax over its fp32 LR and HR buffers
+    rng = np.random.default_rng(SEED)
+    bufs = [rng.standard_normal((n * d, h, w, 2), dtype=np.float32)
+            for n in (1, 4)]
+    t = time.perf_counter()
+    for b in bufs:
+        np.argmax(b, -1).astype(np.uint8)
+    rec["host_argmax_seconds"] = time.perf_counter() - t
+    emit({"phase": "streamed", "card": gpu, "volume": list(VOLUME),
+          "patch": list(PATCH), "dtype": "bf16", "grid": "parity",
+          "hr": True, "streaming": 1, "slabs": n_slabs, "tiles": n_tiles,
+          **rec, "labels": agree, "k1_launches_streamed": launches})
     return launches
+
+
+SR_VOLUME = (633, 455, 20)      # (x, y, z): the bench volume as SR input
+SR_BATCH = 8
+
+
+def _sr_input(seed, shape):
+    """A merged (x, y, z, 2) volume: a smooth field in [0, 1] and its
+    thresholded label."""
+    field = _smooth_field(np.random.default_rng(seed), shape,
+                          (12.0, 12.0, 2.0))
+    field = (field - field.min()) / (field.max() - field.min())
+    return np.stack([field, (field > 0.55).astype(np.float64)],
+                    -1).astype(np.float32)
+
+
+def _tap_pairs(n, m, k, s, p, transposed):
+    """(output, tap) pairs of one dim whose input index is in range."""
+    o = np.arange(n if transposed else m)[:, None] * s - p \
+        + np.arange(k)[None]
+    return int(((o >= 0) & (o < (m if transposed else n))).sum())
+
+
+def conv_macs(model_factory, x_shape) -> int:
+    """Multiply-adds of every conv of one forward on an input of
+    ``x_shape``, counting only taps that land in range (no padding taps),
+    from the layer shapes on meta tensors."""
+    from torch import nn
+
+    with torch.device("meta"):
+        model = model_factory()
+    total = [0]
+
+    def hook(mod, inputs, output):
+        xin = inputs[0]
+        nsp = xin.ndim - 2
+        tr = isinstance(mod, nn.ConvTranspose3d)
+        pairs = 1
+        for i in range(nsp):
+            pairs *= _tap_pairs(xin.shape[2 + i], output.shape[2 + i],
+                                mod.kernel_size[i], mod.stride[i],
+                                mod.padding[i], tr)
+        total[0] += (xin.shape[0] * pairs * mod.in_channels
+                     * mod.out_channels // mod.groups)
+
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+            mod.register_forward_hook(hook)
+    with torch.no_grad():
+        model(torch.empty(x_shape, device="meta"))
+    return total[0]
+
+
+def phase_sr(dev, gpu):
+    """FLAVR volume inference at full width: the plain head in fp32 (TF32
+    off) and bf16, the UASR head in fp32. Returns the phase's record."""
+    import copy
+
+    from rehrseg_tpu_torch.infer.sr_infer import infer_flavr_volume
+    from rehrseg_tpu_torch.models import convert
+    from rehrseg_tpu_torch.models.flavr import UNet3D
+
+    x, y, z = SR_VOLUME
+    vol = _sr_input(SEED + 6, SR_VOLUME)
+    hp, wp = -(-x // 16) * 16, -(-y // 16) * 16
+    n_win = z - 1
+    n_computed = -(-n_win // SR_BATCH) * SR_BATCH
+    models = {}
+    for unc in (False, True):
+        m = UNet3D(use_uncertainty=unc)
+        convert.load_flax_flavr_params(
+            m, convert.random_flavr_params(SEED + unc, use_uncertainty=unc),
+            unc)
+        models[unc] = m.to(dev).eval()
+    models["bf16"] = copy.deepcopy(models[False]).to(torch.bfloat16)
+    rec = dict(card=gpu, volume_xyz=list(SR_VOLUME), channels=2,
+               batch=SR_BATCH, windows=n_win, windows_computed=n_computed,
+               padded_hw=[hp, wp])
+    outs = {}
+    for label, key, out_index, peak_flops in (
+            ("plain_fp32", False, 0, FP32_FLOPS),
+            ("plain_bf16", "bf16", 0, BF16_FLOPS),
+            ("uasr_fp32", True, 1, FP32_FLOPS)):
+        run = lambda: infer_flavr_volume(  # noqa: E731
+            models[key], vol, 4.0, out_index=out_index, batch=SR_BATCH,
+            device=dev)
+        run()                                   # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        outs[label] = run()
+        secs = time.perf_counter() - t
+        macs = conv_macs(lambda: UNet3D(use_uncertainty=key is True),
+                         (1, 4, hp, wp, 2))
+        dsize = 2 if key == "bf16" else 4
+        n_bytes = (x * y * z * 2 * 4                       # the volume in
+                   + outs[label].size * dsize              # the fetch
+                   + sum(p.numel() for p in models[key].parameters())
+                   * dsize)
+        b_ms, b_by = bound(n_bytes, 2 * macs * n_computed, peak_flops)
+        rec[label] = dict(seconds=secs, windows_per_second=n_win / secs,
+                          peak_mem_gb=torch.cuda.max_memory_allocated()
+                          / 1e9, tflop_per_window=2 * macs / 1e12,
+                          tflop=2 * macs * n_computed / 1e12,
+                          bound_ms=b_ms, bound_by=b_by,
+                          bound_share=b_ms / (secs * 1e3),
+                          out_shape=list(outs[label].shape))
+    want = (x, y, 4 * (z - 1))
+    for label, c in (("plain_fp32", 2), ("plain_bf16", 2), ("uasr_fp32", 1)):
+        o = outs[label]
+        if o.shape != want + (c,) or o.dtype != np.float32 \
+                or not np.isfinite(o).all():
+            raise AssertionError(f"sr {label}: {o.shape} {o.dtype}")
+    unc_map = outs["uasr_fp32"]
+    if not (unc_map.min() > 0 and unc_map.max() < 1):
+        raise AssertionError("sr: the uncertainty map is not in (0, 1)")
+    # the resident path against the host loop (fp32)
+    host = infer_flavr_volume(models[False], vol, 4.0, batch=SR_BATCH,
+                              resident=False, device=dev)
+    tol_host = 1e-5
+    rec["resident_vs_host_max_abs_err"] = check_close(
+        "sr resident vs host loop", torch.from_numpy(outs["plain_fp32"]),
+        torch.from_numpy(host), tol_host, tol_host)
+    rec["resident_vs_host_tolerance"] = tol_host
+    # bf16 against fp32: per channel, relative to fp32's value range
+    ref, got = outs["plain_fp32"], outs["plain_bf16"]
+    tol_bf16 = 0.05
+    rec["bf16_vs_fp32"] = {}
+    for c, name in enumerate(("image", "seg")):
+        span = float(ref[..., c].max() - ref[..., c].min())
+        err = np.abs(got[..., c] - ref[..., c])
+        rec["bf16_vs_fp32"][name] = dict(
+            max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
+            range=span)
+        if err.max() > tol_bf16 * span:
+            raise AssertionError(f"sr bf16 {name}: max |err| {err.max()} "
+                                 f"over {tol_bf16} of the range {span}")
+    rec["bf16_vs_fp32_tolerance"] = f"{tol_bf16} of the fp32 range"
+    # a small fp32 forward on the card against the same module on the CPU
+    xin = torch.from_numpy(np.random.default_rng(SEED + 7).normal(
+        size=(2, 4, 64, 48, 2)).astype(np.float32))
+    cpu = copy.deepcopy(models[True]).cpu()
+    tol = 1e-4
+    with torch.no_grad():
+        got_o, got_u = models[True](xin.to(dev))
+        want_o, want_u = cpu(xin)
+    rec["card_vs_cpu_max_abs_err"] = max(
+        check_close("sr card vs cpu out", got_o.cpu(), want_o, tol, tol),
+        check_close("sr card vs cpu unc", got_u.cpu(), want_u, tol, tol))
+    rec["card_vs_cpu_tolerance"] = tol
+    del models, outs, host, cpu
+    torch.cuda.empty_cache()
+    emit({"phase": "sr", **rec})
+    return rec
+
+
+def phase_cli_sr(dev, gpu, work: Path, here: Path, t_start: float):
+    """``python -m rehrseg_tpu_torch.serve --mode sr`` as a subprocess on
+    merged NIfTI volumes (the plain head at the full depth, the UASR map
+    with --sr-uncertainty at 8 slices), held against an in-process
+    SRVolumizer on the same checkpoint under the CLI's TF32 setting (the
+    PyTorch default, which the CLI leaves as it is)."""
+    from rehrseg_tpu_torch.io import nifti
+    from rehrseg_tpu_torch.io.volume import parse_image
+    from rehrseg_tpu_torch.models import convert
+    from rehrseg_tpu_torch.models.flavr import UNet3D
+    from rehrseg_tpu_torch.serve import load_sr_from_checkpoint
+    from rehrseg_tpu_torch.train import checkpoint as ckpt
+
+    cfg = work / "sr_cfg.json"
+    cfg.write_text(json_with_dots({"slice_thickness": 4.0,
+                                   "target_thickness": 1.0,
+                                   "num_slices": 4}))
+    env = _subprocess_env(here)
+    rec = dict(card=gpu, process_start_seconds=t_start)
+    for label, unc, shape in (("plain", False, SR_VOLUME),
+                              ("uasr", True, SR_VOLUME[:2] + (8,))):
+        model = UNet3D(use_uncertainty=unc)
+        convert.load_flax_flavr_params(
+            model, convert.random_flavr_params(SEED + 10 + unc,
+                                               use_uncertainty=unc), unc)
+        ckpt_dir = work / f"sr_ckpt_{label}"
+        ckpt.save_checkpoint(str(ckpt_dir), model, step=1)
+        del model
+        in_path = work / f"merged_{label}.nii.gz"
+        affine = np.diag([*SPACING, 1.0])
+        nifti.save(nifti.NiftiImage(data=_sr_input(SEED + 8 + unc, shape),
+                                    affine=affine), str(in_path))
+        out_base = work / f"sr_{label}"
+        flags = ["--sr-uncertainty"] if unc else []
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rehrseg_tpu_torch.serve", str(in_path),
+             "--mode", "sr", *flags, "--ckpt", str(ckpt_dir), "--config",
+             str(cfg), "--out", str(out_base) + ".nii.gz"],
+            cwd=here, env=env, capture_output=True, text=True, timeout=900)
+        t_cli = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"cli_sr {label}: the serve CLI exited {proc.returncode}:"
+                f"\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        x, y, z = shape
+        suffixes = ("_uncertainty",) if unc else ("_img", "_seg")
+        files = {sfx: nifti.read_image_itk(f"{out_base}{sfx}.nii.gz")
+                 for sfx in suffixes}
+        for sfx, img in files.items():
+            if (img.array.shape != (4 * (z - 1), y, x)
+                    or not np.allclose(img.spacing, SPACING[:2] + (1.0,))):
+                raise AssertionError(f"cli_sr {label}{sfx}: "
+                                     f"{img.array.shape} {img.spacing}")
+        if not unc and (files["_seg"].array.dtype != np.uint8
+                        or not set(np.unique(files["_seg"].array))
+                        <= {0, 1}):
+            raise AssertionError("cli_sr: seg is not a {0, 1} uint8 mask")
+        # in process, with the CLI's TF32 setting
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            sr = load_sr_from_checkpoint(str(ckpt_dir), uncertainty=unc,
+                                         step=1, device=dev)
+            t = time.perf_counter()
+            sr.sr_volume(str(in_path), unc)   # warm-up: the first volume
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t
+            t = time.perf_counter()
+            parse_image(str(in_path), 4.0, 1.0)
+            t_read = time.perf_counter() - t
+            t = time.perf_counter()
+            out = sr.sr_volume(str(in_path), unc)
+            t_volume = time.perf_counter() - t
+            t = time.perf_counter()
+            sr.sr_file(str(in_path), str(work / f"sr2_{label}"),
+                       uncertainty=unc)
+            t_file = time.perf_counter() - t
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        # sr_file = read + volume + (the reference read and the gzip
+        # writes); the CLI adds the process start and the checkpoint
+        r = dict(shape_xyz=list(shape), cli_wall_seconds=t_cli,
+                 in_process_first_volume_seconds=t_first,
+                 in_process_sr_file_seconds=t_file,
+                 read_seconds=t_read, volume_seconds=t_volume - t_read,
+                 write_seconds=t_file - t_volume,
+                 cli_rest_seconds=t_cli - t_start - t_file,
+                 cli_stdout=proc.stdout.strip())
+        tol = 1e-3
+        want = out[..., 0].transpose(2, 1, 0)
+        scale = float(np.abs(want).max())
+        key = "_uncertainty" if unc else "_img"
+        r["max_abs_err"] = check_close(
+            f"cli_sr {label}", torch.from_numpy(files[key].array),
+            torch.from_numpy(want), 0.0, tol * scale)
+        r["tolerance"] = f"{tol} of the in-process max |value| {scale}"
+        if not unc:
+            seg_in = (out[..., 1] > 0).astype(np.uint8).transpose(2, 1, 0)
+            r["seg_agree"] = float(np.mean(files["_seg"].array == seg_in))
+            r["seg_foreground"] = float(files["_seg"].array.mean())
+            if r["seg_agree"] < 0.999:
+                raise AssertionError(f"cli_sr: seg agrees with the "
+                                     f"in-process SRVolumizer on "
+                                     f"{r['seg_agree']}")
+        rec[label] = r
+        del sr, out
+        torch.cuda.empty_cache()
+    emit({"phase": "cli_sr", **rec})
+    return rec
 
 
 def _smooth_field(rng, shape, sigma):
@@ -1313,10 +1693,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_fused = phase_main_fused(params, dev, gpu)
     torch.cuda.empty_cache()
+    launches_streamed = phase_streamed(params, dev, gpu)
+    phase_sr(dev, gpu)
     (here / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=here / "build") as work:
-        launches_cli = phase_cli(params, dev, gpu, Path(work), here)
+        launches_cli, t_start = phase_cli(params, dev, gpu, Path(work), here)
         torch.cuda.empty_cache()
+        phase_cli_sr(dev, gpu, Path(work), here, t_start)
         launches_eval, k1_fp32 = phase_evaluate(params, dev, gpu, Path(work),
                                                 gen)
 
@@ -1327,7 +1710,8 @@ def main() -> int:
              source="rehrseg_tpu_torch/csrc/pconv_pad11_cat_sm90.cu",
              replaces="rehrseg_tpu/ops/pallas_pconv.py:889",
              launches=launches["pconv_pad11_cat"],
-             launches_cli=launches_cli, **{k: k1[k] for k in keys}),
+             launches_cli=launches_cli, launches_streamed=launches_streamed,
+             **{k: k1[k] for k in keys}),
         # fp32 K1: fold evaluation's path (trainer weights are fp32)
         dict(name="pconv_pad11_cat (fp32)", route="cuda",
              source="rehrseg_tpu_torch/csrc/pconv_pad11_cat.cu",

@@ -7,7 +7,7 @@ each tile as one batched forward of its mirror-TTA flips, accumulate
 ``lax.scan`` over tiles becomes a Python loop over tiles here, and the
 accumulators are updated in place.
 
-Two tile grids:
+Two tile grids and a streamed form of the first:
 
   - the parity grid (:func:`sliding_window_starts`), bit-identical to the
     reference's, with the flip combos in ``_flip_axes_combinations`` order;
@@ -17,7 +17,12 @@ Two tile grids:
     per-class planes for a z-grouped mirror batch and K2
     (:func:`rehrseg_tpu_torch.ops.tail.accumulate_tta_tile`) does unmirror,
     mean, gaussian weight and accumulate in one pass. Its labels differ
-    from the parity grid's by design.
+    from the parity grid's by design;
+  - z-slab streaming of the parity grid (``*_streamed``): the grid's tiles
+    grouped by z-start, each group's slab uploaded alone with slab-sized
+    accumulators on the device, its fp32 logits fetched and added into
+    host buffers; the weighted sums are additive, so the labels are the
+    whole-volume engine's (up to fp32 summation order).
 
 ``model_fn(batch)`` maps a (B, pd, ph, pw, C) batch to logits; unlike the
 JAX engines it takes no params argument (a torch model holds its own).
@@ -149,13 +154,15 @@ def _run_sliding_window(model_fn: Callable, data: np.ndarray, patch_size,
                         slice_separation, tile_step_size, use_gaussian,
                         mirror, num_classes, input_dtype=torch.bfloat16,
                         need_weights: bool = True, device=None,
-                        tiles_per_step: int = 1):
+                        tiles_per_step: int = 1, rows=None):
     """The tile loop; returns (logits (D*sep, H, W, C) fp32, weights or
     None) on the device. need_weights=False skips the weight accumulator:
     argmax(logits / weights) == argmax(logits) since the weights are
     strictly positive. tiles_per_step: k tiles' mirror stacks go through
     one forward of batch k * n_tta; the padded rows (valid = 0) of the last
-    forward add nothing."""
+    forward add nothing. rows: the (sx, sy, sz, valid) tile starts, by
+    default the parity grid of ``data``'s own shape (a streamed slab passes
+    the whole volume's grid rows that fall in it)."""
     device = resolve_device(device)
     pd, ph, pw = (int(p) for p in patch_size)
     z_scale = int(slice_separation)
@@ -170,7 +177,9 @@ def _run_sliding_window(model_fn: Callable, data: np.ndarray, patch_size,
                          device=device)
     weights = (torch.zeros(out_shape, dtype=torch.float32, device=device)
                if need_weights else None)
-    rows = _padded_starts(vol.shape[:3], (pd, ph, pw), tile_step_size, k)
+    if rows is None:
+        rows = _padded_starts(vol.shape[:3], (pd, ph, pw), tile_step_size,
+                              k)
     for i in range(0, len(rows), k):
         group = rows[i:i + k]
         stacks = [_mirror_batch(vol[sx:sx + pd, sy:sy + ph, sz:sz + pw],
@@ -262,9 +271,10 @@ def predict_sliding_window_labels_many(model_fn: Callable, volumes,
 @torch.no_grad()
 def _dual_logits(model_fn: Callable, data: np.ndarray, patch_size,
                  slice_separation, tile_step_size, use_gaussian, mirror,
-                 num_classes, input_dtype, device):
+                 num_classes, input_dtype, device, rows=None):
     """Dual-head tile loop: model_fn returns (lr_pred, hr_pred); both
-    heads accumulate in one pass. Returns (LR, HR) logits on the device."""
+    heads accumulate in one pass. Returns (LR, HR) logits on the device.
+    rows: tile starts as in :func:`_run_sliding_window`."""
     device = resolve_device(device)
     pd, ph, pw = (int(p) for p in patch_size)
     sep = int(slice_separation)
@@ -277,8 +287,10 @@ def _dual_logits(model_fn: Callable, data: np.ndarray, patch_size,
                       device=device)
     lhr = torch.zeros((d * sep, h, w, num_classes), dtype=torch.float32,
                       device=device)
-    for sx, sy, sz in sliding_window_starts((d, h, w), (pd, ph, pw),
-                                            tile_step_size).tolist():
+    if rows is None:
+        rows = sliding_window_starts((d, h, w), (pd, ph, pw),
+                                     tile_step_size).tolist()
+    for sx, sy, sz, *_ in rows:
         tile = vol[sx:sx + pd, sy:sy + ph, sz:sz + pw]
         p_lr, p_hr = model_fn(_mirror_batch(tile, combos))
         pred_lr = _unmirror_mean(p_lr, combos).float()
@@ -305,6 +317,80 @@ def predict_sliding_window_dual_labels(model_fn: Callable, data: np.ndarray,
                             tile_step_size, use_gaussian, mirror,
                             num_classes, input_dtype, device)
     return tuple(_to_host([_argmax_uint8(llr), _argmax_uint8(lhr)]))
+
+
+# ------------------------------------------------------------ streamed slabs
+
+def _slabs(image_size, patch_size, tile_step_size, z_slab_tiles: int):
+    """(z_lo, z_hi, rows) per slab: ``z_slab_tiles`` consecutive z-starts of
+    the WHOLE volume's parity grid, the slab [z_lo, z_hi) they cover and
+    their (sz - z_lo, sy, sx, 1) rows (a grid computed on the slab's own
+    shape would place other tiles)."""
+    pd = int(patch_size[0])
+    z_starts, y_steps, x_steps = compute_steps_for_sliding_window(
+        image_size, patch_size, tile_step_size)
+    for g0 in range(0, len(z_starts), z_slab_tiles):
+        group = z_starts[g0:g0 + z_slab_tiles]
+        z_lo = group[0]
+        rows = [(sz - z_lo, sy, sx, 1) for sz in group for sy in y_steps
+                for sx in x_steps]
+        yield z_lo, group[-1] + pd, rows
+
+
+def predict_sliding_window_labels_streamed(model_fn: Callable,
+                                           data: np.ndarray, patch_size, *,
+                                           z_slab_tiles: int = 2,
+                                           tile_step_size: float = 0.5,
+                                           use_gaussian: bool = True,
+                                           mirror: bool = True,
+                                           num_classes: int = 2,
+                                           input_dtype=torch.bfloat16,
+                                           device=None) -> np.ndarray:
+    """Sliding-window labels with the volume streamed in z-slabs, for
+    volumes whose accumulators do not fit on the device: each group of
+    ``z_slab_tiles`` z-rows of tiles forms a slab that is uploaded alone,
+    run with slab-sized fp32 accumulators on the device, fetched and added
+    into host fp32 logits at its z offset. Returns the (D, H, W) uint8
+    argmax, taken on the host."""
+    patch_size = tuple(int(p) for p in patch_size)
+    d, h, w = data.shape[:3]
+    logits_host = np.zeros((d, h, w, num_classes), dtype=np.float32)
+    for z_lo, z_hi, rows in _slabs((d, h, w), patch_size, tile_step_size,
+                                   int(z_slab_tiles)):
+        logits, _ = _run_sliding_window(
+            model_fn, data[z_lo:z_hi], patch_size, 1, tile_step_size,
+            use_gaussian, mirror, num_classes, input_dtype,
+            need_weights=False, device=device, rows=rows)
+        logits_host[z_lo:z_hi] += logits.cpu().numpy()
+        del logits      # free this slab's accumulator before the next's
+    return np.argmax(logits_host, axis=-1).astype(np.uint8)
+
+
+def predict_sliding_window_dual_labels_streamed(
+        model_fn: Callable, data: np.ndarray, patch_size, *,
+        slice_separation: int, z_slab_tiles: int = 2,
+        tile_step_size: float = 0.5, use_gaussian: bool = True,
+        mirror: bool = True, num_classes: int = 2,
+        input_dtype=torch.bfloat16, device=None):
+    """Streamed LR+HR labels: slabs as in
+    :func:`predict_sliding_window_labels_streamed`; each slab keeps LR and
+    HR accumulators on the device, added into host fp32 buffers at z_lo and
+    at z_lo * slice_separation. Returns (lr_labels, hr_labels) uint8."""
+    patch_size = tuple(int(p) for p in patch_size)
+    sep = int(slice_separation)
+    d, h, w = data.shape[:3]
+    llr_host = np.zeros((d, h, w, num_classes), dtype=np.float32)
+    lhr_host = np.zeros((d * sep, h, w, num_classes), dtype=np.float32)
+    for z_lo, z_hi, rows in _slabs((d, h, w), patch_size, tile_step_size,
+                                   int(z_slab_tiles)):
+        llr, lhr = _dual_logits(model_fn, data[z_lo:z_hi], patch_size, sep,
+                                tile_step_size, use_gaussian, mirror,
+                                num_classes, input_dtype, device, rows=rows)
+        llr_host[z_lo:z_hi] += llr.cpu().numpy()
+        lhr_host[z_lo * sep:z_hi * sep] += lhr.cpu().numpy()
+        del llr, lhr    # free this slab's accumulators before the next's
+    return (np.argmax(llr_host, -1).astype(np.uint8),
+            np.argmax(lhr_host, -1).astype(np.uint8))
 
 
 # --------------------------------------------------------------- aligned grid

@@ -18,8 +18,15 @@ restores a checkpoint of ``train.checkpoint``, and the CLI serves files::
     python -m rehrseg_tpu_torch.serve IN.nii.gz --ckpt DIR --config CFG \
         --out OUT.nii.gz [--hr HR.nii.gz] [--step N|best] [--device cpu]
 
-Not ported yet: ``mesh`` and ``streaming`` (ROADMAP queue 1, item 6) and
-``--mode sr`` (item 10).
+:class:`SRVolumizer` serves stage-1 SR: a merged 2-channel (image, label)
+NIfTI in, the FLAVR pseudo-HR image and label (or the UASR uncertainty
+map) out; :func:`load_sr_from_checkpoint` restores a UNet3D checkpoint, and
+``--mode sr [--sr-uncertainty]`` serves it from the CLI (outputs
+``<out>_img/_seg.nii.gz`` or ``<out>_uncertainty.nii.gz``). The CLI leaves
+PyTorch's TF32 settings as they are: by default cuDNN runs fp32 convs in
+TF32 on the card.
+
+Not ported yet: ``mesh`` (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -34,8 +41,11 @@ import torch
 from .config import load_config
 from .data.normalize import zscore_normalization
 from .infer import sliding_window as sw
+from .infer.sr_infer import infer_flavr_volume, restore_intensity
 from .io import nifti
+from .io.volume import parse_image, write_sr_niftis
 from .models import convert
+from .models.flavr import UNet3D
 from .models.segnet import SegModel
 from .models.segnet_packed import segmodel_apply_packed
 from .pipeline import seg_arch_and_patches
@@ -57,7 +67,11 @@ class Segmenter:
     kernel routing, "cat" (served: K1 at the decoder concat), True (every
     covered stride-1 packed conv through K1/K3/K4/K5) or "fused" ("cat"
     plus the deferred instance norm: K6a at the decoder concat, K6b/K6c at
-    the offset -> aligned convs that consume a deferred norm)."""
+    the offset -> aligned convs that consume a deferred norm). streaming:
+    None keeps the whole volume's accumulators on the device; an int k
+    streams z-slabs of k tile rows (parity grid, LR and HR), for volumes
+    whose accumulators exceed the device's memory: the same labels up to
+    fp32 summation order."""
 
     model: SegModel
     patch_size: tuple
@@ -74,17 +88,18 @@ class Segmenter:
     pallas_conv: str | bool = "cat"
 
     def __post_init__(self):
-        if self.mesh is not None or self.streaming:
+        if self.mesh is not None:
             raise NotImplementedError(
-                "mesh and streaming engines are still to be ported "
-                "(ROADMAP queue 1, item 6)")
+                "mesh sharding is still to be ported (ROADMAP queue 1, "
+                "item 10)")
         if self.tile_grid not in ("parity", "aligned"):
             raise ValueError(f"tile_grid must be 'parity' or 'aligned', "
                              f"got {self.tile_grid!r}")
         if self.tile_grid == "aligned" and (
-                not self.packed_eval or not self.mirror):
+                not self.packed_eval or not self.mirror or self.streaming):
             raise ValueError(
-                "tile_grid='aligned' requires packed_eval + mirror TTA")
+                "tile_grid='aligned' requires packed_eval + mirror TTA and "
+                "does not compose with streaming")
         self.device = resolve_device(self.device)
         self.patch_size = tuple(int(p) for p in self.patch_size)
         self.model = self.model.to(device=self.device,
@@ -161,20 +176,33 @@ class Segmenter:
             pred = sw.predict_sliding_window_labels_aligned(
                 self._fn(False, True), vol_p, self.patch_size, **common)
             return crop(pred, pads[:3])
+        common["mirror"] = self.mirror
+        if self.streaming:
+            common["z_slab_tiles"] = int(self.streaming)
         if hr:
-            lr_full, hr_full = sw.predict_sliding_window_dual_labels(
-                self._fn(True), vol_p, self.patch_size,
-                slice_separation=self.slice_separation, mirror=self.mirror,
-                **common)
+            dual = (sw.predict_sliding_window_dual_labels_streamed
+                    if self.streaming
+                    else sw.predict_sliding_window_dual_labels)
+            lr_full, hr_full = dual(self._fn(True), vol_p, self.patch_size,
+                                    slice_separation=self.slice_separation,
+                                    **common)
             return crop(lr_full, pads[:3]), crop(hr_full, self._hr_pads(pads))
-        pred = sw.predict_sliding_window_labels(
-            self._fn(False), vol_p, self.patch_size, slice_separation=1,
-            mirror=self.mirror, **common)
+        if self.streaming:
+            pred = sw.predict_sliding_window_labels_streamed(
+                self._fn(False), vol_p, self.patch_size, **common)
+        else:
+            pred = sw.predict_sliding_window_labels(
+                self._fn(False), vol_p, self.patch_size, slice_separation=1,
+                **common)
         return crop(pred, pads[:3])
 
     def segment_many(self, volumes_zyx):
         """LR masks of many volumes, all on the same engine as
-        :meth:`segment` (aligned only when every volume fits it)."""
+        :meth:`segment` (aligned only when every volume fits it). Under
+        streaming, sequential :meth:`segment` calls: that engine manages
+        its own device memory slab by slab."""
+        if self.streaming:
+            return [self.segment(v) for v in volumes_zyx]
         prepped = [self._prep(v) for v in volumes_zyx]
         common = dict(num_classes=self.num_classes, device=self.device,
                       tile_step_size=self.tile_step_size)
@@ -240,17 +268,116 @@ def load_segmenter_from_checkpoint(ckpt_dir: str, arch: dict, patch_size,
                      num_classes=num_classes, **kw)
 
 
+@dataclass
+class SRVolumizer:
+    """Stage-1 SR serving: merged 2-channel (image + label) NIfTI in ->
+    pseudo-HR image / label (or uncertainty-map) NIfTIs out, the reference's
+    inference_flavr (sr_utils.py:137-242) as a service.
+
+    model: the port's UNet3D, moved to ``device`` and cast once to
+    ``compute_dtype`` (None = fp32, the reference's precision)."""
+
+    model: UNet3D
+    slice_thickness: float = 4.0
+    target_thickness: float = 1.0
+    batch: int = 8
+    compute_dtype: torch.dtype | None = None
+    device: object = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.model = self.model.to(
+            device=self.device,
+            dtype=self.compute_dtype or torch.float32).eval()
+        self.model.requires_grad_(False)
+
+    @property
+    def slice_separation(self) -> float:
+        return self.slice_thickness / self.target_thickness
+
+    def sr_volume(self, in_path: str, uncertainty: bool = False):
+        """The SR output of one merged NIfTI, (x, y, z_out, c) fp32 in the
+        source intensity range: c = (image, label), or the uncertainty map
+        alone."""
+        image, _, _, _, _, _, orig_min, orig_max = parse_image(
+            in_path, self.slice_thickness, self.target_thickness)
+        out = infer_flavr_volume(
+            self.model, image.astype(np.float32), self.slice_separation,
+            out_index=1 if uncertainty else 0, batch=self.batch,
+            device=self.device)
+        return restore_intensity(out, orig_min, orig_max)
+
+    def sr_file(self, in_path: str, out_base: str,
+                ref_path: str | None = None,
+                uncertainty: bool = False) -> None:
+        """in_path: merged 2-channel NIfTI. Writes ``<out_base>_img.nii.gz``
+        + ``_seg.nii.gz`` (or ``_uncertainty.nii.gz``) at HR z-spacing with
+        the geometry of ``ref_path`` (default: the input)."""
+        out = self.sr_volume(in_path, uncertainty)
+        ref = nifti.read_image_itk(ref_path or in_path)
+        sep = self.slice_separation
+        if uncertainty:
+            write_sr_niftis(ref, out_base, sep, unc_xyz=out[..., 0])
+        else:
+            write_sr_niftis(ref, out_base, sep, img_xyz=out[..., 0],
+                            seg_xyz=out[..., 1])
+
+
+def load_sr_from_checkpoint(ckpt_dir: str, *, num_slices: int = 4,
+                            slice_separation: int = 4,
+                            uncertainty: bool = False,
+                            img_channels: int = 2,
+                            slice_thickness: float = 4.0,
+                            target_thickness: float = 1.0,
+                            step: int | str | None = None,
+                            **kw) -> SRVolumizer:
+    """An SRVolumizer over a stage-1b (flavr) or stage-1c
+    (flavr_uncertainty) checkpoint of ``train.checkpoint``: the UNet3D's
+    state dict."""
+    model = UNet3D(img_channels=img_channels, n_inputs=num_slices,
+                   n_outputs=int(slice_separation),
+                   use_uncertainty=uncertainty)
+    model.load_state_dict(
+        ckpt.restore_checkpoint_raw(ckpt_dir, step=step)["params"],
+        strict=True)
+    return SRVolumizer(model=model, slice_thickness=slice_thickness,
+                       target_thickness=target_thickness, **kw)
+
+
+def _serve_sr(args, cfg, step) -> None:
+    sr = load_sr_from_checkpoint(
+        args.ckpt, num_slices=cfg.num_slices,
+        slice_separation=int(cfg.slice_separation),
+        uncertainty=args.sr_uncertainty,
+        slice_thickness=cfg.slice_thickness,
+        target_thickness=cfg.target_thickness, step=step,
+        device=args.device)
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+        bases = [(path, os.path.join(
+            args.out_dir, os.path.basename(path).replace(".nii.gz", "")))
+            for path in args.inputs]
+    else:
+        bases = [(args.inputs[0], args.out.replace(".nii.gz", ""))]
+    for path, base in bases:
+        sr.sr_file(path, base, uncertainty=args.sr_uncertainty)
+    for _, base in bases:
+        print(f"SR -> {base}_*.nii.gz")
+
+
 def main(argv=None):
     """CLI serving: ``python -m rehrseg_tpu_torch.serve IN.nii.gz --ckpt
     DIR --config CFG --out OUT.nii.gz [--hr HR.nii.gz]``, or many inputs
-    with ``--out-dir``. ``--device`` picks the device (default: the
-    card)."""
+    with ``--out-dir``; ``--mode sr`` serves stage-1 SR volumes from a
+    UNet3D checkpoint (``--sr-uncertainty`` for the UASR map).
+    ``--device`` picks the device (default: the card)."""
     parser = argparse.ArgumentParser(
         description="REHRSeg volume segmentation serving (PyTorch)")
     parser.add_argument("inputs", nargs="+",
                         help="input NIfTI(s); with --out-dir, many at once")
     parser.add_argument("--ckpt", required=True,
-                        help="stage-2 checkpoint dir (<dir>/<step>/state.pt)")
+                        help="stage-2 (or, with --mode sr, UNet3D) "
+                             "checkpoint dir (<dir>/<step>/state.pt)")
     parser.add_argument("--config", required=True,
                         help="pipeline config, YAML or JSON (for arch, "
                              "patch, separation)")
@@ -263,23 +390,25 @@ def main(argv=None):
     parser.add_argument("--no-mirror", action="store_true",
                         help="disable 8-way TTA")
     parser.add_argument("--mode", choices=("seg", "sr"), default="seg",
-                        help="seg (default); sr is not ported yet")
+                        help="seg (default) or stage-1 SR volume serving")
+    parser.add_argument("--sr-uncertainty", action="store_true",
+                        help="sr mode: emit the UASR uncertainty map "
+                             "(checkpoint must be the uncertainty model)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
     args = parser.parse_args(argv)
 
-    if args.mode == "sr":
-        raise NotImplementedError(
-            "--mode sr (stage-1 SR volume serving) is still to be ported "
-            "(ROADMAP queue 1, item 10)")
     if not args.out_dir and (len(args.inputs) != 1 or not args.out):
         parser.error("a single input needs --out (or use --out-dir)")
 
     cfg = load_config(args.config)
-    arch, patch_size_zyx, _, _ = seg_arch_and_patches(cfg)
     step = args.step
     if step is not None and step != "best":
         step = int(step)
+    if args.mode == "sr":
+        _serve_sr(args, cfg, step)
+        return
+    arch, patch_size_zyx, _, _ = seg_arch_and_patches(cfg)
     seg = load_segmenter_from_checkpoint(
         args.ckpt, arch, patch_size=patch_size_zyx,
         slice_separation=int(cfg.slice_separation), step=step,

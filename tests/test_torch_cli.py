@@ -1,8 +1,9 @@
 """The port's serving CLI against the JAX package's on the same weights and
-inputs (--out, --out-dir with --hr, --step best; the port on the CPU with
---device cpu, reading a JSON config), the CLI in a process where pyyaml,
-orbax and JAX cannot be imported, and the port's packaging: where the
-kernels are built and that the CUDA sources ship with the package.
+inputs (--out, --out-dir with --hr, --step best; --mode sr with the plain
+and the UASR UNet3D; the port on the CPU with --device cpu, reading a JSON
+config), the CLI in a process where pyyaml, orbax, h5py and JAX cannot be
+imported, and the port's packaging: where the kernels are built and that
+the CUDA sources ship with the package.
 
 Both CLIs serve bf16; for the comparisons both build their Segmenter at
 fp32, where labels agree on at least 99.9 % of voxels (fp32 summation
@@ -34,6 +35,7 @@ from rehrseg_tpu.train import checkpoint as jckpt
 from rehrseg_tpu_torch import kernels
 from rehrseg_tpu_torch.io import nifti
 from rehrseg_tpu_torch.models import convert
+from rehrseg_tpu_torch.models.flavr import UNet3D
 from rehrseg_tpu_torch.models.segnet import SegModel
 from rehrseg_tpu_torch.serve import main as serve_main
 from rehrseg_tpu_torch.train import checkpoint as ckpt
@@ -165,34 +167,152 @@ def test_cli_step_best_matches_jax(served, fp32, monkeypatch, tmp_path):
 
 
 def test_cli_refusals(served, tmp_path):
+    """Many inputs with --out, and (in either mode) one input without
+    --out, exit through argparse's error."""
     base = ["--ckpt", served["port_ckpt"], "--config", served["json"],
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_main([served["inputs"][0], "--out", str(tmp_path / "o.nii.gz"),
-                    "--mode", "sr", *base])
     with pytest.raises(SystemExit):
         serve_main([*served["inputs"], "--out", str(tmp_path / "o.nii.gz"),
                     *base])
+    for mode in ("seg", "sr"):
+        with pytest.raises(SystemExit):
+            serve_main([served["inputs"][0], "--mode", mode, *base])
+    assert not os.listdir(tmp_path)
 
 
-def test_cli_runs_without_pyyaml_orbax_or_jax(served, tmp_path):
-    """``python -m rehrseg_tpu_torch.serve`` in a process where yaml,
-    orbax and jax cannot be imported, with the JSON config."""
-    out = tmp_path / "seg.nii.gz"
+def _run_blocked(args):
+    """``python -m rehrseg_tpu_torch.serve ARGS`` in a process where yaml,
+    orbax, h5py, flax and jax cannot be imported."""
     code = ("import runpy, sys\n"
-            "for m in ('yaml', 'orbax', 'jax', 'rehrseg_tpu'):\n"
+            "for m in ('yaml', 'orbax', 'jax', 'flax', 'h5py',"
+            " 'rehrseg_tpu'):\n"
             "    sys.modules[m] = None\n"
             "sys.argv = ['serve'] + sys.argv[1:]\n"
             "runpy.run_module('rehrseg_tpu_torch.serve', run_name='__main__')\n")
     r = subprocess.run(
-        [sys.executable, "-c", code, served["inputs"][1], "--out", str(out),
-         "--ckpt", served["port_ckpt"], "--config", served["json"],
-         "--step", "1", "--device", "cpu"],
+        [sys.executable, "-c", code, *args, "--device", "cpu"],
         cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO),
                            OMP_NUM_THREADS="2"),
         capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_cli_runs_without_pyyaml_orbax_or_jax(served, served_sr, tmp_path):
+    """The CLI in seg mode and in --mode sr (UASR), with the JSON
+    configs, where pyyaml, orbax, h5py, flax and jax cannot be
+    imported."""
+    out = tmp_path / "seg.nii.gz"
+    _run_blocked([served["inputs"][1], "--out", str(out), "--ckpt",
+                  served["port_ckpt"], "--config", served["json"], "--step",
+                  "1"])
     assert _read(out).array.shape == (5, 18, 16)
+    _run_blocked([served_sr["inputs"][1], "--mode", "sr", "--out",
+                  str(tmp_path / "sr.nii.gz"), "--sr-uncertainty", "--ckpt",
+                  served_sr["port_unc"], "--config", served_sr["json"]])
+    assert _read(tmp_path / "sr_uncertainty.nii.gz").array.shape == \
+        (16, 9, 11)
+
+
+# ------------------------------------------------------------ --mode sr
+
+SR_SHAPES = [(12, 10, 5), (11, 9, 5)]    # (x, y, z) merged inputs
+
+
+@pytest.fixture(scope="module")
+def served_sr(tmp_path_factory):
+    """UNet3D checkpoints (plain and UASR, full widths) of the same seeded
+    flax params for both packages (orbax for JAX, ``train.checkpoint`` for
+    the port), configs (YAML, JSON) and two merged 2-channel (image,
+    label) NIfTI inputs at spacing (0.9, 0.8, 4.0)."""
+    root = tmp_path_factory.mktemp("served_sr")
+    paths = {}
+    for unc in (False, True):
+        params = convert.random_flavr_params(40 + unc, use_uncertainty=unc)
+        jdir, tdir = root / f"jax_{int(unc)}", root / f"port_{int(unc)}"
+        jckpt.save_checkpoint(str(jdir), TrainState.create(
+            params, optax.sgd(1e-3)), step=1)
+        model = UNet3D(use_uncertainty=unc)
+        convert.load_flax_flavr_params(model, params, unc)
+        ckpt.save_checkpoint(str(tdir), model, step=1)
+        paths["jax_unc" if unc else "jax"] = str(jdir)
+        paths["port_unc" if unc else "port"] = str(tdir)
+    cfg = {"slice_thickness": 4.0, "target_thickness": 1.0, "num_slices": 4}
+    (root / "cfg.yaml").write_text(yaml.safe_dump(cfg))
+    (root / "cfg.json").write_text(json_with_dots(cfg))
+    inputs = []
+    for i, shape in enumerate(SR_SHAPES):
+        rng = np.random.default_rng(50 + i)
+        img = _blob_volume(shape, rng)
+        lab = (img > 1.5).astype(np.float32)
+        path = root / f"merged{i}.nii.gz"
+        nifti.save(nifti.NiftiImage(data=np.stack([img, lab], -1),
+                                    affine=np.diag([0.9, 0.8, 4.0, 1.0])),
+                   str(path))
+        inputs.append(str(path))
+    return dict(paths, root=root, yaml=str(root / "cfg.yaml"),
+                json=str(root / "cfg.json"), inputs=inputs)
+
+
+def _run_both_sr(served_sr, monkeypatch, tmp_path, args_for, unc):
+    jout, tout = tmp_path / "jax", tmp_path / "port"
+    jout.mkdir()
+    tout.mkdir()
+    flags = ["--mode", "sr"] + (["--sr-uncertainty"] if unc else [])
+    monkeypatch.setattr("sys.argv", [
+        "serve", *args_for(jout), *flags, "--ckpt",
+        served_sr["jax_unc" if unc else "jax"], "--config",
+        served_sr["yaml"]])
+    jax_serve_main()
+    serve_main([*args_for(tout), *flags, "--ckpt",
+                served_sr["port_unc" if unc else "port"], "--config",
+                served_sr["json"], "--device", "cpu"])
+    return jout, tout
+
+
+def _sr_close(got, want):
+    """An SR volume within 1e-4 of JAX's, relative to its value range
+    (fp32 both sides); same shape, spacing and dtype."""
+    assert got.array.shape == want.array.shape
+    assert got.array.dtype == want.array.dtype == np.float32
+    assert got.GetSpacing() == pytest.approx(want.GetSpacing())
+    span = float(want.array.max() - want.array.min())
+    np.testing.assert_allclose(got.array, want.array, rtol=0,
+                               atol=1e-4 * span)
+
+
+def test_cli_sr_matches_jax(served_sr, monkeypatch, tmp_path, capsys):
+    """--mode sr, one input with --out: ``<out>_img`` and ``_seg`` at z
+    spacing 1.0 mm with 4 * (z - 1) slices, against JAX's CLI (both fp32
+    on the CPU); seg equal on at least 99.9 % of voxels."""
+    inp = served_sr["inputs"][0]
+    jout, tout = _run_both_sr(
+        served_sr, monkeypatch, tmp_path,
+        lambda d: [inp, "--out", str(d / "sr.nii.gz")], unc=False)
+    assert f"SR -> {tout / 'sr'}_*.nii.gz" in capsys.readouterr().out
+    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout)) == [
+        "sr_img.nii.gz", "sr_seg.nii.gz"]
+    img = _read(tout / "sr_img.nii.gz")
+    assert img.array.shape == (16, 10, 12)
+    assert img.GetSpacing() == pytest.approx((0.9, 0.8, 1.0))
+    _sr_close(img, _read(jout / "sr_img.nii.gz"))
+    seg, want = _read(tout / "sr_seg.nii.gz"), _read(jout / "sr_seg.nii.gz")
+    assert seg.array.dtype == np.uint8 and set(np.unique(seg.array)) <= {0, 1}
+    assert np.mean(seg.array == want.array) >= 0.999
+
+
+def test_cli_sr_uncertainty_out_dir_matches_jax(served_sr, monkeypatch,
+                                                tmp_path):
+    """--mode sr --sr-uncertainty with --out-dir over two inputs: one
+    ``<name>_uncertainty`` map each, in (0, 1), against JAX's CLI."""
+    jout, tout = _run_both_sr(
+        served_sr, monkeypatch, tmp_path,
+        lambda d: [*served_sr["inputs"], "--out-dir", str(d)], unc=True)
+    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout)) == [
+        "merged0_uncertainty.nii.gz", "merged1_uncertainty.nii.gz"]
+    for i, (x, y, z) in enumerate(SR_SHAPES):
+        got = _read(tout / f"merged{i}_uncertainty.nii.gz")
+        assert got.array.shape == (4 * (z - 1), y, x)
+        _sr_close(got, _read(jout / f"merged{i}_uncertainty.nii.gz"))
 
 
 def test_build_dir_resolution(tmp_path, monkeypatch):

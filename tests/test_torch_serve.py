@@ -174,9 +174,12 @@ def test_constructor_errors(params):
     with pytest.raises(ValueError, match="aligned"):
         Segmenter(model, PATCH, tile_grid="aligned", mirror=False,
                   device="cpu")
-    for kw in (dict(streaming=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Segmenter(model, PATCH, device="cpu", **kw)
+    with pytest.raises(ValueError, match="streaming"):
+        Segmenter(model, PATCH, tile_grid="aligned", streaming=2,
+                  device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Segmenter(model, PATCH, device="cpu", mesh=object())
+    assert Segmenter(model, PATCH, device="cpu", streaming=2).streaming == 2
 
 
 def test_segmenter_never_silently_uses_the_cpu(monkeypatch):
@@ -187,18 +190,19 @@ def test_segmenter_never_silently_uses_the_cpu(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (32 today) leaves no jax, no
-    rehrseg_tpu / rehrseg_tpu.*, no pyyaml and no orbax module loaded."""
+    """Importing every module of the port (39 today) leaves no jax, no
+    flax, no rehrseg_tpu / rehrseg_tpu.*, no pyyaml, no orbax and no h5py
+    module loaded."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import rehrseg_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'rehrseg_tpu', 'yaml', 'orbax')]\n"
+        " ('jax', 'flax', 'rehrseg_tpu', 'yaml', 'orbax', 'h5py')]\n"
         "n = sum(1 for m in sys.modules if m.startswith('rehrseg_tpu_torch'))\n"
         "print(n, bad)\n"
-        "sys.exit(1 if bad or n < 32 else 0)\n")
+        "sys.exit(1 if bad or n < 39 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
