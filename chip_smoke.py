@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -101,6 +102,28 @@ and nothing of the JAX package. Phases, each printing one JSON line:
            output shapes, z spacing 1.0 mm, seg in {0, 1}; the image and
            map against an in-process SRVolumizer under the CLI's TF32
            setting, seg agreement gated at 99.9 %;
+  train_step  the stage-2 train step at full width (DEFAULT_ARCH, B = 2 x
+           (16, 256, 320), slice separation 4, uncertainty on, bf16,
+           packed, sr_head_form "auto"): the remat mode select_remat_mode
+           picks on the card with each probe's peak memory, ms per step
+           over a chain of 8 steps with one sync at the end, peak memory,
+           the share of the bound (3x the forward's conv operations over
+           989 TFLOP/s; remat's recompute listed apart); the same with
+           distillation (the full-width UNet3D teacher, the Distiller) and
+           the teacher's ms; one fp32 step (TF32 off) of the packed forward
+           against the unpacked SegModel (losses and the whole gradient
+           within 2e-3; each leaf against the unpacked fp64 step within
+           2e-3 or twice the unpacked fp32 step's own error, the deep
+           stages' gradients being ill-conditioned) and bf16 against fp32
+           (5e-2);
+  train_loop  pipeline.stage2_segsr at full width on a seeded checkerboard
+           phantom: two training subjects through
+           SegSRDataset.from_volumes, one NIfTI validation subject of one
+           enlarged patch, the device augmentation, distillation, bf16, 6
+           steps with a validation every 3, then a resume to step 8: steps
+           a second, each validation's dice and seconds, the checkpoint
+           files, K1's fp32 launches in the validations (asserted: one per
+           validation tile; no other kernel runs);
   kernels  every ported kernel with launches, error, times and bound.
 
 Then the card's name and power limit, and last the result line
@@ -1249,34 +1272,38 @@ def _tap_pairs(n, m, k, s, p, transposed):
     return int(((o >= 0) & (o < (m if transposed else n))).sum())
 
 
-def conv_macs(model_factory, x_shape) -> int:
+def conv_macs(model_factory, x_shape, by_module: bool = False):
     """Multiply-adds of every conv of one forward on an input of
     ``x_shape``, counting only taps that land in range (no padding taps),
-    from the layer shapes on meta tensors."""
+    from the layer shapes on meta tensors; per module name when
+    ``by_module``."""
     from torch import nn
 
     with torch.device("meta"):
         model = model_factory()
-    total = [0]
+    total = {}
 
-    def hook(mod, inputs, output):
-        xin = inputs[0]
-        nsp = xin.ndim - 2
-        tr = isinstance(mod, nn.ConvTranspose3d)
-        pairs = 1
-        for i in range(nsp):
-            pairs *= _tap_pairs(xin.shape[2 + i], output.shape[2 + i],
-                                mod.kernel_size[i], mod.stride[i],
-                                mod.padding[i], tr)
-        total[0] += (xin.shape[0] * pairs * mod.in_channels
-                     * mod.out_channels // mod.groups)
+    def hook(name):
+        def count(mod, inputs, output):
+            xin = inputs[0]
+            nsp = xin.ndim - 2
+            tr = isinstance(mod, nn.ConvTranspose3d)
+            pairs = 1
+            for i in range(nsp):
+                pairs *= _tap_pairs(xin.shape[2 + i], output.shape[2 + i],
+                                    mod.kernel_size[i], mod.stride[i],
+                                    mod.padding[i], tr)
+            total[name] = total.get(name, 0) + (
+                xin.shape[0] * pairs * mod.in_channels * mod.out_channels
+                // mod.groups)
+        return count
 
-    for mod in model.modules():
+    for name, mod in model.named_modules():
         if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
-            mod.register_forward_hook(hook)
+            mod.register_forward_hook(hook(name))
     with torch.no_grad():
         model(torch.empty(x_shape, device="meta"))
-    return total[0]
+    return total if by_module else sum(total.values())
 
 
 def phase_sr(dev, gpu):
@@ -1638,6 +1665,372 @@ def phase_evaluate(params, dev, gpu, work: Path, gen):
     return launches, k1
 
 
+# stage-2 training at bench.py:159-186's geometry: B = 2 LR patches of
+# (16, 256, 320), slice separation 4, uncertainty on, bf16, packed
+TRAIN_PATCH = (16, 256, 320)
+TRAIN_BATCH = 2
+TRAIN_CHAIN = 8
+
+
+def _train_batch(dev, seed, sep=4):
+    """A seeded stage-2 batch on the card: a normal image, its thresholded
+    labels (the HR labels the LR ones repeated along z), weights in
+    (0.01, 1]."""
+    from rehrseg_tpu_torch.train.seg_trainer import SegBatch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    img = torch.randn(TRAIN_BATCH, *TRAIN_PATCH, 1, generator=g, device=dev)
+    label_lr = (img > 0.5).float()
+    unc = 0.01 + 0.99 * torch.rand(img.shape, generator=g, device=dev)
+    return SegBatch(img, label_lr, label_lr.repeat_interleave(sep, dim=1),
+                    unc)
+
+
+def _recompute_macs(per_module, n, remat):
+    """Forward MACs that remat runs again in backward: the checkpointed
+    stage functions of segnet_packed._ckpt (a decoder stage holds its
+    transposed conv; the seg layer lies outside every stage)."""
+    def checkpointed(name):
+        parts = name.split(".")
+        if name.startswith("decoder.seg_layers"):
+            return False
+        if remat is True:
+            return True
+        if name.startswith("encoder.stages."):
+            return int(parts[2]) <= 1
+        if name.startswith(("decoder.stages.", "decoder.transpconvs.")):
+            return int(parts[2]) >= n - 3
+        return name.startswith("sr_head")
+
+    if not remat:
+        return 0
+    return sum(v for k, v in per_module.items() if checkpointed(k))
+
+
+def _time_chain(step, state, batch):
+    """ms per step over TRAIN_CHAIN chained steps with one sync at the end
+    (after two warm-up steps), the peak memory in GB and the last step's
+    losses."""
+    for _ in range(2):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_CHAIN):
+        state, m = step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    losses = {k: float(v) for k, v in m.items()}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"train_step: losses {losses}")
+    return (start.elapsed_time(end) / TRAIN_CHAIN,
+            torch.cuda.max_memory_allocated() / 1e9, losses)
+
+
+def _rel(a, b, floor=0.0):
+    return float((a - b).norm() / max(float(b.norm()), floor, 1e-30))
+
+
+def _one_step(params, batch, dev, dtype=torch.float32, **kw):
+    """Losses and gradients (fp64, on the host) of one step of a fresh
+    full-width SegModel whose weights and batch are ``dtype``."""
+    from rehrseg_tpu_torch.models import convert
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH, SegModel
+    from rehrseg_tpu_torch.train import optim
+    from rehrseg_tpu_torch.train.seg_trainer import (SegBatch,
+                                                     make_seg_train_step)
+    from rehrseg_tpu_torch.train.state import TrainState
+
+    seg = SegModel(2, 4, arch=DEFAULT_ARCH)
+    convert.load_flax_params(seg, params)
+    seg.to(dev, dtype)
+    state = TrainState(seg, optim.nesterov_sgd(seg),
+                       optim.poly_epoch_schedule(1e-2, 100, 1))
+    step = make_seg_train_step(seg, enable_uncertainty=True,
+                               enable_distillation=False, **kw)
+    _, m = step(state, SegBatch(*(t.to(dtype) for t in batch)))
+    out = ({k: float(v) for k, v in m.items()},
+           {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+            .detach().double().cpu() for k, p in seg.named_parameters()})
+    del seg, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_step(params, dev, gpu):
+    """The stage-2 train step at full width: the remat mode the port's
+    select_remat_mode picks on the card with each probe's peak, ms per
+    step over a chain of steps, peak memory and the share of the bf16
+    dense peak, without and with distillation (the full-width UNet3D
+    teacher and the Distiller); then one fp32 step (TF32 off) of the
+    packed forward against the unpacked SegModel, and bf16 against fp32.
+    Returns the phase's record."""
+    import copy
+
+    from rehrseg_tpu_torch.models import convert
+    from rehrseg_tpu_torch.models.distiller import Distiller
+    from rehrseg_tpu_torch.models.flavr import UNet3D
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH, SegModel
+    from rehrseg_tpu_torch.train import optim
+    from rehrseg_tpu_torch.train.seg_trainer import (
+        REMAT_NAMES, flavr_teacher_features, make_seg_train_step,
+        select_remat_mode)
+    from rehrseg_tpu_torch.train.state import TrainState
+
+    n = DEFAULT_ARCH["n_stages"]
+    batch = _train_batch(dev, SEED + 20)
+    per_module = conv_macs(lambda: SegModel(2, 4, arch=DEFAULT_ARCH),
+                           (TRAIN_BATCH, *TRAIN_PATCH, 1), by_module=True)
+    fwd_macs = sum(per_module.values())
+    rec = dict(card=gpu, batch=TRAIN_BATCH, patch=list(TRAIN_PATCH),
+               slice_separation=4, precision="bf16", uncertainty=True,
+               packed=True, sr_head_form="auto", chain=TRAIN_CHAIN,
+               forward_tflop=2 * fwd_macs / 1e12)
+
+    for distill in (False, True):
+        seg = SegModel(2, 4, arch=DEFAULT_ARCH)
+        convert.load_flax_params(seg, params)
+        seg.to(dev)
+        train_params, teacher = seg, None
+        if distill:
+            teacher = UNet3D(2, 4, 4)
+            convert.load_flax_flavr_params(
+                teacher, convert.random_flavr_params(SEED + 8), False)
+            teacher.to(dev)
+            dist = Distiller(DEFAULT_ARCH["features_per_stage"][1], 64)
+            convert.load_flax_distiller_params(
+                dist, convert.random_distiller_params(
+                    SEED + 9, student_dim=DEFAULT_ARCH["features_per_stage"]
+                    [1]))
+            train_params = {"seg": seg, "distiller": dist.to(dev)}
+        state = TrainState(train_params, optim.nesterov_sgd(train_params),
+                           optim.poly_epoch_schedule(1e-2, 100, 1))
+
+        def build(mode):
+            return make_seg_train_step(
+                seg, enable_uncertainty=True, enable_distillation=distill,
+                flavr_model=teacher, remat=mode, precision="bf16")
+
+        probes = {}
+        mode, why = select_remat_mode(build, state, batch, probes=probes)
+        ms, peak, losses = _time_chain(build(mode), state, batch)
+        recompute = _recompute_macs(per_module, n, mode)
+        # forward + backward = 3x the forward's MACs, remat's recompute
+        # listed apart; the teacher's convs are not counted
+        b_ms = 3 * 2 * fwd_macs / BF16_FLOPS * 1e3
+        r = dict(remat=REMAT_NAMES[mode], remat_reason=why,
+                 probe_peak_gb={k: (None if v is None else v / 1e9)
+                                for k, v in probes.items()},
+                 ms_per_step=ms, peak_mem_gb=peak, losses=losses,
+                 train_tflop=3 * 2 * fwd_macs / 1e12,
+                 recompute_tflop=2 * recompute / 1e12,
+                 bound_ms=b_ms, bound_share=b_ms / ms,
+                 bound_share_with_recompute=(b_ms + 2 * recompute
+                                             / BF16_FLOPS * 1e3) / ms)
+        if distill:
+            t16 = copy.deepcopy(teacher).to(torch.bfloat16)
+            with torch.no_grad():
+                r["teacher_ms"] = cuda_ms(lambda: flavr_teacher_features(
+                    t16, batch.img, batch.label_lr,
+                    compute_dtype=torch.bfloat16), iters=3, warmup=1)
+            r["teacher_share"] = r["teacher_ms"] / ms
+            del t16
+        rec["distilled" if distill else "plain"] = r
+        del seg, state, train_params, teacher
+        torch.cuda.empty_cache()
+
+    # correctness: fp32 (TF32 off) packed against unpacked, bf16 against
+    # fp32, one step of fresh models from the same weights. The deep
+    # stages' gradients are ill-conditioned (an instance norm over few
+    # voxels amplifies fp32 rounding): there the unpacked fp32 step itself
+    # lies up to about 1e-2 from the fp64 step, so each leaf is held to the
+    # fp64 unpacked step, within 2e-3 or twice the unpacked fp32 step's own
+    # error where that is larger; losses and the whole gradient within
+    # 2e-3 of the unpacked fp32 step.
+    tol, tol_bf16 = 2e-3, 5e-2
+    l_p, g_p = _one_step(params, batch, dev, remat="hires")
+    l_u, g_u = _one_step(params, batch, dev, packed=False)
+    l_r, g_r = _one_step(params, batch, dev, torch.float64, packed=False)
+    l_b, g_b = _one_step(params, batch, dev, remat="hires",
+                         precision="bf16")
+
+    def flat(g):
+        return torch.cat([v.ravel() for v in g.values()])
+
+    # a leaf whose true gradient is zero (a conv bias ahead of an instance
+    # norm) holds rounding noise: its error is taken against at least 1e-3
+    # of the whole gradient's norm
+    floor = 1e-3 * float(flat(g_r).norm())
+    leaves = {k: (_rel(g_p[k], g_r[k], floor), _rel(g_u[k], g_r[k], floor))
+              for k in g_r}
+    over = {k: v for k, v in leaves.items() if v[0] > max(tol, 2 * v[1])}
+    worst = max(leaves, key=lambda k: leaves[k][0] / max(tol,
+                                                         2 * leaves[k][1]))
+    loss_err = max(abs(l_p[k] - l_u[k]) / abs(l_u[k]) for k in l_u)
+    grad_err = _rel(flat(g_p), flat(g_u))
+    if loss_err > tol or grad_err > tol or over:
+        raise AssertionError(f"train_step packed vs unpacked: loss "
+                             f"{loss_err}, gradient {grad_err}, leaves "
+                             f"over (packed, unpacked fp32 vs fp64): {over}")
+    bf16_loss_err = max(abs(l_b[k] - l_p[k]) / abs(l_p[k]) for k in l_p)
+    bf16_grad_err = _rel(flat(g_b), flat(g_p))
+    if bf16_loss_err > tol_bf16 or bf16_grad_err > tol_bf16:
+        raise AssertionError(f"train_step bf16 vs fp32: loss "
+                             f"{bf16_loss_err}, grads {bf16_grad_err}")
+    rec.update(packed_vs_unpacked=dict(
+        loss_rel_err=loss_err, grad_rel_norm=grad_err, tolerance=tol,
+        leaf_vs_fp64_max=max(v[0] for v in leaves.values()),
+        unpacked_fp32_leaf_vs_fp64_max=max(v[1] for v in leaves.values()),
+        worst_leaf=dict(name=worst, packed_vs_fp64=leaves[worst][0],
+                        unpacked_fp32_vs_fp64=leaves[worst][1]),
+        leaf_rule="packed fp32 vs unpacked fp64 <= max(2e-3, 2x unpacked "
+                  "fp32 vs unpacked fp64)",
+        losses=l_p, losses_fp64=l_r),
+        bf16_vs_fp32=dict(loss_rel_err=bf16_loss_err,
+                          grad_rel_norm=bf16_grad_err,
+                          tolerance=tol_bf16))
+    emit({"phase": "train_step", **rec})
+    return rec
+
+
+def _phantom(rng, shape):
+    """A checkerboard phantom (x, y, z): 32-voxel squares in-plane, 8-slice
+    blocks in z, with noise; its label marks the bright squares inside a
+    ball."""
+    x, y, z = np.meshgrid(*(np.arange(n) for n in shape), indexing="ij")
+    board = ((x // 32 + y // 32 + z // 8) % 2).astype(np.float32)
+    ball = ((x - shape[0] / 2) ** 2 / (shape[0] / 2.5) ** 2
+            + (y - shape[1] / 2) ** 2 / (shape[1] / 2.5) ** 2
+            + (z - shape[2] / 2) ** 2 / (shape[2] / 2.5) ** 2) < 1
+    img = board + 0.3 * rng.normal(size=shape).astype(np.float32)
+    return img.astype(np.float32), (board * ball).astype(np.float32)
+
+
+def phase_train_loop(dev, gpu, work: Path):
+    """pipeline.stage2_segsr at full width on a seeded phantom: two
+    training subjects through SegSRDataset.from_volumes, one NIfTI
+    validation subject of one enlarged patch, the device augmentation,
+    distillation, bf16, remat chosen on the card, 6 steps with a
+    validation every 3; then a resume to step 8. Returns the K1 launches
+    in the validations."""
+    import json
+
+    from rehrseg_tpu_torch import pipeline
+    from rehrseg_tpu_torch.config import Config
+    from rehrseg_tpu_torch.data.datasets import SegSRDataset
+    from rehrseg_tpu_torch.infer import sliding_window as sw
+    from rehrseg_tpu_torch.io import nifti
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH
+    from rehrseg_tpu_torch.ops.pconv import pconv_pad11_cat
+    from rehrseg_tpu_torch.train import checkpoint as ckpt
+
+    root = work / "train_loop"
+    patch_zyx = list(TRAIN_PATCH)
+    patch_ori = [patch_zyx[2] + 64, patch_zyx[1] + 64, patch_zyx[0]]
+    val_zyx = tuple(patch_ori[::-1])         # one enlarged patch: one tile
+    rng = np.random.default_rng(SEED + 30)
+    for d in ("imagesTr", "labelsTr"):
+        (root / d).mkdir(parents=True)
+    img, lab = _phantom(rng, val_zyx[::-1])
+    nifti.write_image_itk(nifti.ItkLikeImage(img.transpose(2, 1, 0),
+                                             SPACING),
+                          str(root / "imagesTr" / "v0_0000.nii.gz"))
+    nifti.write_image_itk(nifti.ItkLikeImage(
+        lab.transpose(2, 1, 0).astype(np.uint8), SPACING),
+        str(root / "labelsTr" / "v0.nii.gz"))
+    seg_path = root / "nnUNet_results" / "DS" / "trainer"
+    seg_path.mkdir(parents=True)
+    (root / "nnUNet_preprocessed" / "DS").mkdir(parents=True)
+    (root / "nnUNet_preprocessed" / "DS" / "splits_final.json").write_text(
+        json.dumps([{"train": ["t0", "t1"], "val": ["v0"]}]))
+    hr_shape = (patch_ori[0] + 16, patch_ori[1] + 16, 4 * patch_zyx[0] + 8)
+    vols = []
+    for _ in range(2):
+        im, lb = _phantom(rng, hr_shape)
+        vols.append((im, lb, rng.uniform(0, 255, size=hr_shape).astype(
+            np.float32)))
+    ds = SegSRDataset.from_volumes(vols, 4.0, 1.0, patch_ori,
+                                   patch_zyx[::-1], random_flip=True,
+                                   uncertainty=True, device_augment=True)
+    arch = {k: list(v) if isinstance(v, tuple) else v
+            for k, v in DEFAULT_ARCH.items()}
+
+    def config(epochs):
+        return Config(data_path=str(root / "imagesTr"),
+                      tmp_path=str(root / "tmp"),
+                      checkpoint_path=str(root / "ckpt"),
+                      seg_path=str(seg_path), fold=0, epochs=epochs,
+                      batch_size_segsr=2, save_iters_segsr=3,
+                      extra={"arch_override": arch,
+                             "patch_size_zyx": patch_zyx})
+
+    evals = []
+    evaluate = pipeline.evaluate
+
+    def timed_evaluate(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate(*a, **k)
+        evals.append(dict(dice=out, seconds=time.perf_counter() - t0))
+        return out
+
+    pipeline.evaluate = timed_evaluate
+    printed = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        _zero_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            _, state, best = pipeline.stage2_segsr(config(6), dataset=ds,
+                                                   device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = pconv_pad11_cat.launches
+        counts = _fused_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            _, state2, _ = pipeline.stage2_segsr(config(8), dataset=ds,
+                                                 device=dev)
+        torch.cuda.synchronize()
+        secs_resume = time.perf_counter() - t
+    finally:
+        pipeline.evaluate = evaluate
+    seg_dir = root / "ckpt" / "segsr"
+    files = sorted(str(p.relative_to(seg_dir))
+                   for p in seg_dir.rglob("*") if p.is_file())
+    log = [json.loads(line) for line in
+           (seg_dir / "metrics.jsonl").read_text().splitlines()]
+    n_tiles = len(sw.sliding_window_starts(val_zyx, val_zyx))
+    lines = printed.getvalue().strip().splitlines()
+    if state.step != 6 or state2.step != 8 or len(evals) != 2:
+        raise AssertionError(f"train_loop: steps {state.step}, "
+                             f"{state2.step}, {len(evals)} validations")
+    if launches != len(evals) * n_tiles:
+        raise AssertionError(f"train_loop: K1 launched {launches} times, "
+                             f"{len(evals)} validations x {n_tiles} tiles")
+    if any(v for k, v in counts.items() if k != "pconv_pad11_cat"):
+        raise AssertionError(f"train_loop: other kernels ran: {counts}")
+    if ckpt.latest_step(str(seg_dir)) != 8 or "best/state.pt" not in files:
+        raise AssertionError(f"train_loop: checkpoints {files}")
+    dice = [e["dice"] for e in evals]
+    losses = [r["loss"] for r in log if "loss" in r]
+    if not all(0.0 <= d <= 1.0 for d in dice) or not all(
+            np.isfinite(v) for v in losses) or best != max(dice):
+        raise AssertionError(f"train_loop: dice {dice}, losses {losses}")
+    rec = dict(card=gpu, steps=6, resumed_to=8, batch=2,
+               patch=patch_zyx, val_volume_zyx=list(val_zyx),
+               val_tiles=n_tiles, seconds=secs,
+               steps_per_second=6 / secs, resume_seconds=secs_resume,
+               validations=evals, best_dice=best, logged_losses=losses,
+               k1_fp32_launches=launches, checkpoint_files=files,
+               remat=[ln for ln in lines if ln.startswith("remat")],
+               printed=lines[-12:])
+    emit({"phase": "train_loop", **rec})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1702,6 +2095,10 @@ def main() -> int:
         phase_cli_sr(dev, gpu, Path(work), here, t_start)
         launches_eval, k1_fp32 = phase_evaluate(params, dev, gpu, Path(work),
                                                 gen)
+        torch.cuda.empty_cache()
+        phase_train_step(params, dev, gpu)
+        torch.cuda.empty_cache()
+        launches_train = phase_train_loop(dev, gpu, Path(work))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1717,6 +2114,7 @@ def main() -> int:
              source="rehrseg_tpu_torch/csrc/pconv_pad11_cat.cu",
              replaces="rehrseg_tpu/ops/pallas_pconv.py:889",
              launches=launches_eval, launches_in="evaluate",
+             launches_train=launches_train,
              **{k: k1_fp32[k] for k in keys}),
         dict(name="accumulate_tta_tile", route="cuda",
              source="rehrseg_tpu_torch/csrc/accumulate_tta_tile.cu",

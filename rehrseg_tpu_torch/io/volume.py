@@ -1,12 +1,13 @@
-"""Volume loading, orientation, intensity scaling and the SR outputs: the
-port's own copy of the NIfTI part of ``rehrseg_tpu.io.volume``.
+"""Volume loading, orientation, intensity scaling, HDF5 stores and the SR
+outputs: the port's own copy of ``rehrseg_tpu.io.volume``.
 
-:func:`load_volume` returns a :class:`Volume`, the array with its
-anisotropy metadata (slice separation, LR axis, the slice-profile blur FWHM
-in voxels); :func:`parse_image` gives the reference's positional 8-tuple
-(parse_image_file.py:52-96). :func:`write_sr_niftis` writes stage-1's
-pseudo-HR volumes. HDF5 stores are still to be ported (ROADMAP queue 1,
-item 11): a ``.h5`` path raises, and h5py is never imported.
+:func:`load_volume` returns a :class:`Volume`, the array (or a lazy HDF5
+handle) with its anisotropy metadata (slice separation, LR axis, the
+slice-profile blur FWHM in voxels); :func:`parse_image` gives the
+reference's positional 8-tuple (parse_image_file.py:52-96).
+:func:`write_sr_niftis` writes stage-1's pseudo-HR volumes. The HDF5
+functions import h5py when called, so the package imports without it; a
+host without h5py gets an ImportError naming it at the first HDF5 access.
 """
 
 from __future__ import annotations
@@ -37,12 +38,81 @@ def inv_normalize(x, orig_min, orig_max, a=-1, b=1):
     return orig_min + (x - a) * scale
 
 
+# ------------------------------------------------------------ HDF5 store
+
+def _h5py():
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "HDF5 volume stores need h5py, which is not installed") from e
+    return h5py
+
+
+class H5Dataset:
+    """Handle to ONE dataset inside an HDF5 file, opened per access (cheap,
+    picklable, safe across threads); shape metadata cached eagerly."""
+
+    __slots__ = ("path", "name", "shape", "ndim", "dtype")
+
+    def __init__(self, path: str, name: str):
+        self.path = path
+        self.name = name
+        with _h5py().File(path, "r") as f:
+            d = f[name]
+            self.shape = tuple(d.shape)
+            self.ndim = d.ndim
+            self.dtype = d.dtype
+
+    def __getitem__(self, index):
+        if index is Ellipsis:
+            return self
+        with _h5py().File(self.path, "r") as f:
+            return f[self.name][index]
+
+    def read(self) -> np.ndarray:
+        return self[:]
+
+    def ravel(self) -> np.ndarray:
+        return self[:].ravel()
+
+
+class H5Store:
+    """Handle to an HDF5 file of named volumes: ``store["img"]`` yields an
+    :class:`H5Dataset`."""
+
+    __slots__ = ("path",)
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def keys(self):
+        with _h5py().File(self.path, "r") as f:
+            return list(f.keys())
+
+    def __getitem__(self, name: str) -> H5Dataset:
+        return H5Dataset(self.path, name)
+
+
+def write_h5(path: str, **datasets) -> None:
+    """Write named arrays to an HDF5 file (stage-intermediate store)."""
+    with _h5py().File(path, "w") as f:
+        for k, v in datasets.items():
+            f.create_dataset(k, data=v)
+
+
+def read_h5(path: str, *names):
+    with _h5py().File(path, "r") as f:
+        return tuple(f[n][:] for n in names)
+
+
 # ------------------------------------------------------------ loading
 
 @dataclass
 class Volume:
-    """One anisotropic volume (a float32 array) plus the metadata every
-    pipeline stage needs."""
+    """One anisotropic volume plus the metadata every pipeline stage needs.
+    ``data`` is a float32 array for NIfTI inputs or an :class:`H5Store`
+    (whose header / affine / lr_axis / intensity fields are None)."""
 
     data: Any
     slice_separation: float
@@ -62,7 +132,7 @@ class Volume:
 
 def load_volume(img_file: str, slice_thickness: float,
                 target_thickness: float) -> Volume:
-    """Open a NIfTI volume with its anisotropy metadata.
+    """Open a NIfTI or HDF5 volume with its anisotropy metadata.
 
     Preserved reference quirk: a 2-long voxel-size tuple selects the LR axis
     by argmax, anything else defaults to axis 0 (parse_image_file.py:57-60).
@@ -79,9 +149,8 @@ def load_volume(img_file: str, slice_thickness: float,
         return Volume(image, sep, lr_axis, fwhm, obj.header, obj.affine,
                       image.min(), image.max())
     if path.endswith(".h5"):
-        raise NotImplementedError(
-            f"{img_file}: HDF5 volume stores are still to be ported "
-            f"(ROADMAP queue 1, item 11)")
+        _h5py()
+        return Volume(H5Store(path), sep, None, fwhm)
     raise ValueError(f"Unsupported volume file: {img_file}")
 
 

@@ -35,9 +35,11 @@ _TO_TORCH = (4, 3, 0, 1, 2)      # DHWIO / (*K, O, I) -> OIDHW / (I, O, *K)
 _TO_FLAX = (2, 3, 4, 1, 0)       # the inverse
 
 
-def segmodel_mapping(arch: dict) -> dict:
+def segmodel_mapping(arch: dict, deep_supervision: bool = False) -> dict:
     """torch state-dict key -> flax path (tuple) for a SegModel of ``arch``
-    (the names of ``rehrseg_tpu.train.torch_import.segmodel_mapping``)."""
+    (the names of ``rehrseg_tpu.train.torch_import.segmodel_mapping``);
+    with ``deep_supervision`` every decoder stage has a seg layer, else
+    only the last."""
     m: dict[str, tuple] = {}
     n = arch["n_stages"]
 
@@ -62,10 +64,11 @@ def segmodel_mapping(arch: dict) -> dict:
         for i in range(arch["n_conv_per_stage_decoder"][s]):
             block(f"decoder.stages.{s}.convs.{i}",
                   ("decoder", f"stage_{s}", f"conv_{i}"))
-    m[f"decoder.seg_layers.{n - 2}.weight"] = (
-        "decoder", f"seg_layer_{n - 2}", "kernel")
-    m[f"decoder.seg_layers.{n - 2}.bias"] = (
-        "decoder", f"seg_layer_{n - 2}", "bias")
+        if deep_supervision or s == n - 2:
+            m[f"decoder.seg_layers.{s}.weight"] = (
+                "decoder", f"seg_layer_{s}", "kernel")
+            m[f"decoder.seg_layers.{s}.bias"] = (
+                "decoder", f"seg_layer_{s}", "bias")
     m["sr_head.0.weight"] = ("sr_head_conv1", "kernel")
     m["sr_head.0.bias"] = ("sr_head_conv1", "bias")
     m["sr_head.2.weight"] = ("sr_head_conv2", "kernel")
@@ -83,12 +86,13 @@ def _get(tree, path):
     return tree
 
 
-def state_dict_from_flax(params, arch: dict) -> dict:
+def state_dict_from_flax(params, arch: dict,
+                         deep_supervision: bool = False) -> dict:
     """Flax SegModel params -> the port SegModel's state dict (CPU fp32
     tensors, torch layouts)."""
     tree = _tree(params)
     sd = {}
-    for key, path in segmodel_mapping(arch).items():
+    for key, path in segmodel_mapping(arch, deep_supervision).items():
         a = np.asarray(_get(tree, path), dtype=np.float32)
         if a.ndim == 5:
             a = np.transpose(a, _TO_TORCH)
@@ -98,8 +102,9 @@ def state_dict_from_flax(params, arch: dict) -> dict:
 
 def load_flax_params(model, params) -> None:
     """Copy flax params into ``model`` (strict: every key must land)."""
-    model.load_state_dict(state_dict_from_flax(params, model.arch),
-                          strict=True)
+    model.load_state_dict(state_dict_from_flax(
+        params, model.arch, getattr(model, "deep_supervision", False)),
+        strict=True)
 
 
 def flax_tree_from_module(model) -> dict:
@@ -109,7 +114,9 @@ def flax_tree_from_module(model) -> dict:
     consumes."""
     sd = dict(model.named_parameters())
     out: dict = {}
-    for key, path in segmodel_mapping(model.arch).items():
+    mapping = segmodel_mapping(model.arch,
+                               getattr(model, "deep_supervision", False))
+    for key, path in mapping.items():
         t = sd[key]
         if t.ndim == 5:
             t = t.permute(_TO_FLAX)
@@ -130,7 +137,8 @@ def tree_to_torch(params, device=None, dtype=None):
 
 
 def flax_param_shapes(arch: dict, num_classes: int = 2,
-                      input_channels: int = 1) -> dict:
+                      input_channels: int = 1,
+                      deep_supervision: bool = False) -> dict:
     """The shapes of the flax SegModel param tree ``{"params": ...}`` for
     ``arch`` (what ``rehrseg_tpu.models.SegModel(...).init`` builds)."""
     n = arch["n_stages"]
@@ -165,8 +173,9 @@ def flax_param_shapes(arch: dict, num_classes: int = 2,
             f"conv_{i}": block(2 * cout if i == 0 else cout, cout,
                                arch["kernel_sizes"][n - 2 - s])
             for i in range(arch["n_conv_per_stage_decoder"][s])}
-    dec[f"seg_layer_{n - 2}"] = {"kernel": (1, 1, 1, feats[0], num_classes),
-                                 "bias": (num_classes,)}
+        if deep_supervision or s == n - 2:
+            dec[f"seg_layer_{s}"] = {"kernel": (1, 1, 1, cout, num_classes),
+                                     "bias": (num_classes,)}
     return {"params": {
         "encoder": enc, "decoder": dec,
         "sr_head_conv1": {"kernel": (3, 3, 3, feats[0], 16), "bias": (16,)},
@@ -175,7 +184,8 @@ def flax_param_shapes(arch: dict, num_classes: int = 2,
 
 
 def random_flax_params(arch: dict, seed: int, num_classes: int = 2,
-                       input_channels: int = 1) -> dict:
+                       input_channels: int = 1,
+                       deep_supervision: bool = False) -> dict:
     """A flax-layout SegModel param tree of numpy fp32 arrays made from
     ``seed``: kernels normal with std 1/sqrt(fan_in), biases and norm
     shifts small normal, norm scales near 1."""
@@ -193,7 +203,8 @@ def random_flax_params(arch: dict, seed: int, num_classes: int = 2,
             return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
         return (0.1 * rng.standard_normal(shape)).astype(np.float32)
 
-    return fill(flax_param_shapes(arch, num_classes, input_channels), "")
+    return fill(flax_param_shapes(arch, num_classes, input_channels,
+                                  deep_supervision), "")
 
 
 # ------------------------------------------------------------------ FLAVR
@@ -406,3 +417,26 @@ def _fill(shapes: dict, rng) -> dict:
         return out
 
     return fill(shapes)
+
+
+# -------------------------------------------------------------- Distiller
+
+def distiller_param_shapes(student_dim: int = 64,
+                           teacher_dim: int = 64) -> dict:
+    """The shapes of the flax Distiller param tree ``{"params": ...}``."""
+    return {"params": {"distill": {
+        "kernel": (1, 1, 1, student_dim, teacher_dim),
+        "bias": (teacher_dim,)}}}
+
+
+def random_distiller_params(seed: int, **kw) -> dict:
+    """A flax-layout Distiller param tree of numpy fp32 arrays made from
+    ``seed``; ``kw`` as :func:`distiller_param_shapes`."""
+    return _fill(distiller_param_shapes(**kw), np.random.default_rng(seed))
+
+
+def load_flax_distiller_params(model, params) -> None:
+    """Copy flax Distiller params into the port's ``Distiller`` (strict)."""
+    model.load_state_dict(_state_dict(_tree(params), {
+        "distill.weight": ("distill", "kernel"),
+        "distill.bias": ("distill", "bias")}), strict=True)

@@ -104,15 +104,19 @@ class PlainConvEncoder(nn.Module):
 
 class UNetDecoder(nn.Module):
     """Decoder exposing last-stage features (reference MyUnetDecoder,
-    seg_model.py:14-58). Only the last stage's seg layer exists (no deep
-    supervision on the serving path), under its stage index."""
+    seg_model.py:14-58). Without deep supervision only the last stage's
+    seg layer exists, under its stage index; with it, every stage has one
+    (``seg_layers.{s}``) and forward returns their logits highest
+    resolution first."""
 
-    def __init__(self, arch: dict, num_classes: int):
+    def __init__(self, arch: dict, num_classes: int,
+                 deep_supervision: bool = False):
         super().__init__()
         a = arch
         n = a["n_stages"]
         feats = a["features_per_stage"]
         self.n_stages = n
+        self.deep_supervision = deep_supervision
         self.transpconvs = nn.ModuleList()
         self.stages = nn.ModuleList()
         for s in range(n - 1):
@@ -123,34 +127,45 @@ class UNetDecoder(nn.Module):
             self.stages.append(StackedConvs(
                 2 * out_ch, out_ch, a["kernel_sizes"][n - 2 - s],
                 a["n_conv_per_stage_decoder"][s], **_block_kw(a)))
+        heads = range(n - 1) if deep_supervision else (n - 2,)
         self.seg_layers = nn.ModuleDict(
-            {str(n - 2): nn.Conv3d(feats[0], num_classes, 1, bias=True)})
+            {str(s): nn.Conv3d(feats[n - 2 - s], num_classes, 1, bias=True)
+             for s in heads})
 
     def forward(self, skips):
         n = self.n_stages
         lres = skips[-1]
+        seg_outputs = []
         for s in range(n - 1):
             x = self.transpconvs[s](lres)
             x = torch.cat([x, skips[n - 2 - s]], dim=1)
             lres = self.stages[s](x)
-        return self.seg_layers[str(n - 2)](lres), lres
+            if str(s) in self.seg_layers:
+                seg_outputs.append(self.seg_layers[str(s)](lres))
+        seg_outputs = seg_outputs[::-1]
+        return (seg_outputs if self.deep_supervision else seg_outputs[0],
+                lres)
 
 
 class SegModel(nn.Module):
     """Full LR-seg + HR-SR-seg model (reference seg_model.py:153-210).
 
     forward(x (B, D, H, W, input_channels)) -> (lr_logits, hr_logits[,
-    skips]), channels-last, hr_logits upsampled x``upscale`` along D."""
+    skips]), channels-last, hr_logits upsampled x``upscale`` along D. With
+    ``deep_supervision`` lr_logits is the list of every decoder stage's
+    logits, highest resolution first."""
 
     def __init__(self, num_classes: int = 2, upscale: int = 4,
-                 input_channels: int = 1, arch: dict | None = None):
+                 input_channels: int = 1, arch: dict | None = None,
+                 deep_supervision: bool = False):
         super().__init__()
         self.arch = dict(DEFAULT_ARCH if arch is None else arch)
         self.num_classes = num_classes
         self.upscale = upscale
         self.input_channels = input_channels
+        self.deep_supervision = deep_supervision
         self.encoder = PlainConvEncoder(self.arch, input_channels)
-        self.decoder = UNetDecoder(self.arch, num_classes)
+        self.decoder = UNetDecoder(self.arch, num_classes, deep_supervision)
         c0 = self.arch["features_per_stage"][0]
         self.sr_head = nn.Sequential(
             nn.Conv3d(c0, 16, 3, padding=1, bias=True), nn.ReLU(),
@@ -165,9 +180,10 @@ class SegModel(nn.Module):
         up = upsample_axis_linear(features, self.upscale, axis=2,
                                   align_corners=True)
         out_up = self.sr_head(up)
+        out = [cl(o) for o in out] if self.deep_supervision else cl(out)
         if return_intermediate_feature:
-            return cl(out), cl(out_up), [cl(s) for s in skips]
-        return cl(out), cl(out_up)
+            return out, cl(out_up), [cl(s) for s in skips]
+        return out, cl(out_up)
 
 
 def arch_from_plans(plans: dict, configuration: str = "3d_fullres") -> tuple[dict, list]:

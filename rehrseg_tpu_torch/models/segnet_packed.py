@@ -28,14 +28,20 @@ statistics or one masked reduction of a cuDNN output), the consuming K6b
 loads its input, and the aligned output finalizes in one pass from that
 kernel's statistics.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP entry):
-``remat`` and ``return_skips`` (training, ROADMAP queue 1 item 8).
+Training runs it with ``pallas_conv=False`` through autograd (the kernels
+have no backward; their wrappers refuse inputs that require grad):
+``return_skips`` hands back the unpacked encoder skips (the distillation
+student), and ``remat`` checkpoints stages with
+``torch.utils.checkpoint`` (False, "hires" or True).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import pconv
 from ..ops.bspline import upsample_axis_linear
@@ -383,6 +389,21 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _ckpt(remat, kind: str, idx: int, n: int):
+    """The checkpoint wrapper of one stage (JAX's ``_ckpt``): True
+    checkpoints every stage and the SR head, "hires" the full- and
+    half-resolution ones (encoder stages <= 1, decoder stages >= n - 3,
+    the SR head), False none."""
+    if remat == "hires":
+        use = (idx <= 1 if kind == "enc" else
+               idx >= n - 3 if kind == "dec" else True)
+    else:
+        use = bool(remat)
+    if not use:
+        return lambda f: f
+    return lambda f: functools.partial(checkpoint, f, use_reentrant=False)
+
+
 def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
                           upscale: int = 4, pack_max_channels: int = 128,
                           dual: bool = False, return_skips: bool = False,
@@ -392,20 +413,23 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
     """Forward identical to SegModel's with packed high-res stages.
 
     params: flax-layout tree ``{"params": ...}`` of tensors; x (B, D, H, W,
-    C) channels-last. Returns lr_logits, or (lr_logits, hr_logits) when
-    ``dual``. plane_out: logits as per-class planes (B, C, D, H, W), the
-    layout K2 consumes. pallas_conv: False (plain convs), "cat" (K1 at
-    the decoder skip concat), True (every covered stride-1 packed conv
-    through K1/K3/K4/K5) or "fused" ("cat" plus the deferred instance norm
-    through K6a/K6b/K6c). sr_head_form: "auto" (fused upsample/conv1 +
-    z-paired stride-2 conv2), "cell4" or "legacy" (explicit z-upsample).
-    Input and params are promoted to a common dtype first."""
+    C) channels-last. Returns lr_logits, (lr_logits, hr_logits) when
+    ``dual``, or (lr_logits, hr_logits, skips) when ``return_skips`` (the
+    distillation student's interface; skips unpacked, channels-last).
+    plane_out: logits as per-class planes (B, C, D, H, W), the layout K2
+    consumes. pallas_conv: False (plain convs), "cat" (K1 at the decoder
+    skip concat), True (every covered stride-1 packed conv through
+    K1/K3/K4/K5) or "fused" ("cat" plus the deferred instance norm through
+    K6a/K6b/K6c). sr_head_form: "auto" (fused upsample/conv1 + z-paired
+    stride-2 conv2), "cell4" or "legacy" (explicit z-upsample). remat:
+    False, "hires" or True (see :func:`_ckpt`); the same math, recomputed
+    in backward. Input and params are promoted to a common dtype first,
+    differentiably, so gradients reach a module's parameters through
+    ``convert.flax_tree_from_module``."""
     if pallas_conv not in (False, "cat", True, "fused"):
         raise ValueError(f"unknown pallas_conv {pallas_conv!r}")
-    if remat or return_skips:
-        raise NotImplementedError(
-            "remat and return_skips serve training, still to be ported "
-            "(ROADMAP queue 1, item 8)")
+    if remat not in (False, "hires", True):
+        raise ValueError(f"unknown remat {remat!r}")
     if sr_head_form not in ("auto", "cell4", "legacy"):
         raise ValueError(f"unknown sr_head_form {sr_head_form!r}")
     a = dict(arch)
@@ -420,21 +444,33 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
     p = _map(p, lambda t: t.to(common))
     penc, pdec = p["encoder"], p["decoder"]
 
+    # A stage's layout decisions derive from shapes; each stage function
+    # reports its final one here (strings and ints only, so a recompute in
+    # backward rewrites the same values and no tensor outlives the stage).
+    out = {}
+
     # ---------------- encoder: each stage ends ALIGNED (or unpacked)
     cur, layout, cur_tw = x, "u", None
     skips = []  # (tensor, layout, true offset width or None)
     for s in range(n):
-        sp = penc[f"stage_{s}"]
-        for i in range(a["n_conv_per_stage"][s]):
-            st = strides[s] if i == 0 else (1, 1, 1)
-            remaining = a["n_conv_per_stage"][s] - i
-            want = ("o" if remaining >= 2 else "a") if layout == "u" else "a"
-            cur, layout, cur_tw = _conv_norm_act(
-                cur, layout, sp[f"conv_{i}"], kernels[s], st, feats[s], a,
-                pack_max_channels=pack_max_channels, want_out=want,
-                tw=cur_tw, pallas=pallas_conv)
-        if isinstance(cur, _Deferred):      # a stage ends finalized
-            cur = cur.materialize()
+        def enc_stage(cur_in, sp, *, _s=s, _in=layout, _tw=cur_tw):
+            y, lay, tw = cur_in, _in, _tw
+            n_convs = a["n_conv_per_stage"][_s]
+            for i in range(n_convs):
+                st = strides[_s] if i == 0 else (1, 1, 1)
+                want = (("o" if n_convs - i >= 2 else "a") if lay == "u"
+                        else "a")
+                y, lay, tw = _conv_norm_act(
+                    y, lay, sp[f"conv_{i}"], kernels[_s], st, feats[_s], a,
+                    pack_max_channels=pack_max_channels, want_out=want,
+                    tw=tw, pallas=pallas_conv)
+            if isinstance(y, _Deferred):      # a stage ends finalized
+                y = y.materialize()
+            out["layout"], out["tw"] = lay, tw
+            return y
+
+        cur = _ckpt(remat, "enc", s, n)(enc_stage)(cur, penc[f"stage_{s}"])
+        layout, cur_tw = out["layout"], out["tw"]
         skips.append((cur, layout, cur_tw))
 
     # ---------------- decoder
@@ -445,8 +481,6 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
         ridx = n - 2 - s
         stride = strides[n - 1 - s]
         out_ch = feats[ridx]
-        tp, sp = pdec[f"transpconv_{s}"], pdec[f"stage_{s}"]
-        wt, bt = tp["kernel"], tp.get("bias")
         skip, skip_layout, skip_tw = skips[ridx]
 
         h_t, w_t = _true_hw(skip, skip_layout, skip_tw)
@@ -454,40 +488,45 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
                                pack_max_channels)
                      and stride[1] == 2 and stride[2] == 2
                      and skip_layout in ("a", "u"))
-
         lres = _unpack(lres, lres_layout, lres_tw)
-        tw = None
-        if pack_here:
-            up = pointwise_packed_transpconv(
-                lres, pack_transpconv_weights(wt),
-                pack_bias(bt) if bt is not None else None)   # ALIGNED
-            skip_p = (skip if skip_layout == "a"
-                      else space_to_depth_hw(skip))
-            # conv_0 receives the PAIR: K1 fuses the concat, or
-            # _conv_norm_act concatenates
-            y = (up, skip_p)
-            lay = "a"
-            skip_ch = (skip.shape[-1] // 4 if skip_layout == "a"
-                       else skip.shape[-1])
-            splits = [out_ch, skip_ch]
-            for i in range(a["n_conv_per_stage_decoder"][s]):
+
+        def dec_stage(lres_in, skip_in, tp, sp, *, _s=s, _ridx=ridx,
+                      _pack=pack_here, _skip_layout=skip_layout,
+                      _skip_tw=skip_tw, _out_ch=out_ch, _stride=stride):
+            wt, bt = tp["kernel"], tp.get("bias")
+            tw = None
+            if _pack:
+                up = pointwise_packed_transpconv(
+                    lres_in, pack_transpconv_weights(wt),
+                    pack_bias(bt) if bt is not None else None)   # ALIGNED
+                skip_p = (skip_in if _skip_layout == "a"
+                          else space_to_depth_hw(skip_in))
+                # conv_0 receives the PAIR: K1 fuses the concat, or
+                # _conv_norm_act concatenates
+                y = (up, skip_p)
+                lay = "a"
+                skip_ch = (skip_in.shape[-1] // 4 if _skip_layout == "a"
+                           else skip_in.shape[-1])
+                splits = [_out_ch, skip_ch]
+            else:
+                up = _transpconv_std(lres_in, wt, bt, _stride)
+                y = torch.cat([up, _unpack(skip_in, _skip_layout, _skip_tw)],
+                              dim=-1)
+                lay, splits = "u", None
+            for i in range(a["n_conv_per_stage_decoder"][_s]):
                 y, lay, tw = _conv_norm_act(
-                    y, lay, sp[f"conv_{i}"], kernels[ridx], (1, 1, 1),
-                    out_ch, a, pack_max_channels=pack_max_channels,
+                    y, lay, sp[f"conv_{i}"], kernels[_ridx], (1, 1, 1),
+                    _out_ch, a, pack_max_channels=pack_max_channels,
                     in_splits=splits if i == 0 else None, want_out="a",
                     tw=tw, pallas=pallas_conv)
-        else:
-            up = _transpconv_std(lres, wt, bt, stride)
-            y = torch.cat([up, _unpack(skip, skip_layout, skip_tw)], dim=-1)
-            lay = "u"
-            for i in range(a["n_conv_per_stage_decoder"][s]):
-                y, lay, tw = _conv_norm_act(
-                    y, lay, sp[f"conv_{i}"], kernels[ridx], (1, 1, 1),
-                    out_ch, a, pack_max_channels=pack_max_channels,
-                    want_out="a", tw=tw, pallas=pallas_conv)
-        if isinstance(y, _Deferred):        # a stage ends finalized
-            y = y.materialize()
-        cur, layout, cur_tw = y, lay, tw
+            if isinstance(y, _Deferred):        # a stage ends finalized
+                y = y.materialize()
+            out["layout"], out["tw"] = lay, tw
+            return y
+
+        cur = _ckpt(remat, "dec", s, n)(dec_stage)(
+            lres, skip, pdec[f"transpconv_{s}"], pdec[f"stage_{s}"])
+        layout, cur_tw = out["layout"], out["tw"]
 
         if s == n - 2:
             wseg = pdec[f"seg_layer_{s}"]["kernel"]
@@ -514,17 +553,22 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
             features, features_layout, features_tw = cur, layout, cur_tw
         lres, lres_layout, lres_tw = cur, layout, cur_tw
 
-    if not dual:
+    if not dual and not return_skips:
         return seg_logits
 
     w1, b1 = p["sr_head_conv1"]["kernel"], p["sr_head_conv1"]["bias"]
     w2, b2 = p["sr_head_conv2"]["kernel"], p["sr_head_conv2"]["bias"]
-    hr = _sr_head(features, features_layout, features_tw, w1, b1, w2, b2,
-                  upscale, plane_out, sr_head_form)
+    head = functools.partial(_sr_head, layout=features_layout,
+                             tw=features_tw, upscale=upscale,
+                             plane_out=plane_out, sr_head_form=sr_head_form)
+    hr = _ckpt(remat, "head", 0, n)(head)(features, w1=w1, b1=b1, w2=w2,
+                                          b2=b2)
+    if return_skips:
+        return seg_logits, hr, [_unpack(t, l, tw) for t, l, tw in skips]
     return seg_logits, hr
 
 
-def _sr_head(feats_in, layout, tw, w1, b1, w2, b2, upscale, plane_out,
+def _sr_head(feats_in, *, layout, tw, w1, b1, w2, b2, upscale, plane_out,
              sr_head_form):
     if layout == "a":
         # SR head fully packed (D-upsampling commutes with in-plane packing)

@@ -29,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .pconv import _INT, _PTR, _bias, _check, _entry, _stream, _suffix
+from .pconv import (_INT, _PTR, _bias, _check, _entry, _stream, _suffix,
+                    refuse_grad)
 
 
 def conv2x2_valid_bias_plain(x, w, b):
@@ -42,6 +43,7 @@ def conv2x2_valid_bias(x, w, b=None):
     """(N, h+1, w+1, Ci) offset-packed x, (2, 2, Ci, Co) packed weights ->
     (N, h, w, Co), VALID, + bias. None when Ci % 128 or Co % 128 is
     nonzero."""
+    refuse_grad("conv2x2_valid_bias", x, w, b)
     n, hp, wp, c_in = x.shape
     c_out = w.shape[-1]
     if c_in % 128 or c_out % 128:

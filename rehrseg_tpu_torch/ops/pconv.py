@@ -67,6 +67,11 @@ tensors a wrapper runs its plain version; on CUDA tensors it launches its
 kernel, on the tensors' device, or raises. Each carries a ``.launches``
 count of its plain form's launches; K1, K3 and K5 also carry
 ``.fused_launches``, the launches of their K6 form.
+
+The kernels have no backward (nor do the Pallas kernels in JAX): a wrapper
+called in grad mode with an input that requires grad raises
+(:func:`refuse_grad`) rather than return a tensor cut from the graph, on
+either device. Training runs the packed forward with ``pallas_conv=False``.
 """
 
 from __future__ import annotations
@@ -166,6 +171,18 @@ def pconv3_valid_plain(x, w, b, w_out, pre=None, want_stats=False):
 
 
 # ------------------------------------------------------------ launches
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through a kernel that has
+    none: grad mode on and an input that requires grad."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward; call it under "
+            f"torch.no_grad() or on inputs that do not require grad (the "
+            f"packed forward trains with pallas_conv=False)")
+
 
 def _check(what: str, *named):
     dev = named[0][1].device
@@ -407,6 +424,7 @@ def pconv_pad11_cat(xa, xb, w, b=None, *, want_stats=False):
     want_stats (K6a, the fused producer): the output also gets the full
     offset rim mask of true width w+1, and the call returns (y, stats)
     with stats (N, 16, Co) fp32 partials of the stored value."""
+    refuse_grad("pconv_pad11_cat", xa, xb, w, b)
     n, h, w_in, ca = xa.shape
     cb = xb.shape[-1]
     c_out = w.shape[-1]
@@ -428,6 +446,7 @@ def pconv_pad11(x, w, b=None):
     wp8, Co), wp8 = round_up(w+1, 8), columns > w exact zeros (the caller's
     rim mask zeroes the usual parity rim). None when w % 8, Ci % 128 or
     Co % 128 is nonzero."""
+    refuse_grad("pconv_pad11", x, w, b)
     n, h, w_in, c_in = x.shape
     c_out = w.shape[-1]
     if w_in % 8 or c_in % 128 or c_out % 128:
@@ -458,6 +477,7 @@ def pconv_valid(x, w, b=None, *, w_out=None, pre=None, want_stats=False,
     (one dot per kernel row over [W[s, 0] | W[s, 1]]); the same function,
     so the port computes it as the plain form does."""
     del wide
+    refuse_grad("pconv_valid", x, w, b, *(pre or ())[:2])
     n, hp, wp8, c_in = x.shape
     c_out = w.shape[-1]
     if w_out is None:
@@ -481,6 +501,7 @@ def pconv3_valid(x, w, b=None, *, w_out=None, pre=None, want_stats=False):
     pre=(sa, ta, slope) with sa, ta (B, 8, Ci) per batch element and
     want_stats (K6c): the deferred-norm contract of the module docstring;
     stats come back per (b, z) image, (B*D, 16, Co)."""
+    refuse_grad("pconv3_valid", x, w, b, *(pre or ())[:2])
     n_b, n_z, hp, wp8, c_in = x.shape
     c_out = w.shape[-1]
     if w_out is None:

@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from .. import kernels
+from .pconv import refuse_grad
 
 
 def zgrouped_combos():
@@ -122,7 +123,9 @@ def accumulate_tta_tile(logits, preds, gaussian, offsets, *, z_scale=1):
     logits (C, D, H, W) fp32; preds (8, C, od, ph, pw); gaussian
     (od, ph, pw); offsets (sx, sy, sz, valid) ints, sx on the LR z grid.
     Returns ``logits``. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel or raise; inputs that require grad in grad mode
+    raise (the kernel has no backward)."""
+    refuse_grad("accumulate_tta_tile", logits, preds, gaussian)
     if logits.device.type == "cpu":
         return accumulate_tta_tile_plain(logits, preds, gaussian, offsets,
                                          z_scale)

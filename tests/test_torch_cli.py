@@ -180,17 +180,31 @@ def test_cli_refusals(served, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-def _run_blocked(args):
-    """``python -m rehrseg_tpu_torch.serve ARGS`` in a process where yaml,
-    orbax, h5py, flax and jax cannot be imported."""
-    code = ("import runpy, sys\n"
-            "for m in ('yaml', 'orbax', 'jax', 'flax', 'h5py',"
-            " 'rehrseg_tpu'):\n"
-            "    sys.modules[m] = None\n"
-            "sys.argv = ['serve'] + sys.argv[1:]\n"
-            "runpy.run_module('rehrseg_tpu_torch.serve', run_name='__main__')\n")
+_BLOCK = ("import runpy, sys\n"
+          "for m in ('yaml', 'orbax', 'jax', 'flax', 'h5py', 'optax',"
+          " 'rehrseg_tpu'):\n"
+          "    sys.modules[m] = None\n")
+
+# the stage-2 training modules
+TRAINING_MODULES = (
+    "losses", "pipeline", "data.datasets", "data.device_aug",
+    "data.transforms", "data.normalize", "models.distiller", "ops.warp",
+    "train.seg_trainer", "train.optim", "train.state", "train.precision",
+    "train.torch_import", "utils.metrics", "utils.timer",
+    "utils.preemption", "io.volume")
+
+
+def _run_blocked(args, code=None):
+    """``python -m rehrseg_tpu_torch.serve ARGS`` (or ``code``) in a
+    process where yaml, orbax, h5py, optax, flax and jax cannot be
+    imported."""
+    if code is None:
+        code = ("sys.argv = ['serve'] + sys.argv[1:]\n"
+                "runpy.run_module('rehrseg_tpu_torch.serve', "
+                "run_name='__main__')\n")
+        args = [*args, "--device", "cpu"]
     r = subprocess.run(
-        [sys.executable, "-c", code, *args, "--device", "cpu"],
+        [sys.executable, "-c", _BLOCK + code, *args],
         cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO),
                            OMP_NUM_THREADS="2"),
         capture_output=True, text=True, timeout=300)
@@ -199,8 +213,11 @@ def _run_blocked(args):
 
 def test_cli_runs_without_pyyaml_orbax_or_jax(served, served_sr, tmp_path):
     """The CLI in seg mode and in --mode sr (UASR), with the JSON
-    configs, where pyyaml, orbax, h5py, flax and jax cannot be
-    imported."""
+    configs, where pyyaml, orbax, h5py, optax, flax and jax cannot be
+    imported; the stage-2 training modules import there too."""
+    _run_blocked([], code="import importlib\n" + "".join(
+        f"importlib.import_module('rehrseg_tpu_torch.{m}')\n"
+        for m in TRAINING_MODULES))
     out = tmp_path / "seg.nii.gz"
     _run_blocked([served["inputs"][1], "--out", str(out), "--ckpt",
                   served["port_ckpt"], "--config", served["json"], "--step",

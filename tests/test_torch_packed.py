@@ -315,6 +315,18 @@ def test_mixed_dtypes_promote():
 @pytest.mark.parametrize("kw", [dict(remat=True), dict(return_skips=True)],
                          ids=["remat", "skips"])
 def test_unported_options_raise(kw):
+    """remat and return_skips, which raised NotImplementedError until the
+    training slice, now run: the outputs (and the unpacked skips) equal
+    JAX's packed forward under the same option."""
     params, x = _setup(ARCH_SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(ARCH_SMALL, params, x, **kw)
+    kw = dict(kw, dual=True, pack_max_channels=64)
+    got = _port(ARCH_SMALL, params, x, **kw)
+    want = jax.jit(lambda p, v: jax_packed(ARCH_SMALL, p, v, **kw))(
+        params, jnp.asarray(x))
+    assert len(got) == len(want)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    if kw.get("return_skips"):
+        assert len(got[2]) == len(want[2]) == ARCH_SMALL["n_stages"]
+        for g, w in zip(got[2], want[2]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)

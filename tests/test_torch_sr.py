@@ -425,9 +425,17 @@ def test_orientation_helpers_match_jax(lr_axis):
                                   jvolume.z_axis_to_lr_axis(a, lr_axis))
 
 
-def test_h5_volume_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tvolume.load_volume(str(tmp_path / "x.h5"), 4.0, 1.0)
+def test_h5_volume_is_refused(tmp_path, monkeypatch):
+    """An HDF5 volume is refused only where h5py is missing (an ImportError
+    naming it); with h5py a store the JAX package wrote loads."""
+    path = str(tmp_path / "x.h5")
+    jvolume.write_h5(path, img=np.arange(6, dtype=np.float32))
+    vol = tvolume.load_volume(path, 4.0, 1.0)
+    np.testing.assert_array_equal(vol.data["img"][:], np.arange(6))
+    assert (vol.slice_separation, vol.lr_axis) == (4.0, None)
+    monkeypatch.setitem(__import__("sys").modules, "h5py", None)
+    with pytest.raises(ImportError, match="h5py"):
+        tvolume.load_volume(path, 4.0, 1.0)
 
 
 def test_write_sr_niftis_read_by_jax(tmp_path):
