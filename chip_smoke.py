@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving and training paths (stages 1 and 2)
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -124,6 +124,28 @@ and nothing of the JAX package. Phases, each printing one JSON line:
            a second, each validation's dice and seconds, the checkpoint
            files, K1's fp32 launches in the validations (asserted: one per
            validation tile; no other kernel runs);
+  sr_train_step  the stage-1 SR train steps at configs/brain.yaml's
+           geometry (batch 32, bf16 over fp32 master weights,
+           onecycle_adam(5e-4, 260000)): WDSR (16 blocks, 32 channels, LR
+           96 x 96), FLAVR UNet3D(2, 4, 4) plain and with the UASR head (LR
+           (4, 96, 96)): ms per step over a chain of 8 steps after 2
+           warm-ups with one sync, peak memory, the share of the bound (3x
+           the forward's conv operations over 989 TFLOP/s), the hours
+           260,000 steps take at that rate (derived); parameters finite;
+           the fp32 step (TF32 off) against the fp64 step (loss 1e-4
+           relative, whole gradient 2e-3 by norm) and bf16 against fp32
+           (5e-2);
+  stage1   pipeline.stage1b_flavr and stage1c_uncertainty through
+           ``dataset=``: two merged NIfTI subjects (4 mm slices of a smooth
+           1 mm phantom, the PSNR reference), their pseudo-HR arrays made
+           with the port's postprocess_sr_volume, device_lr_sim and
+           device_augment_sr; the device sampler's batches bit-equal to the
+           host BatchLoader's, 6 steps of 1b (a save every 2), 4 of 1c, a
+           rerun that trains and writes nothing, then the warm 6-step loop
+           through the sampler and the host loader in turns: seconds a
+           stage, steps a second with and without the saves, inference
+           seconds a subject, the logged PSNR, the SR NIfTIs' shapes
+           (finite); no hand kernel launches;
   kernels  every ported kernel with launches, error, times and bound.
 
 Then the card's name and power limit, and last the result line
@@ -1283,23 +1305,34 @@ def conv_macs(model_factory, x_shape, by_module: bool = False):
         model = model_factory()
     total = {}
 
+    from rehrseg_tpu_torch.models.layers import WNConv
+
+    def geometry(mod):
+        """(kernel, stride, padding, in, out, groups) of a conv module;
+        WDSR's weight-normed conv is stride 1, SAME."""
+        if isinstance(mod, WNConv):
+            co, ci, kh, kw = mod.weight_v.shape
+            return (kh, kw), (1, 1), (mod.padding,) * 2, ci, co, 1
+        return (mod.kernel_size, mod.stride, mod.padding, mod.in_channels,
+                mod.out_channels, mod.groups)
+
     def hook(name):
         def count(mod, inputs, output):
             xin = inputs[0]
             nsp = xin.ndim - 2
             tr = isinstance(mod, nn.ConvTranspose3d)
+            k, st, pad, ci, co, groups = geometry(mod)
             pairs = 1
             for i in range(nsp):
                 pairs *= _tap_pairs(xin.shape[2 + i], output.shape[2 + i],
-                                    mod.kernel_size[i], mod.stride[i],
-                                    mod.padding[i], tr)
+                                    k[i], st[i], pad[i], tr)
             total[name] = total.get(name, 0) + (
-                xin.shape[0] * pairs * mod.in_channels * mod.out_channels
-                // mod.groups)
+                xin.shape[0] * pairs * ci * co // groups)
         return count
 
     for name, mod in model.named_modules():
-        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d,
+                            WNConv)):
             mod.register_forward_hook(hook(name))
     with torch.no_grad():
         model(torch.empty(x_shape, device="meta"))
@@ -2031,6 +2064,418 @@ def phase_train_loop(dev, gpu, work: Path):
     return launches
 
 
+# stage 1 at configs/brain.yaml's geometry: patch_size 96, num_slices 4,
+# slice separation 4, batch_size_sr 32; 260,000 steps (n_patches 8,320,000
+# / 32)
+SR_BATCH = 32
+SR_PATCH = 96
+SR_STEPS = 260_000
+STAGE1_HR = (128, 128, 112)     # the stage1 phantom's (x, y, z) at 1 mm
+
+
+def _sr_models():
+    """(name, factory, LR batch shape, HR batch shape, uncertainty,
+    num_slices) of the three stage-1 trainings: WDSR (16 blocks, 32
+    channels, scale 4) on 96 x 96 in-plane patches, FLAVR UNet3D(2, 4, 4)
+    plain and with the UASR head on (4, 96, 96) windows."""
+    from rehrseg_tpu_torch.models.flavr import UNet3D
+    from rehrseg_tpu_torch.models.wdsr import WDSR
+
+    b, p = SR_BATCH, SR_PATCH
+    return (
+        ("wdsr", lambda: WDSR(2, 16, 32, 4.0), (b, p, p, 2),
+         (b, 4 * p, p, 2), False, 1),
+        ("flavr", lambda: UNet3D(2, 4, 4), (b, 4, p, p, 2),
+         (b, 16, p, p, 2), False, 4),
+        ("uasr", lambda: UNet3D(2, 4, 4, use_uncertainty=True),
+         (b, 4, p, p, 2), (b, 16, p, p, 2), True, 4))
+
+
+def _sr_params(name):
+    from rehrseg_tpu_torch.models import convert
+
+    if name == "wdsr":
+        return convert.random_wdsr_params(SEED + 40)
+    return convert.random_flavr_params(SEED + 41,
+                                       use_uncertainty=name == "uasr")
+
+
+def _sr_state(name, factory, params, dev, dtype=torch.float32):
+    """A fresh model of ``name`` from ``params`` on the card in ``dtype``,
+    with the stage-1 onecycle_adam(5e-4, 260000) state."""
+    from rehrseg_tpu_torch.models import convert
+    from rehrseg_tpu_torch.train import optim
+    from rehrseg_tpu_torch.train.state import TrainState
+
+    model = factory()
+    if name == "wdsr":
+        convert.load_flax_wdsr_params(model, params)
+    else:
+        convert.load_flax_flavr_params(model, params, name == "uasr")
+    model.to(dev, dtype)
+    return model, TrainState(model, *optim.onecycle_adam(model, 5e-4,
+                                                         SR_STEPS))
+
+
+def _sr_batch(lr_shape, hr_shape, dev, seed):
+    """A seeded SR batch on the card: images in [0, 1], labels in {0,
+    1}."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lr = torch.rand(lr_shape, generator=g, device=dev)
+    hr = torch.rand(hr_shape, generator=g, device=dev)
+    lr[..., 1] = (lr[..., 1] > 0.5).float()
+    hr[..., 1] = (hr[..., 1] > 0.5).float()
+    return lr, hr
+
+
+def phase_sr_train_step(dev, gpu):
+    """The stage-1 SR train steps at full width (configs/brain.yaml): WDSR,
+    FLAVR plain and FLAVR UASR at batch 32, bf16 over fp32 master weights,
+    onecycle_adam(5e-4, 260000): ms per step over a chain of 8 steps after
+    2 warm-ups with one sync at the end (CUDA events), peak memory, the
+    share of the bound (3x the forward's conv operations over 989 TFLOP/s)
+    and the hours 260,000 steps take at that rate; parameters finite after
+    the chain. Checks, from one state and batch: the fp32 step (TF32 off)
+    against the fp64 step (loss 1e-4 relative, whole gradient 2e-3 by
+    norm), the bf16 step against the fp32 step (loss and gradient 5e-2).
+    Returns the phase's record."""
+    from rehrseg_tpu_torch.train.sr_trainer import make_sr_train_step
+
+    rec = dict(card=gpu, batch=SR_BATCH, precision="bf16",
+               optimizer="onecycle_adam(5e-4, 260000)", chain=TRAIN_CHAIN,
+               steps_for_hours=SR_STEPS)
+    for i, (name, factory, lr_shape, hr_shape, unc, ns) in enumerate(
+            _sr_models()):
+        params = _sr_params(name)
+        lr, hr = _sr_batch(lr_shape, hr_shape, dev, SEED + 50 + i)
+        fwd_flop = 2 * conv_macs(factory, lr_shape)
+        b_ms = 3 * fwd_flop / BF16_FLOPS * 1e3
+
+        def step_of(model, precision):
+            return make_sr_train_step(model, enable_uncertainty=unc,
+                                      slice_separation=4, num_slices=ns,
+                                      precision=precision)
+
+        model, state = _sr_state(name, factory, params, dev)
+        step = step_of(model, "bf16")
+        for _ in range(2):
+            state, m = step(state, lr, hr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TRAIN_CHAIN):
+            state, m = step(state, lr, hr)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / TRAIN_CHAIN
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        loss = float(m["loss"])
+        if not np.isfinite(loss) or not all(
+                torch.isfinite(p).all() for p in model.parameters()):
+            raise AssertionError(f"sr_train_step {name}: loss {loss}, or "
+                                 f"parameters not finite after the chain")
+        del model, state, step
+        torch.cuda.empty_cache()
+
+        def one_step(dtype, precision):
+            """Loss and flat gradient (fp64, on the card) of one step of a
+            fresh model from ``params``."""
+            model, state = _sr_state(name, factory, params, dev, dtype)
+            _, m = step_of(model, precision)(state, lr.to(dtype),
+                                             hr.to(dtype))
+            g = torch.cat([p.grad.double().ravel()
+                           for p in model.parameters()])
+            out = float(m["loss"]), g
+            del model, state
+            torch.cuda.empty_cache()
+            return out
+
+        l64, g64 = one_step(torch.float64, None)
+        l32, g32 = one_step(torch.float32, None)
+        l16, g16 = one_step(torch.float32, "bf16")
+        err32 = (abs(l32 - l64) / abs(l64), _rel(g32, g64))
+        err16 = (abs(l16 - l32) / abs(l32), _rel(g16, g32))
+        if err32[0] > 1e-4 or err32[1] > 2e-3:
+            raise AssertionError(f"sr_train_step {name}: fp32 vs fp64 "
+                                 f"loss {err32[0]}, gradient {err32[1]}")
+        if err16[0] > 5e-2 or err16[1] > 5e-2:
+            raise AssertionError(f"sr_train_step {name}: bf16 vs fp32 "
+                                 f"loss {err16[0]}, gradient {err16[1]}")
+        del g64, g32, g16
+        torch.cuda.empty_cache()
+        rec[name] = dict(
+            lr_batch=list(lr_shape), hr_batch=list(hr_shape),
+            forward_tflop=fwd_flop / 1e12, train_tflop=3 * fwd_flop / 1e12,
+            ms_per_step=ms, peak_mem_gb=peak, bound_ms=b_ms,
+            bound_share=b_ms / ms,
+            hours_for_260000_steps_derived=ms * SR_STEPS / 3.6e6,
+            loss=loss,
+            fp32_vs_fp64=dict(loss_rel_err=err32[0],
+                              grad_rel_norm=err32[1],
+                              tolerance=dict(loss=1e-4, grad=2e-3)),
+            bf16_vs_fp32=dict(loss_rel_err=err16[0],
+                              grad_rel_norm=err16[1], tolerance=5e-2))
+        del lr, hr
+        torch.cuda.empty_cache()
+    emit({"phase": "sr_train_step", **rec})
+    return rec
+
+
+def _all_counts():
+    """Every hand kernel's launch count: the pconv forms, K7 and K2."""
+    from rehrseg_tpu_torch.ops.conv2x2 import conv2x2_valid_bias
+    from rehrseg_tpu_torch.ops.tail import accumulate_tta_tile
+
+    return {**_fused_counts(),
+            "conv2x2_valid_bias": conv2x2_valid_bias.launches,
+            "accumulate_tta_tile": accumulate_tta_tile.launches}
+
+
+def _mtimes(root: Path) -> dict:
+    return {str(p.relative_to(root)): p.stat().st_mtime_ns
+            for p in root.rglob("*") if p.is_file()}
+
+
+def _hr_phantom(rng, shape):
+    """A smooth HR (x, y, z) image in [0, 1] and its label (a ball of the
+    brighter half)."""
+    field = _smooth_field(rng, shape, (10.0, 10.0, 8.0))
+    field = (field - field.min()) / (field.max() - field.min())
+    x, y, z = np.meshgrid(*(np.arange(n) for n in shape), indexing="ij")
+    ball = sum(((a - n / 2) / (n / 2.6)) ** 2
+               for a, n in ((x, shape[0]), (y, shape[1]), (z, shape[2]))) < 1
+    return field.astype(np.float32), ((field > 0.5) & ball).astype(
+        np.float32)
+
+
+def phase_stage1(dev, gpu, work: Path):
+    """Stages 1b and 1c on the card through ``dataset=``: two merged
+    2-channel NIfTI subjects (LR 4 mm slices of a smooth HR phantom, whose
+    1 mm volume is the PSNR reference), their pseudo-HR arrays (the cubic
+    zoom and the port's postprocess_sr_volume) as
+    SRPatchDataset.from_volumes; configs/brain.yaml's geometry (patch 96,
+    4 slices, batch 32), bf16, device_lr_sim and device_augment_sr, so the
+    loop runs DeviceSRPatchSampler, simulate_lr_batch and
+    augment_sr_hr_batch. First the sampler's batches against the host
+    BatchLoader's, bit for bit; then stage1b_flavr (6 steps, a save every
+    2), stage1c_uncertainty (4 steps, warm-started from 1b) and a rerun of
+    both that must train and write nothing; the same 6 steps through the
+    host loader. Seconds a stage, the loop's steps a second (saves
+    included) with each loader, inference seconds a subject, the PSNR the
+    pipeline logged, the SR NIfTIs' shapes (finite). No hand kernel runs.
+    Returns the phase's record."""
+    import json
+
+    from rehrseg_tpu_torch import pipeline
+    from rehrseg_tpu_torch.config import Config
+    from rehrseg_tpu_torch.data.datasets import (BatchLoader,
+                                                 PrefetchLoader,
+                                                 SRPatchDataset)
+    from rehrseg_tpu_torch.data.device_sampler import DeviceSRPatchSampler
+    from rehrseg_tpu_torch.infer.sr_infer import (interpolate_pseudo_sr,
+                                                  postprocess_sr_volume)
+    from rehrseg_tpu_torch.io import nifti
+    from rehrseg_tpu_torch.io.volume import parse_image
+    from rehrseg_tpu_torch.train import optim
+    from rehrseg_tpu_torch.train.sr_trainer import make_sr_train_step
+    from rehrseg_tpu_torch.train.state import TrainState
+
+    root = work / "stage1"
+    for d in ("imagesTr", "labelsTr", "hr"):
+        (root / d).mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 60)
+    for s in ("s0", "s1"):
+        img, lab = _hr_phantom(rng, STAGE1_HR)
+        nifti.write_image_itk(
+            nifti.ItkLikeImage(img.transpose(2, 1, 0), (1.0, 1.0, 1.0)),
+            str(root / "hr" / f"{s}_0000.nii.gz"))
+        for d, a in (("imagesTr", img), ("labelsTr", lab)):
+            name = f"{s}_0000.nii.gz" if d == "imagesTr" else f"{s}.nii.gz"
+            nifti.write_image_itk(nifti.ItkLikeImage(
+                a[:, :, 1::4].transpose(2, 1, 0), (1.0, 1.0, 4.0)),
+                str(root / d / name))
+    cfg = Config(data_path=str(root / "imagesTr"),
+                 tmp_path=str(root / "tmp"),
+                 checkpoint_path=str(root / "ckpt"), batch_size_sr=SR_BATCH,
+                 patch_size=SR_PATCH, n_patches=6 * SR_BATCH, save_iters_sr=2,
+                 uncertainty_steps=4,
+                 extra={"device_lr_sim": True, "device_augment_sr": True,
+                        "hr_reference_path": str(root / "hr")})
+    pipeline.preprocess(cfg)
+    merged = pipeline.pipeline_paths(cfg)["merge_data"]
+    vols = []
+    for s in sorted(os.listdir(merged)):
+        image, _, _, fwhm, *_ = parse_image(os.path.join(merged, s),
+                                            cfg.slice_thickness,
+                                            cfg.target_thickness)
+        img, lab = interpolate_pseudo_sr(image[..., 0], image[..., 1],
+                                         cfg.slice_separation)
+        fx, fy = postprocess_sr_volume(img, fwhm, cfg.blur_kernel)
+        vols.append((img[..., None], (lab[..., None] > 0.5).astype(np.uint8),
+                     fx, fy))
+    patch = [cfg.num_slices * 4, cfg.patch_size, cfg.patch_size]
+
+    def dataset():
+        return SRPatchDataset.from_volumes(vols, cfg.slice_thickness,
+                                           cfg.target_thickness, patch,
+                                           cfg.random_flip,
+                                           device_lr_sim=True)
+
+    host, dev_sampler = (BatchLoader(dataset(), SR_BATCH, seed=5),
+                         DeviceSRPatchSampler(dataset(), SR_BATCH, seed=5,
+                                              device=dev))
+    for _ in range(3):
+        (lh, hh), (ld, hd) = host.next(), dev_sampler.next()
+        if not (torch.equal(ld.cpu(), torch.from_numpy(lh))
+                and torch.equal(hd.cpu(), torch.from_numpy(hh))):
+            raise AssertionError("stage1: the device sampler's batch "
+                                 "differs from the host loader's")
+    sampler_mb = dev_sampler.device_bytes / 1e6
+    dev_sampler.close()
+
+    loops, infers = [], []
+    train_loop, flavr_inference = (pipeline._train_sr_loop,
+                                   pipeline._flavr_inference)
+
+    saves = []
+    save = TrainState.save
+
+    def timed_save(self, *a, **k):
+        t0 = time.perf_counter()
+        out = save(self, *a, **k)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    def timed_loop(state, loader, *a, **k):
+        torch.cuda.synchronize()
+        t0, s0, n0 = time.perf_counter(), int(state.step), len(saves)
+        out = train_loop(state, loader, *a, **k)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        save_s = sum(saves[n0:])
+        loops.append(dict(loader=type(loader).__name__,
+                          steps=int(out.step) - s0, seconds=secs,
+                          saves=len(saves) - n0, save_seconds=save_s,
+                          steps_per_second=(int(out.step) - s0) / secs,
+                          steps_per_second_without_saves=(
+                              (int(out.step) - s0) / (secs - save_s))))
+        return out
+
+    def timed_inference(*a, **k):
+        t0 = time.perf_counter()
+        out = flavr_inference(*a, **k)
+        infers.append(time.perf_counter() - t0)
+        return out
+
+    pipeline._train_sr_loop = timed_loop
+    pipeline._flavr_inference = timed_inference
+    TrainState.save = timed_save
+    printed = io.StringIO()
+    _zero_counts()
+    secs = {}
+    try:
+        with contextlib.redirect_stdout(printed):
+            for key, fn in (("stage1b", pipeline.stage1b_flavr),
+                            ("stage1c", pipeline.stage1c_uncertainty)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, st = fn(cfg, dataset=dataset(), device=dev)
+                torch.cuda.synchronize()
+                secs[key] = time.perf_counter() - t0
+                secs[key + "_steps"] = int(st.step)
+            counts = _all_counts()
+            files = _mtimes(root)
+            n_loops, n_printed = len(loops), len(printed.getvalue())
+            t0 = time.perf_counter()
+            _, r1 = pipeline.stage1b_flavr(cfg, dataset=dataset(),
+                                           device=dev)
+            _, r2 = pipeline.stage1c_uncertainty(cfg, dataset=dataset(),
+                                                 device=dev)
+            secs["rerun"] = time.perf_counter() - t0
+            rerun_files = _mtimes(root)
+            rerun_printed = printed.getvalue()[n_printed:]
+            # warm, the same 6-step loop (a save every 2) from stage 1b's
+            # seeded weights through each loader in turns: sampler, host
+            # loader (one background thread), host loader, sampler
+            for i, kind in enumerate(("sampler", "host", "host",
+                                      "sampler")):
+                model = pipeline._make_flavr(cfg, False).to(dev)
+                st = TrainState(model, *optim.onecycle_adam(model,
+                                                            cfg.lr_sr, 6))
+                loader = (DeviceSRPatchSampler(dataset(), SR_BATCH,
+                                               device=dev)
+                          if kind == "sampler" else
+                          PrefetchLoader(BatchLoader(dataset(), SR_BATCH)))
+                pipeline._train_sr_loop(
+                    st, loader, make_sr_train_step(
+                        model, enable_uncertainty=False,
+                        slice_separation=4, num_slices=4,
+                        precision="bf16"),
+                    6, cfg.save_iters_sr, str(root / f"loop{i}"),
+                    device=dev, lr_sim_sep=4.0, hr_aug=True)
+                del model, st, loader
+                torch.cuda.empty_cache()
+    finally:
+        pipeline._train_sr_loop = train_loop
+        pipeline._flavr_inference = flavr_inference
+        TrainState.save = save
+    lines = printed.getvalue().splitlines()
+    if (secs["stage1b_steps"], secs["stage1c_steps"]) != (6, 4) or (
+            int(r1.step), int(r2.step)) != (6, 4):
+        raise AssertionError(f"stage1: steps {secs}, rerun {r1.step}, "
+                             f"{r2.step}")
+    if len(loops) != n_loops + 4 or rerun_files != files or \
+            "TRAINING" in rerun_printed:
+        raise AssertionError(f"stage1: the rerun trained or wrote: loops "
+                             f"{loops}, printed {rerun_printed}")
+    if any(counts.values()):
+        raise AssertionError(f"stage1: a hand kernel ran: {counts}")
+    out_dir = root / "tmp" / "flavr_output"
+    shapes = {}
+    for f in sorted(os.listdir(out_dir)):
+        a = nifti.read_image_itk(str(out_dir / f)).array
+        if not np.isfinite(a).all():
+            raise AssertionError(f"stage1: {f} is not finite")
+        shapes[f] = list(a.shape)
+    if len(shapes) != 6:
+        raise AssertionError(f"stage1: SR outputs {sorted(shapes)}")
+    log = [json.loads(ln) for ln in (root / "ckpt" / "flavr" /
+                                      "metrics.jsonl").read_text()
+           .splitlines()]
+    psnr = {r["subject"]: r["psnr"] for r in log if "psnr" in r}
+    losses = [r["loss"] for r in log if "loss" in r]
+    if len(psnr) != 2 or not all(np.isfinite(v) for v in psnr.values()) \
+            or not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"stage1: psnr {psnr}, losses {losses}")
+    warm = loops[n_loops:]
+    loop_rates = {
+        kind: dict(
+            steps_per_second=[lp["steps_per_second"] for lp in warm
+                              if lp["loader"] == name],
+            steps_per_second_without_saves=[
+                lp["steps_per_second_without_saves"] for lp in warm
+                if lp["loader"] == name])
+        for kind, name in (("sampler", "DeviceSRPatchSampler"),
+                           ("host_loader", "PrefetchLoader"))}
+    rec = dict(card=gpu, batch=SR_BATCH, patch_hr=patch,
+               volume_lr_xyz=[*STAGE1_HR[:2], STAGE1_HR[2] // 4],
+               subjects=2,
+               sampler_bit_equal_batches=3, sampler_device_mb=sampler_mb,
+               stage_seconds={k: v for k, v in secs.items()
+                              if not k.endswith("_steps")},
+               stage_loops=loops[:n_loops],
+               warm_loop_order="sampler, host, host, sampler",
+               warm_loops=loop_rates,
+               inference_seconds_per_subject=dict(
+                   stage1b=infers[0] / 2, stage1c=infers[1] / 2),
+               psnr_db=psnr, logged_losses=losses, sr_nifti_shapes=shapes,
+               printed=lines[-8:])
+    emit({"phase": "stage1", **rec})
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2099,6 +2544,10 @@ def main() -> int:
         phase_train_step(params, dev, gpu)
         torch.cuda.empty_cache()
         launches_train = phase_train_loop(dev, gpu, Path(work))
+        torch.cuda.empty_cache()
+        phase_sr_train_step(dev, gpu)
+        torch.cuda.empty_cache()
+        phase_stage1(dev, gpu, Path(work))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

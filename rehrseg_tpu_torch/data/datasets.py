@@ -1,17 +1,31 @@
-"""Host-side stage-2 dataset and batch loaders (``rehrseg_tpu.data.
-datasets``: ``SegSRDataset``, ``BatchLoader``, ``PrefetchLoader``).
+"""Host-side training datasets and batch loaders (``rehrseg_tpu.data.
+datasets``: ``SRPatchDataset``, ``SegSRDataset``, ``BatchLoader``,
+``PrefetchLoader``).
+
+``SRPatchDataset`` is the reference's TrainSetMultiple (train_set.py
+:225-434): per-subject HR volumes (image + label) and their slice-profile
+blurred copies along x and y; each sample picks the blur axis by a
+transpose coin flip, crops a patch, optionally runs the intensity-only
+nnUNet transforms, simulates LR by rational B-spline downsampling (order 3
+image, order 0 label; or leaves that to the device with
+``device_lr_sim``), zeroes the first / last context slice (p = 0.1 each),
+flips and swaps the in-plane axes. It serves WDSR (2D, thin-z patches) and
+FLAVR (3D).
 
 ``SegSRDataset`` is the reference's TrainSetMultipleSegSREfficient
 (train_set.py:22-159): pseudo-HR volumes (img / seg / uncertainty) from
 stage 1; a random crop of (ps_x+64, ps_y+64, ps_z*sep), flips, LR by
 strided slicing [::sep], the uncertainty weight 1 - u/255*0.99, then the
 dummy-2D spatial + intensity pipeline on the host, or raw crops for the
-device augmentation (:mod:`.device_aug`). Samples are numpy, channels-last
-(z, x, y, 1), and bit-equal to the JAX package's at the same
-``np.random.default_rng`` seed.
+device augmentation (:mod:`.device_aug`).
 
-The stage-1 ``SRPatchDataset`` and the ``MultiprocessBatchLoader`` are
-still to be ported (ROADMAP queue 1, items 9 and 10).
+Samples are numpy, channels-last, and bit-equal to the JAX package's at
+the same ``np.random.default_rng`` seed. Each dataset reads its stores in
+the constructor (h5py, imported there) or takes arrays through
+``from_volumes``.
+
+The ``MultiprocessBatchLoader`` is still to be ported (ROADMAP queue 1,
+item 10b).
 """
 
 from __future__ import annotations
@@ -21,9 +35,226 @@ import os
 import numpy as np
 
 from ..io.volume import parse_image
+from ..ops.blur import blur_axis_np, parse_kernel
+from ..ops.bspline import resize_1d_np
 from ..utils.pad import target_pad
 from .normalize import zscore_normalization
 from .transforms import TrainingTransforms
+
+
+class SRPatchDataset:
+    """Stage-1 SR patch sampler (TrainSetMultiple parity).
+
+    Subjects are matched to the files of ``image_path`` by name, anchored
+    (``<subject>_...`` or ``<subject>.``; a bare substring only when no
+    anchored name exists), so case_1 never takes case_10. A ``.nii.gz``
+    source is a merged (x, y, z, 2) volume, blurred here; an ``.h5``
+    store holds ``img_hr``, ``label_hr``, ``image_x_rgb``,
+    ``image_y_rgb``. ``channels=1`` (``sr_mode='img'``) draws the same
+    stream as 2 and keeps channel 0."""
+
+    def __init__(self, image_path, split_subjects, slice_thickness,
+                 target_thickness, blur_kernel_file, blur_kernel_name,
+                 patch_size, random_flip, preload=True, blur=True,
+                 nnunet_transform=False, seed=0, device_lr_sim=False,
+                 channels=2):
+        all_names = sorted(os.listdir(image_path))
+        names = []
+        for s in split_subjects:
+            anchored = [x for x in all_names
+                        if x.startswith(s + "_") or x.startswith(s + ".")]
+            matches = anchored or [x for x in all_names if s in x]
+            if matches:
+                names.append(matches[0])
+        self.image_path = image_path
+        self._blur_kernel_file = blur_kernel_file
+        self._blur_kernel_name = blur_kernel_name
+        self._slice_thickness = slice_thickness
+        self._target_thickness = target_thickness
+        self.blur = blur
+        volumes = []
+        for name in names:
+            vol = self._load(name)
+            volumes.append(tuple(
+                np.asarray(v[:]) if preload and v is not None else v
+                for v in vol))
+        self._setup(volumes, names, slice_thickness, target_thickness,
+                    patch_size, random_flip, blur, nnunet_transform, seed,
+                    device_lr_sim, channels)
+
+    @classmethod
+    def from_volumes(cls, volumes, slice_thickness, target_thickness,
+                     patch_size, random_flip, blur=True,
+                     nnunet_transform=False, seed=0, device_lr_sim=False,
+                     channels=2):
+        """The dataset over in-memory volumes: ``volumes`` a list of
+        (img_hr (x, y, z, 1), label_hr (x, y, z, 1), image_x_rgb,
+        image_y_rgb) arrays, the last two (z, 1, x, y) / (z, 1, y, x) as
+        :func:`..infer.sr_infer.postprocess_sr_volume` makes them (None
+        without ``blur``): what the constructor holds once it has read a
+        stage-1 store."""
+        self = cls.__new__(cls)
+        self.image_path = None
+        self.blur = blur
+        vols = [tuple(np.asarray(v) if v is not None else None for v in vol)
+                for vol in volumes]
+        self._setup(vols, [f"volume{i}" for i in range(len(vols))],
+                    slice_thickness, target_thickness, patch_size,
+                    random_flip, blur, nnunet_transform, seed,
+                    device_lr_sim, channels)
+        return self
+
+    def _setup(self, volumes, names, slice_thickness, target_thickness,
+               patch_size, random_flip, blur, nnunet_transform, seed,
+               device_lr_sim, channels):
+        if len(patch_size) == 2:
+            patch_size = (*patch_size, 1)
+        self.patch_size = tuple(patch_size)
+        self.channels = int(channels)
+        self.random_flip = random_flip
+        self.blur = blur
+        self.device_lr_sim = device_lr_sim
+        self.slice_separation = float(slice_thickness / target_thickness)
+        self.rng = np.random.default_rng(seed)
+        self.subjects = list(names)
+        self.transform = None
+        if nnunet_transform:
+            # intensity only (enable_spatial=False), train_set.py:259-277
+            self.transform = TrainingTransforms(
+                self.patch_size, enable_spatial=False,
+                enable_uncertainty=self.blur,
+                extra_keys=["seg", "img_lr"] if self.blur else ["seg"])
+        self.imgs_hr = [v[0] for v in volumes]
+        self.labels_hr = [v[1] for v in volumes]
+        self.filtered_x = [v[2] for v in volumes]
+        self.filtered_y = [v[3] for v in volumes]
+
+    def _load(self, name):
+        """A subject's HR (x, y, z, c) image and label and the blurred
+        copies in (z, c, x, y) layout (train_set.py:303-335)."""
+        image, _, _, blur_fwhm, *_ = parse_image(
+            os.path.join(self.image_path, name), self._slice_thickness,
+            self._target_thickness)
+        if name.endswith(".h5"):
+            return (image["img_hr"], image["label_hr"],
+                    image["image_x_rgb"] if self.blur else None,
+                    image["image_y_rgb"] if self.blur else None)
+        image = np.squeeze(image)
+        if image.ndim == 3:
+            image = image[..., np.newaxis]
+        kernel = parse_kernel(self._blur_kernel_file,
+                              self._blur_kernel_name, blur_fwhm)
+        fx = fy = None
+        if self.blur:
+            # blur along x of (z, c, x, y): the reference's F.conv2d over
+            # dim 2
+            fx = blur_axis_np(image.transpose(2, 3, 0, 1)[:, 0:1]
+                              .astype(np.float32), kernel, axis=2)
+            fy = blur_axis_np(image.transpose(2, 3, 1, 0)[:, 0:1]
+                              .astype(np.float32), kernel, axis=2)
+        return image[..., :1], image[..., 1:].astype(np.uint8), fx, fy
+
+    def __len__(self):
+        return len(self.subjects)
+
+    def sample(self, i=None, rng=None):
+        """Draw one (img_lr, img_hr) channels-last pair."""
+        rng = rng or self.rng
+        if i is None:
+            i = int(rng.integers(0, len(self.subjects)))
+        img_hr = self.imgs_hr[i]
+        label_hr = self.labels_hr[i]
+        img_lr_vol = None
+        if self.blur:
+            if rng.random() < 0.5:
+                img_hr = np.transpose(img_hr[:], (1, 0, 2, 3))
+                label_hr = np.transpose(label_hr[:], (1, 0, 2, 3))
+                img_lr_vol = self.filtered_y[i]
+            else:
+                img_lr_vol = self.filtered_x[i]
+        elif rng.random() < 0.5:
+            img_hr = np.transpose(img_hr[:], (1, 0, 2, 3))
+            label_hr = np.transpose(label_hr[:], (1, 0, 2, 3))
+
+        ps = self.patch_size
+        sep = self.slice_separation
+        x0 = int(rng.integers(0, max(img_hr.shape[0] - ps[0], 0) + 1))
+        y0 = int(rng.integers(0, max(img_hr.shape[1] - ps[1], 0) + 1))
+        z0 = int(rng.integers(0, max(img_hr.shape[2] - ps[2], 0) + 1))
+        img = img_hr[x0:x0 + ps[0], y0:y0 + ps[1], z0:z0 + ps[2], :]
+        lab = label_hr[x0:x0 + ps[0], y0:y0 + ps[1],
+                       z0:z0 + ps[2], :].astype(np.float32)
+        img = img.transpose(2, 3, 0, 1)  # (z, c, x, y)
+        lab = lab.transpose(2, 3, 0, 1)
+
+        target_shape = [max(s, p) for s, p in
+                        zip(img.shape, (ps[2], 1, ps[0], ps[1]))]
+        img, _ = target_pad(img, target_shape, mode="constant")
+        lab, _ = target_pad(lab, target_shape, mode="constant")
+
+        if self.blur:
+            lr = img_lr_vol[z0:z0 + ps[2], :, x0:x0 + ps[0], y0:y0 + ps[1]]
+            lr, _ = target_pad(lr, target_shape, mode="constant")
+        else:
+            lr = img.copy()
+
+        if self.transform is not None:
+            # transform layout: (c, z, x, y)
+            d = {"data": img.transpose(1, 0, 2, 3),
+                 "seg": lab.transpose(1, 0, 2, 3)}
+            if self.blur:
+                d["img_lr"] = lr.transpose(1, 0, 2, 3)
+            out = self.transform(rng, **d)
+            img = out["data"].transpose(1, 0, 2, 3)
+            lab = out["seg"].transpose(1, 0, 2, 3)
+            lr = (out["img_lr"].transpose(1, 0, 2, 3) if self.blur
+                  else img.copy())
+
+        img_hr_p = np.concatenate([img, lab], axis=1)  # (z, 2, x, y)
+        if self.device_lr_sim:
+            # the pre-resize LR source: the downsample and the slice
+            # dropout run on the device (.device_sr_sim)
+            img_lr_p = np.concatenate([lr, lab], axis=1)
+        else:
+            # LR: B-spline downsample of the through-plane (x) axis
+            lr = resize_1d_np(lr.astype(np.float64), sep, axis=2, order=3)
+            lab_lr = resize_1d_np(lab.astype(np.float64), sep, axis=2,
+                                  order=0)
+            img_lr_p = np.concatenate([lr, lab_lr], axis=1)
+
+        img_hr_p = img_hr_p.transpose(1, 2, 0, 3)  # (c, x, z, y)
+        img_lr_p = img_lr_p.transpose(1, 2, 0, 3)
+
+        if not self.device_lr_sim:
+            if img_hr_p.shape[2] > 1 and rng.random() < 0.1:
+                img_lr_p[:, 0:1] = 0.0
+            if img_hr_p.shape[2] > 1 and rng.random() < 0.1:
+                img_lr_p[:, -1:] = 0.0
+
+        if self.random_flip:
+            for axis in (1, 2, 3):
+                if rng.random() < 0.5:
+                    img_hr_p = np.flip(img_hr_p, axis=axis)
+                    img_lr_p = np.flip(img_lr_p, axis=axis)
+
+        if rng.random() < 0.5:
+            img_hr_p = img_hr_p.transpose(0, 1, 3, 2)
+            img_lr_p = img_lr_p.transpose(0, 1, 3, 2)
+
+        # the thin axis squeezed for 2D (WDSR); then channels-last:
+        # (c, x, z, y) -> (x, z, y, c)
+        if self.patch_size[2] == 1:
+            img_hr_p = (img_hr_p[:, :, 0] if img_hr_p.shape[2] == 1
+                        else img_hr_p[:, :, :, 0])
+            img_lr_p = (img_lr_p[:, :, 0] if img_lr_p.shape[2] == 1
+                        else img_lr_p[:, :, :, 0])
+        # order="C": a batch's np.stack of strided views is a slow gather
+        lr_out = np.moveaxis(img_lr_p, 0, -1).astype(np.float32, order="C")
+        hr_out = np.moveaxis(img_hr_p, 0, -1).astype(np.float32, order="C")
+        if self.channels == 1:
+            lr_out = lr_out[..., :1]
+            hr_out = hr_out[..., :1]
+        return lr_out, hr_out
 
 
 class SegSRDataset:

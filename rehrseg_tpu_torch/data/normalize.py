@@ -1,6 +1,7 @@
-"""Intensity normalization: the port's own copy of
-``rehrseg_tpu.data.normalize.zscore_normalization`` (numpy) and
-``zscore_batch`` (torch, per sample on a batch)."""
+"""Intensity normalization (reference utils/seg_utils.py:74-174): the
+port's own copy of ``rehrseg_tpu.data.normalize``. The numpy functions
+take whole volumes; ``zscore_batch`` (torch) normalizes channel 0 per
+sample of a batch."""
 
 from __future__ import annotations
 
@@ -15,6 +16,25 @@ def zscore_normalization(image: np.ndarray) -> np.ndarray:
     image -= mean
     image /= max(std, 1e-8)
     return image
+
+
+def zeroone_normalization(image: np.ndarray) -> np.ndarray:
+    image = image.astype(np.float32, copy=True)
+    mn, mx = image.min(), image.max()
+    image -= mn
+    image /= (mx - mn)
+    return image
+
+
+def percentile_normalization(image: np.ndarray, p_min: float = 0.5,
+                             p_max: float = 99.5,
+                             strictly_positive: bool = True) -> np.ndarray:
+    image = image.astype(np.float32, copy=False)
+    v_min, v_max = np.percentile(image, [p_min, p_max])
+    if v_min < 0 and strictly_positive:
+        v_min = 0
+    out = np.clip(image, v_min, v_max)
+    return (out - v_min) / (v_max - v_min)
 
 
 def zscore_batch(x: torch.Tensor) -> torch.Tensor:

@@ -19,8 +19,11 @@ These functions take the module (it holds its weights), not params; the
 module is moved to ``device`` (default the card), and with
 ``compute_dtype`` the forward runs a copy of it cast to that dtype. The JAX
 package's jit caches have no counterpart: nothing is compiled per call.
-Slice-profile postprocessing and the interpolation fallback are still to
-be ported with SR training (ROADMAP queue 1, item 9).
+
+:func:`postprocess_sr_volume` makes the blurred copies of a pseudo-HR
+image that stage-1 training reads as its LR sources;
+:func:`interpolate_pseudo_sr` is the pseudo-HR volume without SMORE
+(``smore_initialization: false``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import numpy as np
 import torch
 
 from ..io.volume import inv_normalize
+from ..ops.blur import blur_axis_np, parse_kernel
+from ..ops.bspline import zoom_axis_np
 from ..utils.device import resolve_device
 from ..utils.patch import calc_slices_to_crop, find_integer_p
 
@@ -205,6 +210,30 @@ def infer_flavr_volume(model, volume: np.ndarray, slice_separation: float,
         outs.append(_host(_forward(
             model, chunk.to(device=device, dtype=dtype), out_index or 0)))
     return _flavr_finish(np.concatenate(outs)[:nw], x, y, n_crop)
+
+
+def postprocess_sr_volume(image_xyz: np.ndarray, blur_fwhm: float,
+                          blur_kernel_name: str = "rf-pulse-slr"):
+    """The slice-profile re-blur of a pseudo-HR image along x and along y
+    (sr_utils.py:267-277). image_xyz: (x, y, z) or (x, y, z, c), channel 0
+    taken. Returns (image_x_rgb (z, 1, x, y), image_y_rgb (z, 1, y, x))
+    fp32, the stage-1 training LR sources."""
+    kernel = parse_kernel(None, blur_kernel_name, blur_fwhm)
+    img = image_xyz if image_xyz.ndim == 4 else image_xyz[..., None]
+    zcxy = img.transpose(2, 3, 0, 1)[:, 0:1]
+    image_x_rgb = blur_axis_np(zcxy.astype(np.float32), kernel, axis=2)
+    zcyx = img.transpose(2, 3, 1, 0)[:, 0:1]
+    image_y_rgb = blur_axis_np(zcyx.astype(np.float32), kernel, axis=2)
+    return image_x_rgb, image_y_rgb
+
+
+def interpolate_pseudo_sr(image: np.ndarray, label: np.ndarray,
+                          slice_separation: float):
+    """The interpolation fallback without SMORE: cubic zoom of the image
+    and nearest of the label along z (sr_utils.py:256-265)."""
+    up_img = zoom_axis_np(image, slice_separation, axis=2, order=3)
+    up_lab = zoom_axis_np(label, slice_separation, axis=2, order=0)
+    return up_img, up_lab
 
 
 def zeroonenorm255(data: np.ndarray) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Segmentation losses and the evaluation metric (``rehrseg_tpu.losses``).
+"""Segmentation and SR losses and the evaluation metrics
+(``rehrseg_tpu.losses``).
 
 Channels-last like the JAX package: logits (B, *spatial, C), targets
 (B, *spatial, 1) float class indices (truncated as ``astype(int32)``) or
@@ -11,9 +12,12 @@ Channels-last like the JAX package: logits (B, *spatial, C), targets
     (a one-hot multiply would turn a ``-inf`` log-prob into NaN);
   - ``dc_and_weighted_ce`` and ``build_seg_loss`` with the deep-supervision
     weights;
-  - ``calculate_dice``: the binary evaluation metric (numpy).
-
-The stage-1 SR losses are still to be ported (ROADMAP queue 1, item 9).
+  - the stage-1 SR losses (train_all.py:125-134): ``sr_loss`` (L1 on the
+    image channel + BCEDice on the label channels) and
+    ``sr_uncertainty_loss`` (the UASR head's heteroscedastic terms too),
+    each with the single-channel ``sr_mode='img'`` branch;
+  - ``calculate_dice``: the binary evaluation metric, and
+    ``calculate_psnr``, the SR quality metric (numpy).
 """
 
 from __future__ import annotations
@@ -112,9 +116,83 @@ def build_seg_loss(enable_deep_supervision: bool = False,
     return ds
 
 
+# ------------------------------------------------------------ stage-1 losses
+
+def _flatten_channel_first(x):
+    """(B, *spatial, C) -> (C, B*prod(spatial)): dice per channel over the
+    batch."""
+    return torch.movedim(x, -1, 0).reshape(x.shape[-1], -1)
+
+
+def dice_loss_sigmoid(logits, target, epsilon: float = 1e-6):
+    """DiceLoss with the sigmoid and a squared denominator
+    (seg_utils.py:786-873)."""
+    p = _flatten_channel_first(torch.sigmoid(logits))
+    t = _flatten_channel_first(target).to(p.dtype)
+    intersect = (p * t).sum(-1)
+    denominator = (p * p).sum(-1) + (t * t).sum(-1)
+    return 1.0 - (2.0 * intersect / denominator.clamp(min=epsilon)).mean()
+
+
+def bce_with_logits(logits, target):
+    return (logits.clamp(min=0) - logits * target
+            + torch.log1p(torch.exp(-logits.abs()))).mean()
+
+
+def bce_dice_loss(logits, target, alpha: float = 1.0, beta: float = 1.0):
+    """BCEDiceLoss (seg_utils.py:875-886)."""
+    return (alpha * bce_with_logits(logits, target)
+            + beta * dice_loss_sigmoid(logits, target))
+
+
+def l1_loss(pred, target):
+    return (pred - target).abs().mean()
+
+
+def sr_loss(pred, target, alpha: float = 1.0, beta: float = 1.0):
+    """Stage-1 loss without uncertainty (train_all.py:132-134): L1 on
+    channel 0 (the image) + BCEDice on the other (label) channels; the L1
+    alone for single-channel SR."""
+    img_l1 = l1_loss(pred[..., 0:1], target[..., 0:1])
+    if pred.shape[-1] == 1:
+        return img_l1
+    return img_l1 + bce_dice_loss(pred[..., 1:], target[..., 1:], alpha,
+                                  beta)
+
+
+def sr_uncertainty_loss(pred, uncertainty, target, alpha: float = 1.0,
+                        beta: float = 1.0):
+    """Stage-1 loss of the UASR head (train_all.py:125-134): L1(image) +
+    mean(|err| / u + log u) + L1(u, |err| detached) + BCEDice(label), the
+    last term absent for single-channel SR."""
+    err = pred[..., 0:1] - target[..., 0:1]
+    loss = l1_loss(pred[..., 0:1], target[..., 0:1])
+    loss = loss + (err.abs() / uncertainty + torch.log(uncertainty)).mean()
+    loss = loss + l1_loss(uncertainty, err.abs().detach())
+    if pred.shape[-1] == 1:
+        return loss
+    return loss + bce_dice_loss(pred[..., 1:], target[..., 1:], alpha, beta)
+
+
+# -------------------------------------------------------------- eval metrics
+
 def calculate_dice(prediction, ground_truth, smooth: float = 1e-5) -> float:
     prediction = np.asarray(prediction).flatten()
     ground_truth = np.asarray(ground_truth).flatten()
     intersection = np.sum(prediction * ground_truth)
     return float((2.0 * intersection + smooth) /
                  (np.sum(prediction) + np.sum(ground_truth) + smooth))
+
+
+def calculate_psnr(prediction, ground_truth,
+                   data_range: float | None = None) -> float:
+    """Peak signal-to-noise ratio in dB (fp64), the SR quality metric;
+    ``data_range`` defaults to the ground truth's range."""
+    prediction = np.asarray(prediction, dtype=np.float64)
+    ground_truth = np.asarray(ground_truth, dtype=np.float64)
+    if data_range is None:
+        data_range = float(ground_truth.max() - ground_truth.min())
+    mse = np.mean((prediction - ground_truth) ** 2)
+    if mse == 0:
+        return float("inf")
+    return float(10.0 * np.log10(data_range ** 2 / mse))

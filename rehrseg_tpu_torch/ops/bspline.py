@@ -1,5 +1,5 @@
 """B-spline resizes and linear z-upsampling as precomputed matrices (the
-port's own copy of ``rehrseg_tpu.ops.bspline``: :30-79, :93-105, :108-163).
+port's own copy of ``rehrseg_tpu.ops.bspline``).
 
 A resize along one axis is a dense (m, n) matrix ``M`` built on the host
 (cached), so that ``out = M @ x``:
@@ -8,8 +8,9 @@ A resize along one axis is a dense (m, n) matrix ``M`` built on the host
     ``resize`` package (output length ``round(n / dx)``, the two sample grids
     sharing the field of view's centre, order 0 nearest or 3 cubic with
     scipy's mirror-boundary prefilter), built by scipy's
-    ``map_coordinates`` on unit vectors; WDSR's fractional pre-resize
-    (:func:`resize_1d`) applies it as a matmul;
+    ``map_coordinates`` on unit vectors; :func:`resize_1d` applies it as a
+    matmul (WDSR's fractional pre-resize, the stage-1 LR simulation),
+    :func:`resize_nd` / :func:`resize_nd_np` along each trailing dim;
   - :func:`trilinear_upsample_matrix`: the SegModel SR head's
     ``F.interpolate(mode='trilinear', align_corners=True)`` along z
     (reference seg_model.py:204).
@@ -73,6 +74,16 @@ def resize_1d_np(x: np.ndarray, dx: float, axis: int,
                                     axes=(1, 0)), 0, axis)
 
 
+def resize_nd_np(x: np.ndarray, dxyz, order: int = 3) -> np.ndarray:
+    """Host resize of the trailing ``len(dxyz)`` dims, one step per dim
+    (the ``resize`` package's convention; the reference applies (sep, 1)
+    to the last two dims, train_set.py:395)."""
+    out = x
+    for i, dx in enumerate(dxyz):
+        out = resize_1d_np(out, dx, x.ndim - len(dxyz) + i, order)
+    return out
+
+
 def resize_1d(x: torch.Tensor, dx: float, axis: int,
               order: int = 3) -> torch.Tensor:
     """Resize of a tensor along ``axis``: one matmul with the (cached) host
@@ -83,6 +94,15 @@ def resize_1d(x: torch.Tensor, dx: float, axis: int,
                      dtype=x.dtype, device=x.device)
     out = torch.matmul(torch.movedim(x, axis, -1), M.t())
     return torch.movedim(out, -1, axis)
+
+
+def resize_nd(x: torch.Tensor, dxyz, order: int = 3) -> torch.Tensor:
+    """:func:`resize_nd_np` on a tensor: :func:`resize_1d` along each of
+    the trailing ``len(dxyz)`` dims."""
+    out = x
+    for i, dx in enumerate(dxyz):
+        out = resize_1d(out, dx, x.ndim - len(dxyz) + i, order)
+    return out
 
 
 @lru_cache(maxsize=128)

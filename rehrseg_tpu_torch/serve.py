@@ -26,7 +26,7 @@ map) out; :func:`load_sr_from_checkpoint` restores a UNet3D checkpoint, and
 PyTorch's TF32 settings as they are: by default cuDNN runs fp32 convs in
 TF32 on the card.
 
-Not ported yet: ``mesh`` (ROADMAP queue 1, item 10).
+Not ported yet: ``mesh`` (ROADMAP queue 1, item 10b).
 """
 
 from __future__ import annotations
@@ -91,7 +91,7 @@ class Segmenter:
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh sharding is still to be ported (ROADMAP queue 1, "
-                "item 10)")
+                "item 10b)")
         if self.tile_grid not in ("parity", "aligned"):
             raise ValueError(f"tile_grid must be 'parity' or 'aligned', "
                              f"got {self.tile_grid!r}")

@@ -10,10 +10,17 @@ stay integral. ``torch.autocast`` is not used: it chooses per op which
 ones run in fp32, where the JAX package casts explicitly once at the
 boundary. bf16 needs no loss scaling (fp32's exponent range);
 ``policy("fp32")`` is the identity.
+
+:func:`step_guard` wraps a train step's forward and backward: oneDNN's
+bf16 convolution backward races between threads on the CPU (its gradients
+vary from run to run and are at times NaN), so a bf16 step whose
+parameters live on the CPU runs without oneDNN; anywhere else it does
+nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -52,6 +59,19 @@ class Policy:
 
     def cast_reduce(self, tree):
         return self._cast(tree, self.reduce_dtype)
+
+
+def step_guard(pol: "Policy", params):
+    """The context a train step's forward and backward run in: oneDNN off
+    for a bf16 policy over CPU parameters (``params``: a module or a dict
+    of modules), else a no-op."""
+    if pol.compute_dtype != torch.bfloat16:
+        return contextlib.nullcontext()
+    module = next(iter(params.values())) if isinstance(params, dict) \
+        else params
+    if next(module.parameters()).device.type != "cpu":
+        return contextlib.nullcontext()
+    return torch.backends.mkldnn.flags(enabled=False)
 
 
 _POLICIES = {

@@ -31,7 +31,7 @@ from ..data.normalize import zscore_batch
 from ..losses import dc_and_weighted_ce, deep_supervision_weights
 from ..models import convert
 from ..models.segnet_packed import segmodel_apply_packed
-from .precision import policy as _policy
+from .precision import policy as _policy, step_guard
 
 
 def flavr_window_indices(depth: int) -> np.ndarray:
@@ -127,7 +127,8 @@ def make_seg_train_step(seg_model, *, enable_uncertainty: bool,
     'fp32' is the reference's fp32 step. flavr_model: the frozen teacher,
     cast once here to the compute dtype (a copy when that is not fp32).
     sr_head_form: the packed SR head's emission ('auto' | 'cell4' |
-    'legacy')."""
+    'legacy'). A bf16 step on the CPU runs without oneDNN
+    (:func:`.precision.step_guard`)."""
     pol = _policy(precision)
     ds_scales = (ds_scales_from_arch(seg_model.arch)
                  if deep_supervision else None)
@@ -205,8 +206,9 @@ def make_seg_train_step(seg_model, *, enable_uncertainty: bool,
 
     def step(state, batch: SegBatch):
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(state.params, batch)
-        loss.backward()
+        with step_guard(pol, state.params):
+            loss, metrics = loss_fn(state.params, batch)
+            loss.backward()
         state.apply_gradients()
         return state, {k: v.detach() for k, v in metrics.items()}
 

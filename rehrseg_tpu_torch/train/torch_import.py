@@ -1,19 +1,22 @@
-"""Warm start from a reference PyTorch checkpoint: the SegModel part of
-``rehrseg_tpu.train.torch_import``.
+"""Warm starts from reference PyTorch checkpoints
+(``rehrseg_tpu.train.torch_import``).
 
-The port's SegModel carries the nnUNet / dynamic_network_architectures
-key names, so an nnUNet ``checkpoint_final.pth`` loads straight into the
-module: ``module.`` prefixes are stripped, each convolution block is
-accepted under both of its names (``convs.{i}.conv`` and
-``convs.{i}.all_modules.0``; the norm as ``.norm`` or ``.all_modules.1``),
-and a tensor lands where its key and shape match (the reference's
-strict=False, train_all.py:496-499). Below a 90 % match of the checkpoint's
-weight tensors the import fails loudly unless ``allow_partial``; small
-synthetic state dicts (fewer weight keys than half the mapping) allow it
-by default, as the JAX importer does.
+The port's modules carry the reference's key names (the SegModel nnUNet /
+dynamic_network_architectures', UNet3D FLAVR_arch's, WDSR the reference
+WDSR's), so a checkpoint loads into the module by name: ``module.``
+prefixes are stripped, and a tensor lands where its key and shape match
+(the reference's strict=False, train_all.py:347-356, 429-435, 496-499).
 
-The FLAVR and WDSR imports are still to be ported (ROADMAP queue 1, item
-11).
+  - :func:`import_segmodel`: an nnUNet ``checkpoint_final.pth``, each
+    convolution block under both of its names (``convs.{i}.conv`` and
+    ``convs.{i}.all_modules.0``; the norm as ``.norm`` or
+    ``.all_modules.1``); below a 90 % match of the checkpoint's weight
+    tensors it fails loudly unless ``allow_partial`` (small synthetic state
+    dicts, fewer weight keys than half the mapping, allow it by default);
+  - :func:`import_flavr`: a public FLAVR checkpoint with the reference's
+    drop filters (``encoder.stem.0``, ``outconv.1``, ``feature_fuse``),
+    partial by design;
+  - :func:`import_wdsr`: a weight-normed WDSR checkpoint.
 """
 
 from __future__ import annotations
@@ -47,6 +50,13 @@ def load_torch_state_dict(path: str, key: str | None = None) -> dict:
 def strip_module_prefix(sd: dict) -> dict:
     return {k.replace("module.", "") if k.startswith("module.") else k: v
             for k, v in sd.items()}
+
+
+def drop_keys(sd: dict, substrings) -> dict:
+    """The reference's drop filter (train_all.py:350-356): keys holding any
+    of ``substrings`` go."""
+    return {k: v for k, v in sd.items()
+            if not any(s in k for s in substrings)}
 
 
 class ImportReport(list):
@@ -92,17 +102,12 @@ def segmodel_mapping(arch: dict) -> dict:
     return m
 
 
-def import_segmodel(model, sd: dict, verbose: bool = True,
-                    allow_partial: bool | None = None) -> ImportReport:
-    """Load an nnUNet checkpoint's state dict into the port's SegModel in
-    place (train_all.py:496-499); returns the :class:`ImportReport`.
-    Raises ValueError below a 90 % match unless ``allow_partial``."""
-    sd = strip_module_prefix(sd)
-    mapping = segmodel_mapping(model.arch)
-    if allow_partial is None:
-        n_weightish = sum(1 for k in sd
-                          if not any(s in k for s in _NON_WEIGHT))
-        allow_partial = n_weightish < len(mapping) // 2
+def _apply_mapping(model, sd: dict, mapping: dict, verbose: bool,
+                   allow_partial: bool, what: str) -> ImportReport:
+    """Copy ``sd[k]`` into ``model``'s state-dict entry ``mapping[k]`` in
+    place wherever the entry exists with the same shape; returns the
+    report. Raises ValueError below a 90 % match unless
+    ``allow_partial``."""
     target = model.state_dict()
     loaded, skipped, new = [], [], {}
     for tk, key in mapping.items():
@@ -123,7 +128,7 @@ def import_segmodel(model, sd: dict, verbose: bool = True,
         print(report.summary())
     if not allow_partial and report.match_rate < 0.9:
         raise ValueError(
-            f"nnUNet SegModel import matched only {report.match_rate:.0%} "
+            f"{what} import matched only {report.match_rate:.0%} "
             f"of the checkpoint's weight tensors: the key layout is "
             f"probably not what this importer expects. Pass "
             f"allow_partial=True to warm-start anyway (reference "
@@ -132,3 +137,54 @@ def import_segmodel(model, sd: dict, verbose: bool = True,
         for key, v in new.items():
             target[key].copy_(v)
     return report
+
+
+def import_segmodel(model, sd: dict, verbose: bool = True,
+                    allow_partial: bool | None = None) -> ImportReport:
+    """Load an nnUNet checkpoint's state dict into the port's SegModel in
+    place (train_all.py:496-499); returns the :class:`ImportReport`.
+    Raises ValueError below a 90 % match unless ``allow_partial``."""
+    sd = strip_module_prefix(sd)
+    mapping = segmodel_mapping(model.arch)
+    if allow_partial is None:
+        n_weightish = sum(1 for k in sd
+                          if not any(s in k for s in _NON_WEIGHT))
+        allow_partial = n_weightish < len(mapping) // 2
+    return _apply_mapping(model, sd, mapping, verbose, allow_partial,
+                          "nnUNet SegModel")
+
+
+def flavr_mapping(use_uncertainty: bool) -> dict:
+    """Checkpoint key -> the port UNet3D's state-dict key (the same
+    names), biases of the encoder included: a UNet3D without them
+    (n_outputs = 1) leaves those entries unfilled."""
+    return {k: k for k in convert.flavr_mapping(use_uncertainty,
+                                                 enc_bias=True)}
+
+
+def import_flavr(model, sd: dict, drop=("encoder.stem.0", "outconv.1",
+                                        "feature_fuse"),
+                 verbose: bool = True,
+                 allow_partial: bool = True) -> ImportReport:
+    """FLAVR warm start into the port's UNet3D in place, with the
+    reference's drop filters (train_all.py:350-356). Partial matches are
+    the expected case (the public FLAVR_4x checkpoint's head is
+    re-purposed), so ``allow_partial`` defaults True; the report still
+    prints."""
+    sd = drop_keys(strip_module_prefix(sd), drop or ())
+    return _apply_mapping(model, sd, flavr_mapping(model.use_uncertainty),
+                          verbose, allow_partial, "FLAVR")
+
+
+def wdsr_mapping(n_resblocks: int) -> dict:
+    """Checkpoint key -> the port WDSR's state-dict key (the same
+    names)."""
+    return {k: k for k in convert.wdsr_mapping(n_resblocks)}
+
+
+def import_wdsr(model, sd: dict, verbose: bool = True,
+                allow_partial: bool = True) -> ImportReport:
+    """A reference WDSR checkpoint into the port's WDSR in place."""
+    return _apply_mapping(model, strip_module_prefix(sd),
+                          wdsr_mapping(len(model.body)), verbose,
+                          allow_partial, "WDSR")

@@ -192,9 +192,8 @@ def test_profile_window_and_distillation(tmp_path):
     cfg.enable_distillation = True
     cfg.save_iters_segsr = 100
     cfg.num_slices = 4
-    with torch.backends.mkldnn.flags(enabled=False):   # see test_torch_train
-        _, state, _ = pipeline.stage2_segsr(cfg, dataset=_dataset(),
-                                            device="cpu")
+    _, state, _ = pipeline.stage2_segsr(cfg, dataset=_dataset(),
+                                        device="cpu")
     assert set(state.params) == {"seg", "distiller"}
     assert state.step == 6
     assert os.path.isfile(tmp_path / "prof" / "trace.json")

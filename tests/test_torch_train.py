@@ -213,14 +213,11 @@ def test_step_matches_jax(case):
 
 def test_bf16_close_to_fp32():
     """The bf16 policy's losses and parameters after one step within 5e-2
-    of the fp32 step's (tests/test_precision.py's tolerance). oneDNN's
-    bf16 convolution backward on the CPU races between threads (its
-    gradients vary from run to run and are at times not finite; with one
-    thread, or without oneDNN, they do not), so the port's bf16 step runs
-    here with oneDNN off."""
+    of the fp32 step's (tests/test_precision.py's tolerance). The step
+    itself runs a CPU bf16 step without oneDNN, whose bf16 convolution
+    backward races between threads (``train.precision.step_guard``)."""
     _, p32 = _setup("unc_kd")
-    with torch.backends.mkldnn.flags(enabled=False):
-        _, p16 = _setup("unc_kd", precision="bf16")
+    _, p16 = _setup("unc_kd", precision="bf16")
     (m32, _, s32), (m16, _, s16) = p32[0], p16[0]
     for k in m32:
         assert m16[k] == pytest.approx(m32[k], rel=5e-2), k
