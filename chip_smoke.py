@@ -75,11 +75,20 @@ and nothing of the JAX package. Phases, each printing one JSON line:
            .evaluate`` with fp32 weights, ``eval_hr`` and ``save_path``: each
            saved prediction's dice against its label equals the printed
            one, the returned value is their mean, saved shapes and
-           spacings, K1 launches = tiles per subject (its fp32 kernel);
+           spacings, K1 launches = tiles per subject (its fp32 kernel:
+           3xTF32 on wgmma), no other kernel launched;
            seconds a subject, peak device memory and one fp32 8-way dual
-           tile forward (CUDA events); then K1's fp32 kernel
-           against its plain version at that path's shape, with kernel /
-           plain / library times and the bound;
+           tile forward (CUDA events); then K1's fp32 kernel against its
+           plain version (TF32 off, 2e-5) at that path's shape, with
+           kernel / plain / library times and the bound at the 3xTF32 rate
+           (three TF32 products at 495 TFLOP/s) beside the one at fp32's
+           FMA rate;
+  fp32_forms  every other fp32 form once at the shape its bf16 row uses
+           (K3, K5, K6b, K6c and K7 on the FMA kernel of
+           ``csrc/pconv_valid.cu``, bound at 67 TFLOP/s; K4 and K6a on the
+           3xTF32 kernel): against its plain version (2e-5; the K6 forms'
+           moment half-sums 1e-4), kernel / plain / library times and the
+           bound; no path of the port launches them;
   streamed the served dual parity path through Segmenter(streaming=1) (two
            z-slabs of 6 tiles at the bench geometry, "cat", bf16) beside
            the whole-volume Segmenter in the same process: seconds a
@@ -172,6 +181,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense tensor-core bf16
 FP32_FLOPS = 67e12             # fp32 outside the tensor cores
+# fp32 products by 3xTF32: three dense TF32 tensor-core products each
+TF32X3_FLOPS = 495e12 / 3
 
 PATCH = (16, 320, 384)
 VOLUME = (20, 455, 633)
@@ -1565,10 +1576,10 @@ def _smooth_field(rng, shape, sigma):
 
 
 def _k1_fp32_main(gen, dev):
-    """K1's fp32 kernel at the shape fold evaluation gives it (the bf16
-    main shape), against its plain version (TF32 off), with kernel / plain
-    / library times and the bound at fp32's peak outside the tensor
-    cores."""
+    """K1's fp32 kernel (3xTF32 on wgmma) at the shape fold evaluation
+    gives it (the bf16 main shape), against its plain version (TF32 off),
+    with kernel / plain / library times and the bound at the 3xTF32 rate,
+    the one at fp32's FMA rate beside it."""
     from rehrseg_tpu_torch.ops.pconv import (pconv_pad11_cat,
                                              pconv_pad11_cat_plain)
     import torch.nn.functional as F
@@ -1594,11 +1605,103 @@ def _k1_fp32_main(gen, dev):
     rec["library_ms"] = cuda_ms(lambda: F.conv2d(cat, wl, b, padding=1),
                                 iters=5)
     flops = 2 * n * h * w * 4 * (ca + cb) * co
-    rec["bound_ms"], rec["bound_by"] = bound(nbytes(xa, xb, wt, b, y), flops,
-                                             FP32_FLOPS)
+    n_bytes = nbytes(xa, xb, wt, b, y)
+    rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops, TF32X3_FLOPS)
+    rec["bound_at"] = "3xTF32: three TF32 products at 495 TFLOP/s"
+    rec["fma_bound_ms"] = bound(n_bytes, flops, FP32_FLOPS)[0]
     rec["tflops"] = flops / 1e12
-    rec["gbytes"] = nbytes(xa, xb, wt, b, y) / 1e9
+    rec["gbytes"] = n_bytes / 1e9
     return rec
+
+
+# the fp32 forms other than K1 -> (kernel, its bf16 row's shape, the rate
+# that bounds it): the FMA kernel of csrc/pconv_valid.cu at fp32's rate, K4
+# and K6a the 3xTF32 kernel
+FP32_FORMS = {
+    "k3": ("csrc/pconv_valid.cu", PCONV_SHAPES["k3"][0], FP32_FLOPS),
+    "k5": ("csrc/pconv_valid.cu", PCONV_SHAPES["k5"][0], FP32_FLOPS),
+    "k6b": ("csrc/pconv_valid.cu", K6_SHAPES["k6b"][0], FP32_FLOPS),
+    "k6c": ("csrc/pconv_valid.cu", K6_SHAPES["k6c"][0], FP32_FLOPS),
+    "k7": ("csrc/pconv_valid.cu", (128, 161, 193, 128, 128), FP32_FLOPS),
+    "k4": ("csrc/pconv_pad11_cat_sm90.cu", PCONV_SHAPES["k4"][0],
+           TF32X3_FLOPS),
+    "k6a": ("csrc/pconv_pad11_cat_sm90.cu", K6_SHAPES["k6a"][0],
+            TF32X3_FLOPS),
+}
+
+
+def phase_fp32_forms(gen, dev):
+    """Every fp32 form other than K1, once, at the shape its bf16 row
+    uses, against its plain version (2e-5; the K6 forms' moment half-sums
+    within 1e-4), with kernel / plain / library times (cuDNN fp32, TF32
+    off; none for a K6 form) and the bound at its kernel's rate. No path of
+    the port launches these forms."""
+    import torch.nn.functional as F
+    from rehrseg_tpu_torch.ops import pconv
+    from rehrseg_tpu_torch.ops.conv2x2 import (conv2x2_valid_bias,
+                                               conv2x2_valid_bias_plain)
+
+    tol, f32 = 2e-5, torch.float32
+    out = {}
+    for kernel, (source, shape, peak) in FP32_FORMS.items():
+        rec = dict(source=source, shape=list(shape), dtype=str(f32),
+                   tolerance=tol, library_ms=None)
+        if kernel in ("k3", "k4", "k5"):
+            args, kw, plain, library, flops, in_bytes = _pconv_case(
+                kernel, shape, f32, gen, dev)
+            fn = getattr(pconv, PCONV_FNS[kernel])
+            call = lambda: fn(*args, **kw)              # noqa: E731
+            run_plain = lambda: plain(*args)            # noqa: E731
+            y = call()
+            torch.cuda.synchronize()
+            rec["max_abs_err"] = check_close(f"fp32 {kernel}", y,
+                                             run_plain(), tol, tol)
+            rec["library_ms"] = cuda_ms(library(), iters=3, warmup=1)
+            n_bytes = in_bytes + nbytes(y)
+        elif kernel == "k7":
+            n, hp, wp, ci, co = shape
+            x = torch.randn(n, hp, wp, ci, generator=gen, device=dev)
+            wt = torch.randn(2, 2, ci, co, generator=gen, device=dev) \
+                / (4 * ci) ** 0.5
+            b = 0.1 * torch.randn(co, generator=gen, device=dev)
+            call = lambda: conv2x2_valid_bias(x, wt, b)    # noqa: E731
+            run_plain = lambda: conv2x2_valid_bias_plain(  # noqa: E731
+                x, wt, b)
+            y = call()
+            torch.cuda.synchronize()
+            rec["max_abs_err"] = check_close("fp32 k7", y, run_plain(), tol,
+                                             tol)
+            xl = x.permute(0, 3, 1, 2)
+            wl = wt.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            rec["library_ms"] = cuda_ms(lambda: F.conv2d(xl, wl, b),
+                                        iters=3, warmup=1)
+            flops = 2 * n * (hp - 1) * (wp - 1) * 4 * ci * co
+            n_bytes = nbytes(x, wt, b, y)
+        else:
+            call, run_plain, ref, _, flops, n_bytes, npix = _k6_case(
+                kernel, shape, f32, gen, dev)
+            y, stats = call()
+            torch.cuda.synchronize()
+            ry, rstats = ref()
+            rec["max_abs_err"] = check_close(f"fp32 {kernel}", y, ry, tol,
+                                             tol)
+            rec.update(check_stats(f"fp32 {kernel}", stats, rstats, npix,
+                                   STATS_RTOL[f32], tol))
+            del ry, rstats, stats
+        rec["ms"] = cuda_ms(call, iters=3, warmup=1)
+        rec["plain_ms"] = cuda_ms(run_plain, iters=3, warmup=1)
+        rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops, peak)
+        rec["bound_at"] = ("3xTF32: three TF32 products at 495 TFLOP/s"
+                           if peak == TF32X3_FLOPS else
+                           "fp32 FMA at 67 TFLOP/s")
+        rec["tflops"] = flops / 1e12
+        rec["gbytes"] = n_bytes / 1e9
+        out[kernel] = rec
+        del y, call, run_plain
+        torch.cuda.empty_cache()
+    emit({"phase": "fp32_forms", **out})
+    return out
 
 
 def phase_evaluate(params, dev, gpu, work: Path, gen):
@@ -1649,6 +1752,8 @@ def phase_evaluate(params, dev, gpu, work: Path, gen):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     launches = pconv_pad11_cat.launches
+    others = {k: v for k, v in _fused_counts().items()
+              if k != "pconv_pad11_cat"}
     peak = torch.cuda.max_memory_allocated() / 1e9
     # one fp32 8-way dual tile forward on a bf16 tile, as evaluate runs it
     tile = torch.randn(8, *PATCH, 1, device=dev, dtype=torch.bfloat16)
@@ -1660,6 +1765,8 @@ def phase_evaluate(params, dev, gpu, work: Path, gen):
     if launches != n_tiles * len(subjects):
         raise AssertionError(f"evaluate: K1 launched {launches} times, "
                              f"{n_tiles} tiles x {len(subjects)} subjects")
+    if any(others.values()):
+        raise AssertionError(f"evaluate: other kernels ran: {others}")
     dice = {}
     for line in printed.getvalue().splitlines():
         if line.startswith("Subject "):
@@ -1692,6 +1799,7 @@ def phase_evaluate(params, dev, gpu, work: Path, gen):
           "grid": "parity", "eval_hr": True, "subjects": len(subjects),
           "seconds": secs, "seconds_per_subject": secs / len(subjects),
           "dice": dice, "mean_dice": mean, "k1_launches": launches,
+          "other_launches": others,
           "peak_mem_gb": peak, "tile_dual_forward_ms_fp32": fwd_ms,
           "k1_fp32": k1,
           "printed": printed.getvalue().strip().splitlines()})
@@ -2504,8 +2612,9 @@ def main() -> int:
     t = time.perf_counter()
     logs = kernels.build()
     # ptxas's registers and spills per kernel, for the sources built now
+    # (and any wgmma serialization ptxas reports)
     ptxas = {name: [ln.strip() for ln in out.splitlines()
-                    if "Used" in ln or "spill" in ln]
+                    if "Used" in ln or "spill" in ln or "Performance" in ln]
              for name, out in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "libraries": [str(kernels.library_path(n).name)
@@ -2541,6 +2650,8 @@ def main() -> int:
         launches_eval, k1_fp32 = phase_evaluate(params, dev, gpu, Path(work),
                                                 gen)
         torch.cuda.empty_cache()
+        phase_fp32_forms(gen, dev)
+        torch.cuda.empty_cache()
         phase_train_step(params, dev, gpu)
         torch.cuda.empty_cache()
         launches_train = phase_train_loop(dev, gpu, Path(work))
@@ -2558,9 +2669,10 @@ def main() -> int:
              launches=launches["pconv_pad11_cat"],
              launches_cli=launches_cli, launches_streamed=launches_streamed,
              **{k: k1[k] for k in keys}),
-        # fp32 K1: fold evaluation's path (trainer weights are fp32)
+        # fp32 K1: fold evaluation's path (trainer weights are fp32); its
+        # bound at the 3xTF32 rate
         dict(name="pconv_pad11_cat (fp32)", route="cuda",
-             source="rehrseg_tpu_torch/csrc/pconv_pad11_cat.cu",
+             source="rehrseg_tpu_torch/csrc/pconv_pad11_cat_sm90.cu",
              replaces="rehrseg_tpu/ops/pallas_pconv.py:889",
              launches=launches_eval, launches_in="evaluate",
              launches_train=launches_train,

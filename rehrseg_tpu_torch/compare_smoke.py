@@ -11,7 +11,8 @@ that tree's ``chip_smoke.py`` in a process of its own (p: parent, c:
 change), so both trees are timed on the same card under the same power
 limit. Prints one JSON line: for every kernel of the ``kernels`` line its
 ``ms`` and ``library_ms`` in each run, and for the volume, tile-forward,
-CLI and fold-evaluation phases their seconds and milliseconds, then the
+CLI and fold-evaluation phases and the training loop's validations their
+seconds and milliseconds, then the
 ratio change / parent of the means (of the metrics both trees print). Exits with 1 if a run failed.
 """
 
@@ -57,6 +58,9 @@ def run_smoke(root: Path) -> dict:
             out["cli in_process s"] = rec["in_process_seconds_per_volume"]
         elif phase == "evaluate":
             out["evaluate s/subject"] = rec["seconds_per_subject"]
+        elif phase == "train_loop":
+            for i, v in enumerate(rec["validations"]):
+                out[f"train_loop validation {i} s"] = v["seconds"]
         if phase in ("main", "main_pallas", "tile_fused"):
             for key, val in rec.items():
                 if key.startswith("tile_dual_forward_ms"):

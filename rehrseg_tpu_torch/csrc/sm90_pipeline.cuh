@@ -67,6 +67,29 @@
 //   in shared memory, and adds them to the image's (16, Co) fp32 partials
 //   with one vector red per four channels, kind and tile
 //   (store_tile_fused).
+//
+// The fp32 operand path (a Conv with TF32X3; pconv_pad11_cat_sm90.cu's fp32
+// K1, K4 and K6a) computes fp32-accurate products on the tensor cores by
+// 3xTF32: each operand is split into a TF32 high part and a TF32 low part,
+// and the accumulators take hi * lo + lo * hi + hi * hi (lo * lo, below
+// 2^-22 of the product, is dropped). TF32 wgmma reads both operands K-major
+// (no transposed B for 32-bit types), so the weights come split and K-major
+// from the host (one pass a call, a few microseconds), and A comes from
+// registers: each consumer thread loads its pixels' fp32 channels from the
+// landed slab and splits them itself, so no second slab holds A's low
+// part. The tensor cores' fp32 accumulation truncates (round toward zero),
+// and with three products a k its error grows with K: summed over K = 1024
+// it reached 5e-5 of the output, over the 2e-5 the kernel is held to. So
+// the accumulators start afresh every K step (64 k) and are added to a
+// second set of sums in registers, which leaves room for 64 pixels x 128
+// channels a consumer warpgroup (2 x 64 floats a thread), not 128 x 128:
+// a block is 128 pixels, its slabs TH + 1 rows of TW pixels with TH x TW =
+// 64 (32 fp32 channels fill a 128-byte row, as 64 bf16 do), and a stage
+// holds the two slabs and a tap's W_hi and W_lo twice, 88 KB, two stages.
+// The epilogue adds the bias in fp32 and stores without rounding
+// (store_tile_f32). What bounds it is the tensor cores' TF32 rate, three
+// products for one: 3 x 1.03 TFLOP at 495 TFLOP/s is 6.25 ms at K1's
+// served shape, against 15.4 ms for the same work at fp32's FMA rate.
 
 #pragma once
 
@@ -96,6 +119,18 @@ constexpr int B_TAP_BYTES = 2 * B_HALF_BYTES;    // one tap's 64 x 128 tile
 // two slabs (one per consumer warpgroup), two taps of weights: 72 KB
 constexpr int STAGE_BYTES = 2 * SLAB_BYTES + 2 * B_TAP_BYTES;
 constexpr int THREADS = 384;
+// The fp32 operand path (3xTF32): a K step takes 32 channels (128-byte rows
+// of fp32), a consumer warpgroup's tile is 64 pixels (so a slab is TH + 1
+// rows of TW pixels, TH x TW = 64), and a tap's weights are two K-major
+// tiles of 128 channels x 32 k, W_hi then W_lo: an 88 KB stage, two of
+// them.
+constexpr int BK_F32 = 32;
+constexpr int TILE_PIX_F32 = 64;
+constexpr int SLAB_F32_BYTES = (TILE_PIX_F32 + (1 << MAX_LOG_TW)) * ROW_BYTES;
+constexpr int B_TILE_F32_BYTES = BN * BK_F32 * 4;       // 16 KB
+constexpr int B_TAP_F32_BYTES = 2 * B_TILE_F32_BYTES;   // W_hi, W_lo
+constexpr int STAGE_F32_BYTES = 2 * SLAB_F32_BYTES + 2 * B_TAP_F32_BYTES;
+constexpr int STAGES_F32 = 2;
 
 // The compile-time parts of a deferred-norm form: Conv::FORM is a sum of
 // these (a Conv without the member is the plain form, 0).
@@ -112,15 +147,36 @@ struct form_of<Conv, std::void_t<decltype(Conv::FORM)>> {
   static constexpr int value = Conv::FORM;
 };
 
+// A Conv with static constexpr bool TF32X3 = true takes fp32 operands, the
+// 3xTF32 path: y and the bias are fp32, and the weights the split (2 Co,
+// taps * Ci) K-major matrix of ops/pconv.py tf32x3_weights.
+template <class Conv, class = void>
+struct tf32x3_of {
+  static constexpr bool value = false;
+};
+template <class Conv>
+struct tf32x3_of<Conv, std::void_t<decltype(Conv::TF32X3)>> {
+  static constexpr bool value = Conv::TF32X3;
+};
+template <class Conv>
+using elem_of = std::conditional_t<tf32x3_of<Conv>::value, float, bf16>;
+template <class Conv>
+constexpr int stage_bytes_of =
+    tf32x3_of<Conv>::value ? STAGE_F32_BYTES : STAGE_BYTES;
+
 // FORM_STATS: 256 floats for each warp of the two consumer warpgroups
 constexpr int STATS_SCRATCH_BYTES = 2 * 4 * 256 * 4;
 
-constexpr int smem_bytes(int stages, int form = 0) {
+constexpr int smem_bytes(int stages, int form = 0,
+                         int stage_bytes = STAGE_BYTES) {
   // 1024 bytes of slack to align the ring, then the barriers, then the
   // statistics' scratch
-  return stages * STAGE_BYTES + 1024 + 2 * stages * 8 +
+  return stages * stage_bytes + 1024 + 2 * stages * 8 +
          ((form & FORM_STATS) ? STATS_SCRATCH_BYTES : 0);
 }
+// a block may have 227 KB (232,448 bytes) of shared memory
+static_assert(smem_bytes(STAGES_F32, FORM_STATS, STAGE_F32_BYTES) <= 232448,
+              "the fp32 ring does not fit");
 
 // ------------------------------------------------------------ device side
 
@@ -316,6 +372,60 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, fp32) = A (64 x 8, TF32, in registers) * B (8 x 128, TF32,
+// K-major in shared memory: tf32 has no transposed B) [+ D], D laid out as
+// wgmma_m64n128k16's. Warp w of the warpgroup gives rows 16w..16w+15: lane
+// l holds a[0] = (row l/4, k l%4), a[1] = 8 rows down, a[2] and a[3] the
+// same rows at k + 4. The tensor cores read the top 19 bits of each
+// operand.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// x split into two TF32 values, hi + lo = x within 2^-22 |x| (ops/pconv.py
+// split_tf32): hi rounds x to nearest, ties away from zero, and lo rounds
+// the exact remainder x - hi the same way. hi's low 13 bits are cleared, so
+// that the remainder is taken from the value the tensor cores read.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  uint32_t h, l;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
+  h &= 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n"
+      : "=r"(l)
+      : "f"(__fsub_rn(x, __uint_as_float(h))));
+  hi = h;
+  lo = l;
 }
 
 // keep the compiler from moving reads of the accumulators above the wait
@@ -526,6 +636,69 @@ struct StatsOut {
 // values meet in shared memory, and 64 threads add four channels each with
 // one vector red (scalar atomics there, or from every warp without the
 // shared-memory sum, timed the same within the spread of the timings).
+// FORM_STATS, one channel group of a tile: e holds this thread's partials
+// of the group's channels 8 (grp * 4 + k) + 2 q + {0, 1} (kind * 8 + 2 k +
+// {0, 1}); the halving butterfly leaves lane (rq, q) kind rq / 4 of the two
+// channels 32 grp + 8 (rq % 4) + 2 q + {0, 1}, which go to the warp's row of
+// the scratch.
+__device__ __forceinline__ void stats_to_scratch(const float (&e)[16],
+                                                 int grp, uint32_t scratch,
+                                                 int warp, int lane) {
+  const int q = lane & 3, rq = lane >> 2;
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  float a8[8], a4[4], a2[2];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {  // keep kind b4
+    const float recv =
+        __shfl_xor_sync(0xffffffffu, b4 ? e[i] : e[8 + i], 16);
+    a8[i] = (b4 ? e[8 + i] : e[i]) + recv;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // keep k / 2 == b3
+    const float recv =
+        __shfl_xor_sync(0xffffffffu, b3 ? a8[i] : a8[4 + i], 8);
+    a4[i] = (b3 ? a8[4 + i] : a8[i]) + recv;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // keep k % 2 == b2
+    const float recv =
+        __shfl_xor_sync(0xffffffffu, b2 ? a4[i] : a4[2 + i], 4);
+    a2[i] = (b2 ? a4[2 + i] : a4[i]) + recv;
+  }
+  // [warp][kind = rq / 4][128 channels]
+  sts_f2(scratch + 4u * (warp * 256 + (rq >> 2) * 128 + 32 * grp +
+                         8 * (rq & 3) + 2 * q),
+         a2[0], a2[1]);
+}
+
+// FORM_STATS, once the four channel groups are in the scratch: the four
+// warps' values summed, and added to so.stats[img] (row tile % 8 of each
+// half) by 64 threads with one vector red each
+__device__ __forceinline__ void stats_flush(const TileGeo& g, int img,
+                                            int n0, int tile,
+                                            const StatsOut& so,
+                                            uint32_t scratch, int bar,
+                                            int warp, int lane) {
+  named_barrier(bar, 128);
+  const int t = warp * 32 + lane;
+  if (t < 64) {  // kind t / 32, channels 4 (t % 32) + 0..3, over the warps
+    float4 v = lds_f4(scratch + 16u * t);
+#pragma unroll
+    for (int w = 1; w < 4; ++w) {
+      const float4 u = lds_f4(scratch + 16u * t + 1024u * w);
+      v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+    }
+    float* const p =
+        so.stats + ((int64_t)img * 16 + (t >> 5) * 8 + (tile & 7)) * g.co +
+        n0 + 4 * (t & 31);
+    if (so.no_atomics)
+      *reinterpret_cast<float4*>(p) = v;
+    else
+      red_add_f4(p, v);
+  }
+  named_barrier(bar, 128);  // the scratch is free for the next tile
+}
+
 template <int FORM>
 __device__ __forceinline__ void store_tile_fused(
     float (&acc)[2][64], const TileGeo& g, int img, int i0, int j0, int n0,
@@ -585,53 +758,86 @@ __device__ __forceinline__ void store_tile_fused(
             y + (((int64_t)img * g.out_h + pi[r]) * g.out_w + pj[r]) * g.co +
             n0 + 8 * (grp * 4 + q)) = make_uint4(v[0], v[1], v[2], v[3]);
     }
-    if constexpr (STATS) {
-      const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
-      float a8[8], a4[4], a2[2];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {  // keep kind b4
-        const float recv =
-            __shfl_xor_sync(0xffffffffu, b4 ? e[i] : e[8 + i], 16);
-        a8[i] = (b4 ? e[8 + i] : e[i]) + recv;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {  // keep k / 2 == b3
-        const float recv =
-            __shfl_xor_sync(0xffffffffu, b3 ? a8[i] : a8[4 + i], 8);
-        a4[i] = (b3 ? a8[4 + i] : a8[i]) + recv;
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {  // keep k % 2 == b2
-        const float recv =
-            __shfl_xor_sync(0xffffffffu, b2 ? a4[i] : a4[2 + i], 4);
-        a2[i] = (b2 ? a4[2 + i] : a4[i]) + recv;
-      }
-      // [warp][kind = rq / 4][128 channels]
-      sts_f2(scratch + 4u * (warp * 256 + (rq >> 2) * 128 + 32 * grp +
-                             8 * (rq & 3) + 2 * q),
-             a2[0], a2[1]);
-    }
+    if constexpr (STATS) stats_to_scratch(e, grp, scratch, warp, lane);
   }
-  if constexpr (STATS) {
-    named_barrier(bar, 128);
-    const int t = warp * 32 + lane;
-    if (t < 64) {  // kind t / 32, channels 4 (t % 32) + 0..3, over the warps
-      float4 v = lds_f4(scratch + 16u * t);
+  if constexpr (STATS)
+    stats_flush(g, img, n0, tile, so, scratch, bar, warp, lane);
+}
+
+// The epilogue of the fp32 operand path, every form (FORM 0: columns >=
+// live_w exact zeros; FORM_RIM, FORM_STATS as store_tile_fused's, the sums
+// over the fp32 values as stored), for a tile of 64 pixels x 128 channels
+// (from n0) in sums[64], laid out as one wgmma accumulator: the bias added
+// in fp32, no rounding. A thread holds two consecutive channels of a pixel
+// and its partner lane (q ^ 1) the next two; the pair swaps halves with two
+// shuffles, so that the even lane stores four channels of row half 0 and
+// the odd lane four of row half 1, 16 bytes each.
+template <int FORM>
+__device__ __forceinline__ void store_tile_f32(
+    float (&sums)[64], const TileGeo& g, int img, int i0, int j0, int n0,
+    int tile, const float* __restrict__ bias, float* __restrict__ y,
+    const StatsOut& so, uint32_t scratch, int bar, int warp, int lane) {
+  constexpr bool STATS = (FORM & FORM_STATS) != 0;
+  const int q = lane & 3, rq = lane >> 2, odd = q & 1;
+  const int tw_mask = (1 << g.log_tw) - 1;
+  int pi[2], pj[2];
+  bool stored[2];
 #pragma unroll
-      for (int w = 1; w < 4; ++w) {
-        const float4 u = lds_f4(scratch + 16u * t + 1024u * w);
-        v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
-      }
-      float* const p =
-          so.stats + ((int64_t)img * 16 + (t >> 5) * 8 + (tile & 7)) * g.co +
-          n0 + 4 * (t & 31);
-      if (so.no_atomics)
-        *reinterpret_cast<float4*>(p) = v;
-      else
-        red_add_f4(p, v);
-    }
-    named_barrier(bar, 128);  // the scratch is free for the next tile
+  for (int half = 0; half < 2; ++half) {
+    const int row = warp * 16 + half * 8 + rq;
+    pi[half] = i0 + (row >> g.log_tw);
+    pj[half] = j0 + (row & tw_mask);
+    stored[half] = pi[half] < g.out_h && pj[half] < g.out_w;
   }
+#pragma unroll
+  for (int grp = 0; grp < 4; ++grp) {
+    const int rim_grp = (n0 + 32 * grp) / (g.co >> 2);
+    bool live[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      live[half] = pj[half] < g.live_w;
+      if constexpr ((FORM & FORM_RIM) != 0)
+        live[half] = rim_ok(pi[half], pj[half], g.out_h, g.live_w, rim_grp);
+    }
+    float e[16];  // [kind * 8 + 2 k + {0, 1}]
+#pragma unroll
+    for (int i = 0; i < 16; ++i) e[i] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = grp * 4 + k;
+      const float2 bv =
+          *reinterpret_cast<const float2*>(bias + n0 + 8 * c + 2 * q);
+      float2 o[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        o[half] = live[half]
+                      ? make_float2(sums[4 * c + 2 * half] + bv.x,
+                                    sums[4 * c + 2 * half + 1] + bv.y)
+                      : make_float2(0.0f, 0.0f);
+        if constexpr (STATS) {
+          if (stored[half]) {
+            e[2 * k] += o[half].x;
+            e[2 * k + 1] += o[half].y;
+            e[8 + 2 * k] = fmaf(o[half].x, o[half].x, e[8 + 2 * k]);
+            e[8 + 2 * k + 1] = fmaf(o[half].y, o[half].y, e[8 + 2 * k + 1]);
+          }
+        }
+      }
+      const float2 send = odd ? o[0] : o[1];
+      const float rx = __shfl_xor_sync(0xffffffffu, send.x, 1);
+      const float ry = __shfl_xor_sync(0xffffffffu, send.y, 1);
+      if (stored[odd])
+        *reinterpret_cast<float4*>(
+            y + (((int64_t)img * g.out_h + pi[odd]) * g.out_w + pj[odd]) *
+                    g.co +
+            n0 + 8 * c + 2 * (q & 2)) =
+            odd ? make_float4(rx, ry, o[1].x, o[1].y)
+                : make_float4(o[0].x, o[0].y, rx, ry);
+    }
+    if constexpr (STATS) stats_to_scratch(e, grp, scratch, warp, lane);
+  }
+  if constexpr (STATS)
+    stats_flush(g, img, n0, tile, so, scratch, bar, warp, lane);
 }
 
 // FORM_PRE's operands and its rewrite of a landed slab, shared by the
@@ -746,10 +952,64 @@ __device__ __forceinline__ void land_and_transform(
   named_barrier(1 + wg, 128);
 }
 
+// The products of one K step on the fp32 operand path (3xTF32), for the
+// consumer warpgroup whose slab is at sa, the stage's weights at sb: each
+// row tap s and 8-channel slice kk takes A_hi * W_lo, A_lo * W_hi, then
+// A_hi * W_hi (the small terms first) into acc. A comes from registers: the
+// thread reads its pixels' fp32 channels from the landed slab (16 bytes at
+// a time) and splits them (split_tf32); W_hi and W_lo were split once a
+// call on the host side. The fragment's k order is the slab's permuted: a
+// thread holds channels 8q .. 8q + 7 of a row (q = lane % 4), and slice
+// kk's k columns q and q + 4 are channels 8q + kk and 8q + 4 + kk, the
+// order in which tf32x3_weights lays out each 32-channel chunk of W. The
+// three products of one (s, kk) are one wgmma group, and a group waits for
+// the one before it, so that A's registers are live for two groups only.
+// The step's sums start at zero; the caller waits for the last group.
+__device__ __forceinline__ void tf32x3_step(float (&acc)[64], uint32_t sa,
+                                            uint32_t sb, uint32_t tap_shift,
+                                            int warp, int lane) {
+  const int q = lane & 3, rq = lane >> 2;
+  // row rq of warp `warp`'s 16, chunks 2q and 2q + 1 under the swizzle (rows
+  // sit 128 bytes apart, every tile offset is a multiple of 8 rows)
+  const uint32_t row0 = sa + (uint32_t)(warp * 16 + rq) * ROW_BYTES;
+  const uint32_t ch0 = (uint32_t)(((2 * q) ^ rq) * 16);
+  const uint32_t ch1 = (uint32_t)(((2 * q + 1) ^ rq) * 16);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    float4 v[2][2];  // [row half][chunk]
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t row = row0 + s * tap_shift + half * 8 * ROW_BYTES;
+      v[half][0] = lds_f4(row + ch0);
+      v[half][1] = lds_f4(row + ch1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK_F32 / 8; ++kk) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // a[i]: row half i % 2, chunk i / 2 (k column q or q + 4)
+        const float4& c = v[i & 1][i >> 1];
+        const float x = kk == 0 ? c.x : kk == 1 ? c.y : kk == 2 ? c.z : c.w;
+        split_tf32(x, hi[i], lo[i]);
+      }
+      const uint32_t tap = sb + s * B_TAP_F32_BYTES + kk * 32;
+      const uint64_t dhi = desc_at(DESC_A, tap);
+      const uint64_t dlo = desc_at(DESC_A, tap + B_TILE_F32_BYTES);
+      wgmma_fence();  // the A registers were written by the split
+      wgmma_m64n128k8_tf32(acc, hi, dlo, s | kk);
+      wgmma_m64n128k8_tf32(acc, lo, dhi, 1);
+      wgmma_m64n128k8_tf32(acc, hi, dhi, 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+  }
+}
+
 // Conv supplies the tap geometry:
 //   int ksteps(int img) const            K steps (column tap and the other
-//                                        tap axes, 64-channel chunk) of an
-//                                        image's tiles;
+//                                        tap axes, channel chunk: 64, 32 on
+//                                        the fp32 path) of an image's tiles;
 //   void load_a(map0, map1, ks, img, i0, j0, dst, bar) const
 //                                        the TMA load of K step ks's slab
 //                                        (row tap s = 0 and, one image row
@@ -759,7 +1019,9 @@ __device__ __forceinline__ void land_and_transform(
 //   int w_row(int ks, int img, int s) const
 //                                        first row of the (taps*Ci, Co)
 //                                        weight matrix for row tap s of the
-//                                        K step.
+//                                        K step (on the fp32 path, the first
+//                                        column of the split (2 Co, taps*Ci)
+//                                        matrix).
 // and, for a deferred-norm form, static constexpr int FORM and
 //   StatsOut so                          (FORM_STATS) where the sums go;
 //   auto pre_operands(ks, img, t) const  (FORM_PRE) what thread t of the
@@ -768,21 +1030,32 @@ __device__ __forceinline__ void land_and_transform(
 //                                        asked for before the slab's wait;
 //   void transform(operands, ks, img, i0, j0, slab, log_tw, t) const
 //                                        (FORM_PRE) thread t rewrites its
-//                                        share of the landed slab.
+//                                        share of the landed slab;
+// and, for the fp32 operand path, static constexpr bool TF32X3 = true.
 template <class Conv, int CLUSTER, int STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
                   const __grid_constant__ CUtensorMap map_a1,
                   const __grid_constant__ CUtensorMap map_w, const Conv conv,
-                  const TileGeo g, const bf16* __restrict__ bias,
-                  bf16* __restrict__ y) {
+                  const TileGeo g, const elem_of<Conv>* __restrict__ bias,
+                  elem_of<Conv>* __restrict__ y) {
   static_assert(CLUSTER == 1 || CLUSTER == 2, "each block loads 1/CLUSTER "
                                               "of the weight tile's 2 boxes");
   constexpr int FORM = form_of<Conv>::value;
+  constexpr bool F32 = tf32x3_of<Conv>::value;
+  static_assert(!(F32 && (FORM & FORM_PRE)), "no pre rewrite of fp32 slabs");
+  static_assert(!F32 || CLUSTER == 1, "fp32: one block per cluster");
+  // a consumer warpgroup's pixels; a tap's weights: two boxes, the two
+  // 64-channel halves of the N-major tile (bf16) or W_hi and W_lo (fp32)
+  constexpr int TPIX = F32 ? TILE_PIX_F32 : TILE_PIX;
+  constexpr int SLAB = F32 ? SLAB_F32_BYTES : SLAB_BYTES;
+  constexpr int B_TAP = F32 ? B_TAP_F32_BYTES : B_TAP_BYTES;
+  constexpr int B_BOX = B_TAP / 2;
+  constexpr int STAGE = stage_bytes_of<Conv>;
   extern __shared__ unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align the ring to it
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bars = ring + STAGES * STAGE_BYTES;
+  const uint32_t bars = ring + STAGES * STAGE;
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
 
@@ -801,7 +1074,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
   const int first = blockIdx.x / CLUSTER, step = gridDim.x / CLUSTER;
   // bytes of one slab's box, and the offset of row tap 1 within it
   const uint32_t tap_shift = (uint32_t)ROW_BYTES << g.log_tw;
-  const uint32_t slab_bytes = A_BOX_BYTES + tap_shift;
+  const uint32_t slab_bytes = TPIX * ROW_BYTES + tap_shift;
 
   if (wg == 2) {
     // ---------------------------------------------------------- producer
@@ -824,22 +1097,25 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
         for (int ks = 0; ks < ks_n; ++ks) {
           mbar_wait(empty(stage), phase ^ 1u);
           const uint32_t bar = full(stage);
-          const uint32_t sa = ring + stage * STAGE_BYTES;
-          const uint32_t sb = sa + 2 * SLAB_BYTES;
-          mbar_expect_tx(bar, 2 * slab_bytes + 2 * B_TAP_BYTES);
+          const uint32_t sa = ring + stage * STAGE;
+          const uint32_t sb = sa + 2 * SLAB;
+          mbar_expect_tx(bar, 2 * slab_bytes + 2 * B_TAP);
           conv.load_a(&map_a0, &map_a1, ks, img, i0a, j0a, sa, bar);
-          conv.load_a(&map_a0, &map_a1, ks, img, i0b, j0b, sa + SLAB_BYTES,
-                      bar);
+          conv.load_a(&map_a0, &map_a1, ks, img, i0b, j0b, sa + SLAB, bar);
 #pragma unroll
           for (int s = 0; s < 2; ++s) {
             const int wr = conv.w_row(ks, img, s);
-            const uint32_t st = sb + s * B_TAP_BYTES;
+            const uint32_t st = sb + s * B_TAP;
+            // box h of the tap: (channel, k row) n0 + 64 h, wr of the
+            // N-major matrix; (k, row) wr, h co + n0 of the split one
+            auto c0 = [&](int h) { return F32 ? wr : n0 + 64 * h; };
+            auto c1 = [&](int h) { return F32 ? h * g.co + n0 : wr; };
             if constexpr (CLUSTER == 1) {
-              tma_load_2d(st, &map_w, bar, n0, wr);
-              tma_load_2d(st + B_HALF_BYTES, &map_w, bar, n0 + 64, wr);
+              tma_load_2d(st, &map_w, bar, c0(0), c1(0));
+              tma_load_2d(st + B_BOX, &map_w, bar, c0(1), c1(1));
             } else {
-              tma_load_2d_multicast(st + rank * B_HALF_BYTES, &map_w, bar,
-                                    n0 + 64 * (int)rank, wr,
+              tma_load_2d_multicast(st + rank * B_BOX, &map_w, bar,
+                                    c0((int)rank), c1((int)rank),
                                     (uint16_t)((1 << CLUSTER) - 1));
             }
           }
@@ -854,7 +1130,12 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
     // --------------------------------------------------------- consumers
     reg_alloc<224>();
     const int warp = (tid % 128) / 32, lane = tid % 32;
-    float acc[2][64];
+    // bf16: the tile's sums, 128 pixels in two halves; fp32: the sums of
+    // one K step, 64 pixels, added to `sums` after it (the tensor cores'
+    // fp32 accumulation truncates: summed over all of K = 1024 the products
+    // lost up to 5e-5 of the output; flushed every step, 1.1e-5)
+    float acc[F32 ? 1 : 2][64];
+    float sums[F32 ? 64 : 1];
     int stage = 0;
     uint32_t phase = 0;
     auto release = [&](int s) {
@@ -875,51 +1156,70 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
       const int n0 = nb * BN;
       const int ks_n = conv.ksteps(img);
       int prev = 0;
+      if constexpr (F32) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sums[i] = 0.0f;
+      }
       for (int ks = 0; ks < ks_n; ++ks) {
         if constexpr ((FORM & FORM_PRE) != 0)
           land_and_transform(conv, ks, img, i0, j0, full(stage), phase,
-                             ring + stage * STAGE_BYTES + wg * SLAB_BYTES,
-                             g.log_tw, wg, tid % 128);
+                             ring + stage * STAGE + wg * SLAB, g.log_tw, wg,
+                             tid % 128);
         else
           mbar_wait(full(stage), phase);
-        const uint32_t sa = ring + stage * STAGE_BYTES + wg * SLAB_BYTES;
-        const uint32_t sb = ring + stage * STAGE_BYTES + 2 * SLAB_BYTES;
-        wgmma_fence();
+        const uint32_t sa = ring + stage * STAGE + wg * SLAB;
+        const uint32_t sb = ring + stage * STAGE + 2 * SLAB;
+        if constexpr (F32) {
+          tf32x3_step(acc[0], sa, sb, tap_shift, warp, lane);
+          wgmma_wait<0>();  // the stage has been read: hand it back
+          release(stage);
+          fence_acc(acc[0]);
 #pragma unroll
-        for (int s = 0; s < 2; ++s) {
+          for (int i = 0; i < 64; ++i) sums[i] += acc[0][i];
+        } else {
+          wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk) {
-            // 16 channels on: 32 bytes along A's rows, 16 k-rows down B
-            const uint64_t db =
-                desc_at(DESC_B, sb + s * B_TAP_BYTES + kk * 16 * 128);
+          for (int s = 0; s < 2; ++s) {
 #pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-              wgmma_m64n128k16(
-                  acc[mi],
-                  desc_at(DESC_A, sa + s * tap_shift + mi * 64 * ROW_BYTES +
-                                      kk * 32),
-                  db, (ks | s | kk) != 0);
+            for (int kk = 0; kk < BK / 16; ++kk) {
+              // 16 channels on: 32 bytes along A's rows, 16 k-rows down B
+              const uint64_t db =
+                  desc_at(DESC_B, sb + s * B_TAP_BYTES + kk * 16 * 128);
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi)
+                wgmma_m64n128k16(
+                    acc[mi],
+                    desc_at(DESC_A, sa + s * tap_shift +
+                                        mi * 64 * ROW_BYTES + kk * 32),
+                    db, (ks | s | kk) != 0);
+            }
           }
-        }
-        wgmma_commit();
-        if (ks > 0) {  // the step before has been read: hand its stage back
-          wgmma_wait<1>();
-          release(prev);
+          wgmma_commit();
+          if (ks > 0) {  // the step before has been read: hand its stage back
+            wgmma_wait<1>();
+            release(prev);
+          }
         }
         prev = stage;
         if (++stage == STAGES) { stage = 0; phase ^= 1u; }
       }
       wgmma_wait<0>();
-      release(prev);
-      fence_acc(acc[0]);
-      fence_acc(acc[1]);
-      if constexpr ((FORM & (FORM_STATS | FORM_RIM)) != 0)
-        store_tile_fused<FORM>(acc, g, img, i0, j0, n0, tile, bias, y,
-                               conv.so,
-                               bars + 16u * STAGES + wg * 4096u, 1 + wg,
-                               warp, lane);
-      else
-        store_tile(acc, g, img, i0, j0, n0, true, bias, y, warp, lane);
+      if constexpr (!F32) release(prev);
+      const uint32_t scratch = bars + 16u * STAGES + wg * 4096u;
+      if constexpr (F32) {
+        StatsOut so{};
+        if constexpr (FORM != 0) so = conv.so;
+        store_tile_f32<FORM>(sums, g, img, i0, j0, n0, tile, bias, y, so,
+                             scratch, 1 + wg, warp, lane);
+      } else {
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        if constexpr ((FORM & (FORM_STATS | FORM_RIM)) != 0)
+          store_tile_fused<FORM>(acc, g, img, i0, j0, n0, tile, bias, y,
+                                 conv.so, scratch, 1 + wg, warp, lane);
+        else
+          store_tile(acc, g, img, i0, j0, n0, true, bias, y, warp, lane);
+      }
     }
     if constexpr (CLUSTER > 1) cluster_sync();
   }
@@ -949,16 +1249,17 @@ constexpr int ERR_NO_ENCODE_ENTRY = 20001;   // cuTensorMapEncodeTiled missing
 constexpr int ERR_ENCODE = 21000;            // + the CUresult of the encode
 constexpr int ERR_TOO_LARGE = 20002;         // more work items than an int
 
-// a bf16 tensor map with the 128-byte swizzle: dims and box innermost
-// first, strides in bytes for dims 1.. (dim 0 is contiguous)
-inline int make_map(CUtensorMap* map, const void* ptr, int rank,
-                    const uint64_t* dims, const uint64_t* strides,
-                    const uint32_t* box) {
+// a tensor map (bf16 unless named) with the 128-byte swizzle: dims and box
+// innermost first, strides in bytes for dims 1.. (dim 0 is contiguous)
+inline int make_map(
+    CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
+    const uint64_t* strides, const uint32_t* box,
+    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (!fn) return ERR_NO_ENCODE_ENTRY;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+      fn(map, dtype, (cuuint32_t)rank,
          const_cast<void*>(ptr), (const cuuint64_t*)dims,
          (const cuuint64_t*)strides, (const cuuint32_t*)box, ones,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -976,6 +1277,17 @@ inline int make_weight_map(CUtensorMap* map, const void* w, int64_t k_rows,
   return make_map(map, w, 2, dims, strides, box);
 }
 
+// the fp32 operand path's split weights, (2 co, k_cols) fp32 K-major (W_hi
+// rows 0..co, W_lo rows co..2 co), in boxes of 128 rows x 32 k
+inline int make_weight_map_f32(CUtensorMap* map, const void* w,
+                               int64_t k_cols, int co) {
+  const uint64_t dims[2] = {(uint64_t)k_cols, (uint64_t)co * 2};
+  const uint64_t strides[1] = {(uint64_t)k_cols * 4};
+  const uint32_t box[2] = {BK_F32, BN};
+  return make_map(map, w, 2, dims, strides, box,
+                  CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+}
+
 // the SMs of the current device (the one the launch goes to), looked up once
 // for each device
 inline int sm_count() {
@@ -989,12 +1301,14 @@ inline int sm_count() {
   return v;
 }
 
-// Tile an (out_h, out_w) output image by 128-pixel rectangles 8, 16 or 32
-// wide; log_tw < 0 picks the width that covers it with the fewest tiles.
+// Tile an (out_h, out_w) output image by rectangles of tile_pix (128, or 64
+// on the fp32 path) pixels 8, 16 or 32 wide; log_tw < 0 picks the width
+// that covers it with the fewest tiles.
 inline int make_geo(TileGeo* g, int n_img, int out_h, int out_w, int live_w,
-                    int co, int cluster, int log_tw) {
+                    int co, int cluster, int log_tw,
+                    int tile_pix = TILE_PIX) {
   auto tiles = [&](int l) {
-    const int tw = 1 << l, th = TILE_PIX >> l;
+    const int tw = 1 << l, th = tile_pix >> l;
     return (int64_t)((out_h + th - 1) / th) * ((out_w + tw - 1) / tw);
   };
   if (log_tw < 0) {
@@ -1010,7 +1324,7 @@ inline int make_geo(TileGeo* g, int n_img, int out_h, int out_w, int live_w,
   const int64_t units = (tiles(log_tw) + per_unit - 1) / per_unit;
   const int64_t items = (int64_t)n_img * units * (co / BN);
   if (items >= (1ll << 31)) return ERR_TOO_LARGE;
-  *g = TileGeo{n_img, out_h, out_w, live_w, co, log_tw, TILE_PIX >> log_tw,
+  *g = TileGeo{n_img, out_h, out_w, live_w, co, log_tw, tile_pix >> log_tw,
                (out_w + tw - 1) / tw, (int)units, co / BN, (int)items};
   return 0;
 }
@@ -1020,7 +1334,8 @@ int launch_conv(const CUtensorMap& a0, const CUtensorMap& a1,
                 const CUtensorMap& w, const Conv& conv, const TileGeo& g,
                 const void* bias, void* y, cudaStream_t stream) {
   auto kern = conv_wgmma_kernel<Conv, CLUSTER, STAGES>;
-  constexpr int smem = smem_bytes(STAGES, form_of<Conv>::value);
+  constexpr int smem =
+      smem_bytes(STAGES, form_of<Conv>::value, stage_bytes_of<Conv>);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -1039,8 +1354,8 @@ int launch_conv(const CUtensorMap& a0, const CUtensorMap& a1,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, a0, a1, w, conv, g, (const bf16*)bias,
-                         (bf16*)y);
+  e = cudaLaunchKernelEx(&cfg, kern, a0, a1, w, conv, g,
+                         (const elem_of<Conv>*)bias, (elem_of<Conv>*)y);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 

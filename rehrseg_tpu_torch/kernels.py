@@ -23,7 +23,6 @@ import tempfile
 from pathlib import Path
 
 SOURCES = {
-    "pconv_pad11_cat": "pconv_pad11_cat.cu",
     "accumulate_tta_tile": "accumulate_tta_tile.cu",
     "pconv_valid": "pconv_valid.cu",
     "pconv3_valid_sm90": "pconv3_valid_sm90.cu",

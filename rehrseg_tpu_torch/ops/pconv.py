@@ -52,10 +52,13 @@ memory, the rim mask and moment sums in the epilogue): K1 and K6a
 (weights streamed with the input), K3, K6b and K4 ``csrc/pconv2d_sm90.cu``
 (and bf16 K7, :mod:`.conv2x2`): the weights resident in shared memory where
 they fit (Ci = 128), the streamed kernel on the same tap geometry where they
-do not. Every fp32 form runs an FMA kernel: K1, K4 and K6a in
-``csrc/pconv_pad11_cat.cu``, K3, K5, K6b, K6c and K7 in
-``csrc/pconv_valid.cu``. Every kernel adds the bias in fp32 and rounds
-once.
+do not. In fp32, K1, K4 and K6a run the Hopper kernel of
+``csrc/pconv_pad11_cat_sm90.cu`` by 3xTF32 (each operand split into two
+TF32 parts, :func:`split_tf32`, three TF32 products summed in fp32: the
+weights split once a call by :func:`tf32x3_weights`, the input in the
+kernel's registers), and K3, K5, K6b, K6c and K7 an FMA kernel in
+``csrc/pconv_valid.cu``. Every kernel adds the bias in fp32; a bf16 kernel
+rounds once, an fp32 one not at all.
 
 Each wrapper keeps the JAX call contract: the same shapes, dtypes, default
 ``w_out`` rule, ``(y, stats)`` when ``want_stats``, and ``None`` where the
@@ -170,6 +173,34 @@ def pconv3_valid_plain(x, w, b, w_out, pre=None, want_stats=False):
     return (y, stats16_plain(y)) if want_stats else y
 
 
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 t rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero: 0x1000 added to the bits, the low 13 cleared (what
+    ``cvt.rna.tf32.f32`` computes for finite values)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor):
+    """(hi, lo): fp32 t as two TF32 values, hi = round_tf32(t) and lo =
+    round_tf32(t - hi) (the remainder is exact in fp32), so that hi + lo is
+    within 2^-21 of t, relatively. The kernels' 3xTF32 products
+    (hi * lo + lo * hi + hi * hi) are fp32-accurate."""
+    hi = round_tf32(t)
+    return hi, round_tf32(t - hi)
+
+
+def tf32x3_weights(w: torch.Tensor) -> torch.Tensor:
+    """fp32 weights (2, 2, Ci, Co) -> (2, Co, 4 Ci): W_hi and W_lo of
+    :func:`split_tf32`, K-major (column k = tap * Ci + c, tap = 2 s + t),
+    each 32-channel chunk in the order of the kernel's A fragments:
+    channel 8 a + 4 b + kk at position 8 kk + 4 b + a."""
+    ci, co = w.shape[2], w.shape[3]
+    wk = w.reshape(4 * ci, co).t()
+    wk = wk.reshape(co, 4 * ci // 32, 4, 2, 4).permute(0, 1, 4, 3, 2)
+    return torch.stack(split_tf32(wk.reshape(co, 4 * ci)))
+
+
 # ------------------------------------------------------------ launches
 
 def refuse_grad(what: str, *tensors) -> None:
@@ -206,14 +237,13 @@ C_ENTRIES = {
     "k1_bf16": ("pconv_pad11_cat_sm90", "pconv_pad11_cat_sm90_bf16"),
     "k1_bf16_variant": ("pconv_pad11_cat_sm90",
                         "pconv_pad11_cat_sm90_bf16_variant"),
-    # fp32 K1 and, with stats, fp32 K6a
-    "k1_f32": ("pconv_pad11_cat", "pconv_pad11_cat_f32"),
+    # fp32 K1, K6a with stats, K4 with Cb = 0
+    "pad11_f32": ("pconv_pad11_cat_sm90", "pconv_pad11_cat_sm90_f32"),
     "k6a_bf16": ("pconv_pad11_cat_sm90", "pconv_pad11_cat_stats_sm90_bf16"),
     "k6a_bf16_variant": ("pconv_pad11_cat_sm90",
                          "pconv_pad11_cat_stats_sm90_bf16_variant"),
     "k4_bf16": ("pconv2d_sm90", "pconv_pad11_sm90_bf16"),
     "k4_bf16_variant": ("pconv2d_sm90", "pconv_pad11_sm90_bf16_variant"),
-    "k4_f32": ("pconv_pad11_cat", "pconv_pad11_f32"),
     "k3_bf16": ("pconv2d_sm90", "pconv_valid_sm90_bf16"),
     "k3_bf16_variant": ("pconv2d_sm90", "pconv_valid_sm90_bf16_variant"),
     "k5_bf16": ("pconv3_valid_sm90", "pconv3_valid_sm90_bf16"),
@@ -278,21 +308,21 @@ def _launch_pad11(counter, x, w, b, xb=None, want_stats=False,
     """K1 when xb is given (K6a with want_stats), K4 otherwise: (n, h+1,
     wp8, co) [and (n, 16, co) stats]. Adds one to the counter's
     ``launches`` (``fused_launches`` for K6a) once the kernel is
-    launched, on x's device. bf16 K1, K6a and K4 run their Hopper
-    kernels; ``variant`` names one of their timed variants: (cluster,
-    stages, log2 tile width) for K1; (measure, stages, log2 tile width)
-    for K6a, measure 0 the kernel and, for measuring what its epilogue
-    costs (the stats come out wrong), 1 the sums stored without atomics, 2
-    the rim mask alone; (mode, stages, log2 tile width) for K4, with mode 0
-    the streamed weights, 1 resident weights without the overlapped store,
-    2 with it."""
+    launched, on x's device. Every form runs a Hopper kernel; ``variant``
+    names one of its timed variants: in bf16, (cluster, stages, log2 tile
+    width) for K1; (measure, stages, log2 tile width) for K6a, measure 0
+    the kernel and, for measuring what its epilogue costs (the stats come
+    out wrong), 1 the sums stored without atomics, 2 the rim mask alone;
+    (mode, stages, log2 tile width) for K4, with mode 0 the streamed
+    weights, 1 resident weights without the overlapped store, 2 with it.
+    fp32 (3xTF32) has no variants."""
     n, h, w_in, ca = x.shape
     c_out = w.shape[-1]
     what = "pconv_pad11" if xb is None else "pconv_pad11_cat"
-    cin = ca + (0 if xb is None else xb.shape[-1])
-    if tuple(w.shape) != (2, 2, cin, c_out) or tuple(b.shape) != (c_out,):
+    cb = 0 if xb is None else xb.shape[-1]
+    if tuple(w.shape) != (2, 2, ca + cb, c_out) or tuple(b.shape) != (c_out,):
         raise ValueError(f"{what}: weights {tuple(w.shape)} / bias "
-                         f"{tuple(b.shape)} do not fit {cin} -> {c_out}")
+                         f"{tuple(b.shape)} do not fit {ca + cb} -> {c_out}")
     named = [("x", x), ("w", w), ("b", b)]
     if xb is not None:
         named.append(("xb", xb))
@@ -304,27 +334,29 @@ def _launch_pad11(counter, x, w, b, xb=None, want_stats=False,
     y = torch.empty((n, h + 1, wp8, c_out), dtype=x.dtype, device=x.device)
     stats = (torch.zeros((n, 16, c_out), dtype=torch.float32,
                          device=x.device) if want_stats else None)
-    if xb is None:
-        # bf16: the Hopper kernel; fp32: the FMA kernel (no variants)
-        fn, fn_name = _entry(f"k4_{sfx}", [_PTR] * 4 + [_INT] * 6, variant)
+    if sfx == "f32":
+        # K1, K6a and K4 (cb = 0, xb unread): one 3xTF32 entry on the
+        # split weights, stats or null (no variants)
+        ws = tf32x3_weights(w)
+        fn, fn_name = _entry("pad11_f32", [_PTR] * 6 + [_INT] * 7)
+        err = fn(x.data_ptr(), (x if xb is None else xb).data_ptr(),
+                 ws.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 stats.data_ptr() if want_stats else None, n, h, w_in, ca,
+                 cb, c_out, wp8, _stream(x))
+    elif xb is None:
+        fn, fn_name = _entry("k4_bf16", [_PTR] * 4 + [_INT] * 6, variant)
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                  n, h, w_in, ca, c_out, wp8, *(variant or ()), _stream(x))
-    elif sfx == "bf16" and not want_stats:
+    elif not want_stats:
         fn, fn_name = _entry("k1_bf16", [_PTR] * 5 + [_INT] * 7, variant)
         err = fn(x.data_ptr(), xb.data_ptr(), w.data_ptr(), b.data_ptr(),
-                 y.data_ptr(), n, h, w_in, ca, xb.shape[-1], c_out, wp8,
+                 y.data_ptr(), n, h, w_in, ca, cb, c_out, wp8,
                  *(variant or ()), _stream(x))
-    elif sfx == "bf16":
+    else:
         fn, fn_name = _entry("k6a_bf16", [_PTR] * 6 + [_INT] * 7, variant)
         err = fn(x.data_ptr(), xb.data_ptr(), w.data_ptr(), b.data_ptr(),
-                 y.data_ptr(), stats.data_ptr(), n, h, w_in, ca,
-                 xb.shape[-1], c_out, wp8, *(variant or ()), _stream(x))
-    else:
-        # fp32 K1 and K6a: one FMA entry, stats or null (no variants)
-        fn, fn_name = _entry("k1_f32", [_PTR] * 6 + [_INT] * 7)
-        err = fn(x.data_ptr(), xb.data_ptr(), w.data_ptr(), b.data_ptr(),
-                 y.data_ptr(), stats.data_ptr() if want_stats else None, n,
-                 h, w_in, ca, xb.shape[-1], c_out, wp8, _stream(x))
+                 y.data_ptr(), stats.data_ptr(), n, h, w_in, ca, cb, c_out,
+                 wp8, *(variant or ()), _stream(x))
     kernels.check(err, fn_name)
     if want_stats:
         _count(counter, "fused_launches")

@@ -39,20 +39,17 @@ import torch
 # <Valid2>, its deferred-norm form K6b <K6bValid2<..>>, or
 # conv_wgmma_kernel<Pad11, ..> / <Valid2, ..> / <K6bValid2<..>, ..> where the
 # weights do not fit in shared memory (the K6 forms are listed first: their
-# names hold the plain ones'). The FMA pad11 kernel is <CAT, STATS>: fp32 K4
-# runs it with CAT false, fp32 K6a with STATS true, fp32 K1 with <true,
-# false>; fp32 K3 and K5 and the fp32 K6 forms are one kernel <KD, PRE,
-# STATS>.
+# names hold the plain ones'). fp32 K1, K4 and K6a are conv_wgmma_kernel<
+# Pad11CatF32, ..>, <Pad11F32, ..> and <K6aPad11CatF32<..>, ..>; fp32 K3 and
+# K5 and the fp32 K6 forms are one FMA kernel <KD, PRE, STATS>.
 _CLASSES = (
-    ("k6a_pconv_pad11_cat_stats", ("K6aPad11Cat",
-                                   "pad11_cat_f32_kernel<true, true>")),
+    ("k6a_pconv_pad11_cat_stats", ("K6aPad11Cat",)),
     ("k6c_pconv3_valid_fused", ("K6cValid3",
                                 "valid_f32_kernel<3, true, true>")),
     ("k6b_pconv_valid_fused", ("K6bValid2",
                                "valid_f32_kernel<1, true, true>")),
     ("k1_pconv_pad11_cat", ("Pad11Cat",)),
-    ("k4_pconv_pad11", ("Pad11", "pad11_cat_f32_kernel<false, false>")),
-    ("k1_pconv_pad11_cat", ("pad11_cat",)),
+    ("k4_pconv_pad11", ("Pad11",)),
     ("k3_pconv_valid", ("Valid2", "valid_f32_kernel<1, false, false>")),
     ("k5_pconv3_valid", ("Valid3", "valid_f32_kernel<3, false, false>")),
     ("k2_accumulate_tta_tile", ("accumulate_kernel",)),

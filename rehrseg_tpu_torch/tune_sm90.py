@@ -1,5 +1,5 @@
 """Check and time the variants of the Hopper kernels (bf16 K1, K3, K4, K5,
-K6a, K6b, K6c) on the card.
+K6a, K6b, K6c; fp32 K1, K4, K6a by 3xTF32) on the card.
 
     python -m rehrseg_tpu_torch.tune_sm90 [--check-only] [--iters N]
                                           [--rounds R] [--kernels k6b]
@@ -13,9 +13,10 @@ prints one JSON line per phase:
           tile-store (``UTMASTG``) instructions ``cuobjdump -sass`` finds
           in each built library;
   check   each kernel against its plain version on fp32 copies (tolerance
-          0.04) at ragged shapes, the default variant and, for K3, K4, K6a,
-          K6b and K6c, every variant (K6b and K6c also their pre-only and
-          stats-only forms; the K6 forms' moment half-sums within 2e-2),
+          0.04; fp32: 2e-5, TF32 off) at ragged shapes, the default variant
+          and, for K3, K4, K6a, K6b, K6c, every variant
+          (K6b and K6c also their pre-only and stats-only forms; the K6
+          forms' moment half-sums within 2e-2, fp32 1e-4),
           with the first disagreeing index where one fails (exit code 1 at
           the end);
   probe   the rate at which TMA boxes shaped like the kernels' input tiles
@@ -26,11 +27,13 @@ prints one JSON line per phase:
           mode 0 weights streamed with the input, 1 weights resident in
           shared memory, 2 resident with the store overlapped by the other
           warpgroup's products, then ring stages and tile width; K6a, K6c:
-          ring stages, tile width; K6b: K3's modes, stages and widths),
-          each checked first, beside the default variant, the library call
-          (cuDNN) on the same operands (K6: none computes it; the plain K1
-          / K3 / K5 kernel on the same operands instead) and the kernel's
-          bound: the median and the least of R timings of N launches, the
+          ring stages, tile width; K6b: K3's modes, stages and widths;
+          the fp32 kernels have none), each checked first, beside the
+          default variant, the library call (cuDNN, fp32 with TF32 off) on
+          the same operands (K6: none computes it; the
+          plain K1 / K3 / K5 kernel on the same operands instead) and the
+          kernel's bound (fp32: three TF32 products at 495 TFLOP/s): the
+          median and the least of R timings of N launches, the
           candidates timed in turn, each round in its own order. The
           K6 forms also time what their parts cost (the kernel with the rim
           mask alone, K6a, with the sums but no atomics, and whole; K6b and
@@ -60,6 +63,9 @@ from . import kernels
 from .ops import pconv
 
 TOL = 0.04
+# the fp32 kernels (3xTF32) against their plain versions, TF32 off
+TOL_F32 = 2e-5
+STATS_RTOL_F32 = 1e-4
 K1_MAIN = (128, 160, 192, 128, 128, 128)
 K5_MAIN = (8, 16, 81, 104, 256, 256)
 # (n, h, w, ca, cb, co): an odd height, one and a half tiles wide, Ca != Cb,
@@ -137,14 +143,14 @@ def cuda_ms(fn, iters, warmup=2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def k1_operands(shape, gen, dev):
+def k1_operands(shape, gen, dev, dtype=torch.bfloat16):
     n, h, w, ca, cb, co = shape
 
     def randn(*s):
         return torch.randn(*s, generator=gen, device=dev)
-    return (randn(n, h, w, ca).bfloat16(), randn(n, h, w, cb).bfloat16(),
-            (randn(2, 2, ca + cb, co) / (4 * (ca + cb)) ** 0.5).bfloat16(),
-            (0.1 * randn(co)).bfloat16())
+    return tuple(t.to(dtype) for t in (
+        randn(n, h, w, ca), randn(n, h, w, cb),
+        randn(2, 2, ca + cb, co) / (4 * (ca + cb)) ** 0.5, 0.1 * randn(co)))
 
 
 def k5_operands(shape, gen, dev):
@@ -169,14 +175,22 @@ def k3_operands(shape, gen, dev):
             (0.1 * randn(co)).bfloat16())
 
 
-def k4_operands(shape, gen, dev):
+def k4_operands(shape, gen, dev, dtype=torch.bfloat16):
     n, h, w, ci, co = shape
 
     def randn(*s):
         return torch.randn(*s, generator=gen, device=dev)
-    return (randn(n, h, w, ci).bfloat16(),
-            (randn(2, 2, ci, co) / (4 * ci) ** 0.5).bfloat16(),
-            (0.1 * randn(co)).bfloat16())
+    return tuple(t.to(dtype) for t in (
+        randn(n, h, w, ci), randn(2, 2, ci, co) / (4 * ci) ** 0.5,
+        0.1 * randn(co)))
+
+
+def k1_operands_f32(shape, gen, dev):
+    return k1_operands(shape, gen, dev, torch.float32)
+
+
+def k4_operands_f32(shape, gen, dev):
+    return k4_operands(shape, gen, dev, torch.float32)
 
 
 def k6c_operands(shape, gen, dev):
@@ -301,7 +315,12 @@ KERNELS = {
     "k6c": (K5_MAIN, K6C_CHECKS, k6c_operands, run_k6c, ref_k6c, K6_VARIANTS),
     "k6b": (K3_MAIN, K6B_CHECKS, k6b_operands, run_k6b, ref_k6b,
             K6B_VARIANTS),
+    # fp32 by 3xTF32: the default kernel only
+    "k1_f32": (K1_MAIN, K1_CHECKS, k1_operands_f32, run_k1, ref_k1, ()),
+    "k4_f32": (K4_MAIN, K4_CHECKS, k4_operands_f32, run_k4, ref_k4, ()),
+    "k6a_f32": (K1_MAIN, K6A_CHECKS, k1_operands_f32, run_k6a, ref_k6a, ()),
 }
+F32 = ("k1_f32", "k4_f32", "k6a_f32")
 ABLATION = {"k6a": K6A_ABLATION, "k6c": K6C_ABLATION, "k6b": K6B_ABLATION}
 # the K6 forms with one part alone: pre without stats, stats without pre
 FORMS = {"pre_only": dict(want_stats=False), "stats_only": dict(pre=False)}
@@ -318,21 +337,21 @@ def y_wrong(name, variant) -> bool:
     return name in ("k6b", "k6c") and variant[0] >= 2
 
 
-def compare(got, want, stats=True) -> dict:
+def compare(got, want, stats=True, tol=TOL, stats_rtol=STATS_RTOL) -> dict:
     """Max abs error and, where it is over the tolerance, how many values
     disagree and the first one's index. A K6 form gives (y, stats): y is
     compared so, and the stats' two half-sums (rows 0:8 and 8:16 summed) by
     ``compare_stats`` unless ``stats`` is False (a measuring variant)."""
     if isinstance(got, tuple):
-        rec = compare(got[0], want[0])
+        rec = compare(got[0], want[0], tol=tol)
         if stats:
             npix = want[0][0].numel() // want[0].shape[-1] \
                 // (want[1].shape[0] // want[0].shape[0])
-            rec.update(compare_stats(got[1], want[1], npix))
+            rec.update(compare_stats(got[1], want[1], npix, tol, stats_rtol))
             rec["ok"] = rec["ok"] and rec.pop("stats_ok")
         return rec
     err = (got.float() - want).abs()
-    bad = err > TOL + TOL * want.abs()
+    bad = err > tol + tol * want.abs()
     rec = {"max_abs_err": float(err.max()), "ok": not bool(bad.any())}
     if not rec["ok"]:
         idx = bad.nonzero()[0].tolist()
@@ -341,16 +360,16 @@ def compare(got, want, stats=True) -> dict:
     return rec
 
 
-def compare_stats(got, want, npix) -> dict:
+def compare_stats(got, want, npix, tol, rtol) -> dict:
     """(N, 16, C) moment partials of images of npix pixels as their two
-    half-sums: the sums of squares within STATS_RTOL (+ TOL), the sums
-    within STATS_RTOL + TOL * sqrt(npix) (a signed sum may cancel)."""
+    half-sums: the sums of squares within rtol (+ tol), the sums within
+    rtol + tol * sqrt(npix) (a signed sum may cancel)."""
     out, ok = {}, True
-    for part, rows, atol in (("sum", slice(0, 8), TOL * npix ** 0.5),
-                             ("square", slice(8, 16), TOL)):
+    for part, rows, atol in (("sum", slice(0, 8), tol * npix ** 0.5),
+                             ("square", slice(8, 16), tol)):
         g, w = got[:, rows].sum(1), want[:, rows].sum(1)
         err = (g - w).abs()
-        ok = ok and not bool((err > atol + STATS_RTOL * w.abs()).any())
+        ok = ok and not bool((err > atol + rtol * w.abs()).any())
         out[f"stats_{part}_max_abs_err"] = float(err.max())
     return {**out, "stats_ok": ok}
 
@@ -377,6 +396,11 @@ def phase_sass(names):
                   r"\b(?:HGMMA|UTMALDG|UTMASTG)[.\w]*", sass)))})
 
 
+def tolerances(name) -> dict:
+    return (dict(tol=TOL_F32, stats_rtol=STATS_RTOL_F32) if name in F32
+            else {})
+
+
 def phase_check(names, gen, dev) -> bool:
     ok = True
     for name in names:
@@ -401,9 +425,10 @@ def phase_check(names, gen, dev) -> bool:
                 got = run(ops, variant)
                 torch.cuda.synchronize()
                 rec = compare(got, want,
-                              stats=variant not in ABLATION.get(name, ()))
-                if name in ("k1", "k4", "k6a"):
-                    y = got[0] if name == "k6a" else got
+                              stats=variant not in ABLATION.get(name, ()),
+                              **tolerances(name))
+                if name in ("k1", "k4", "k6a", *F32):
+                    y = got[0] if name.startswith("k6a") else got
                     rec["zero_columns"] = not bool(
                         (y[:, :, shape[2] + 1:] != 0).any())
                     rec["ok"] = rec["ok"] and rec["zero_columns"]
@@ -452,31 +477,34 @@ def _library_case(name, shape, ops, want):
     on the same operands (no mask, no sums, no pre)."""
     def cl(t, fmt=torch.channels_last):
         return t.contiguous(memory_format=fmt)
-    if name in ("k6a", "k6b", "k6c"):
+    if name in ("k6a", "k6b", "k6c", "k6a_f32"):
         # K1's operands are K6a's; K6b's and K6c's are K3's and K5's, then
         # sa and ta, of which row 0 of each (., 8, ci) block is read
         plain, conv_ops = {"k6a": ("k1", ops), "k6b": ("k3", ops[:3]),
-                           "k6c": ("k5", ops[:3])}[name]
+                           "k6c": ("k5", ops[:3]),
+                           "k6a_f32": ("k1_f32", ops)}[name]
         _, flops, n_bytes = _library_case(plain, shape, conv_ops, want[0])
         n_bytes += sum(t[:, 0].numel() * 2 for t in ops[len(conv_ops):])
         run_plain = KERNELS[plain][3]
         return (lambda: run_plain(conv_ops), flops,
                 n_bytes + want[1].numel() * 4)
-    if name == "k1":
+    # the output as stored, in the operands' dtype
+    out_bytes = want.numel() * ops[0].element_size()
+    if name in ("k1", "k1_f32"):
         n, h, w, ca, cb, co = shape
         xa, xb, wt, b = ops
         cat = torch.cat([xa, xb], -1).permute(0, 3, 1, 2)
         wl = cl(wt.permute(3, 2, 0, 1))
         return (lambda: F.conv2d(cat, wl, b, padding=1),
                 2 * n * h * w * 4 * (ca + cb) * co,
-                sum(t.numel() * 2 for t in ops) + want.numel() * 2)
-    if name == "k4":
+                sum(t.numel() * t.element_size() for t in ops) + out_bytes)
+    if name in ("k4", "k4_f32"):
         n, h, w, ci, co = shape
         x, wt, b = ops
         xl, wl = x.permute(0, 3, 1, 2), cl(wt.permute(3, 2, 0, 1))
         return (lambda: F.conv2d(xl, wl, b, padding=1),
                 2 * n * h * w * 4 * ci * co,
-                sum(t.numel() * 2 for t in ops) + want.numel() * 2)
+                sum(t.numel() * t.element_size() for t in ops) + out_bytes)
     x, wt, b = ops
     w_out = x.shape[-2] - 8
     n_bytes = (x[..., :w_out + 1, :].numel() + wt.numel() + b.numel()
@@ -496,8 +524,10 @@ def _library_case(name, shape, ops, want):
 
 
 def phase_tune(names, gen, dev, iters, rounds):
-    peak, hbm = 989e12, 3.35e12
+    hbm = 3.35e12
     for name in names:
+        # bf16 on the tensor cores; fp32: three TF32 products each
+        peak = 495e12 / 3 if name in F32 else 989e12
         shape, _, operands, run, ref, variants = KERNELS[name]
         ops = operands(shape, gen, dev)
         want = ref(ops)
@@ -508,7 +538,7 @@ def phase_tune(names, gen, dev, iters, rounds):
             print(f"tune {name} {variant}", file=sys.stderr, flush=True)
             got = run(ops, variant)
             torch.cuda.synchronize()
-            checks.append(compare(got, want))
+            checks.append(compare(got, want, **tolerances(name)))
             del got
         # the card's clock drifts under load: time every candidate in turn,
         # several rounds, and keep each one's median and least round
@@ -535,9 +565,10 @@ def phase_tune(names, gen, dev, iters, rounds):
                "library": stat("library"), "default": stat("default"),
                "variants": [{**dict(zip(keys, v)), **stat(v), **c}
                             for v, c in zip(variants, checks)]}
-        if name in ABLATION:
+        if name in (*ABLATION, "k6a_f32"):
             # the plain kernel is the "library" entry: no mask, no sums
             rec["library_is"] = "the plain K1 / K3 / K5 kernel, same operands"
+        if name in ABLATION:
             rec["ablation"] = [{**dict(zip(keys, v)), **stat(v)}
                                for v in ABLATION[name]]
         if name in ("k6b", "k6c"):
@@ -554,9 +585,10 @@ def main(argv=None) -> int:
                     help="launches per timing")
     ap.add_argument("--rounds", type=int, default=7,
                     help="timings of each candidate, taken in turn")
-    ap.add_argument("--kernels", default="k1,k5,k3,k4,k6a,k6b,k6c",
+    ap.add_argument("--kernels",
+                    default="k1,k5,k3,k4,k6a,k6b,k6c,k1_f32,k4_f32,k6a_f32",
                     help="the kernels to check and tune, of k1, k3, k4, k5, "
-                         "k6a, k6b, k6c")
+                         "k6a, k6b, k6c, k1_f32, k4_f32, k6a_f32")
     args = ap.parse_args(argv)
     names = args.kernels.split(",")
     if not torch.cuda.is_available():
@@ -572,7 +604,7 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda,
           "ptxas": {k: [ln.strip() for ln in v.splitlines()
                         if "Used" in ln or "spill" in ln or "warn" in ln
-                        or "Compiling entry" in ln]
+                        or "Compiling entry" in ln or "Performance" in ln]
                     for k, v in logs.items()}})
     phase_sass(libs)
     gen = torch.Generator(device=dev).manual_seed(0)
