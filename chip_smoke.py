@@ -84,11 +84,15 @@ and nothing of the JAX package. Phases, each printing one JSON line:
            (three TF32 products at 495 TFLOP/s) beside the one at fp32's
            FMA rate;
   fp32_forms  every other fp32 form once at the shape its bf16 row uses
-           (K3, K5, K6b, K6c and K7 on the FMA kernel of
-           ``csrc/pconv_valid.cu``, bound at 67 TFLOP/s; K4 and K6a on the
-           3xTF32 kernel): against its plain version (2e-5; the K6 forms'
-           moment half-sums 1e-4), kernel / plain / library times and the
-           bound; no path of the port launches them;
+           (K4 and K6a on K1's 3xTF32 kernel, K3, K6b and K7 on
+           ``csrc/pconv2d_sm90.cu``'s, K5 and K6c on
+           ``csrc/pconv3_valid_sm90.cu``'s): against its plain version
+           (2e-5; the K6 forms' moment half-sums 1e-4, K6a's on mostly
+           positive inputs, as K6b's and K6c's pre makes theirs), kernel /
+           plain / library times, the bound at the 3xTF32 rate and the
+           kernel's share of it, the bound at fp32's FMA rate beside it;
+           the fp32 tile checks (tile_pallas, tile_fused) launch K3, K5,
+           K6a, K6b and K6c on their path;
   streamed the served dual parity path through Segmenter(streaming=1) (two
            z-slabs of 6 tiles at the bench geometry, "cat", bf16) beside
            the whole-volume Segmenter in the same process: seconds a
@@ -521,14 +525,18 @@ def check_stats(name, got, want, npix, rtol, atol):
     return out
 
 
-def _k6_case(kernel, shape, dtype, gen, dev, use_pre=True, want_stats=True):
+def _k6_case(kernel, shape, dtype, gen, dev, use_pre=True, want_stats=True,
+             positive=False):
     """Operands of one K6 check: (kernel call, plain call, fp32 reference,
     unfused call, FLOP, bytes the function must move, output pixels per
     image). The VALID forms read a raw offset input (nonzero rim, 1e3 in the
     pad columns) through a nonzero pre; their reference applies pre in the
     working dtype, as the kernel does, then the plain conv in fp32.
     use_pre / want_stats (the VALID forms): the form with one part alone;
-    without want_stats the calls return y alone."""
+    without want_stats the calls return y alone. positive (K6a): inputs
+    mostly positive, a leaky output as a real forward's K6a reads, where a
+    bias of the output would add up in its sums."""
+    import torch.nn.functional as F
     from rehrseg_tpu_torch.ops import pack2d, pconv
 
     def randn(*s):
@@ -537,6 +545,8 @@ def _k6_case(kernel, shape, dtype, gen, dev, use_pre=True, want_stats=True):
     if kernel == "k6a":
         n, h, w, ca, cb, co = shape
         xa, xb = randn(n, h, w, ca).to(dtype), randn(n, h, w, cb).to(dtype)
+        if positive:
+            xa, xb = F.leaky_relu(xa, SLOPE), F.leaky_relu(xb, SLOPE)
         wt = (randn(2, 2, ca + cb, co) / (4 * (ca + cb)) ** 0.5).to(dtype)
         b = (0.1 * randn(co)).to(dtype)
         mask = pack2d.offset_rim_mask(h + 1, pconv._round8(w + 1), co // 4,
@@ -1614,19 +1624,16 @@ def _k1_fp32_main(gen, dev):
     return rec
 
 
-# the fp32 forms other than K1 -> (kernel, its bf16 row's shape, the rate
-# that bounds it): the FMA kernel of csrc/pconv_valid.cu at fp32's rate, K4
-# and K6a the 3xTF32 kernel
+# the fp32 forms other than K1 -> (kernel source, its bf16 row's shape);
+# each is bound at the 3xTF32 rate
 FP32_FORMS = {
-    "k3": ("csrc/pconv_valid.cu", PCONV_SHAPES["k3"][0], FP32_FLOPS),
-    "k5": ("csrc/pconv_valid.cu", PCONV_SHAPES["k5"][0], FP32_FLOPS),
-    "k6b": ("csrc/pconv_valid.cu", K6_SHAPES["k6b"][0], FP32_FLOPS),
-    "k6c": ("csrc/pconv_valid.cu", K6_SHAPES["k6c"][0], FP32_FLOPS),
-    "k7": ("csrc/pconv_valid.cu", (128, 161, 193, 128, 128), FP32_FLOPS),
-    "k4": ("csrc/pconv_pad11_cat_sm90.cu", PCONV_SHAPES["k4"][0],
-           TF32X3_FLOPS),
-    "k6a": ("csrc/pconv_pad11_cat_sm90.cu", K6_SHAPES["k6a"][0],
-            TF32X3_FLOPS),
+    "k3": ("csrc/pconv2d_sm90.cu", PCONV_SHAPES["k3"][0]),
+    "k5": ("csrc/pconv3_valid_sm90.cu", PCONV_SHAPES["k5"][0]),
+    "k6b": ("csrc/pconv2d_sm90.cu", K6_SHAPES["k6b"][0]),
+    "k6c": ("csrc/pconv3_valid_sm90.cu", K6_SHAPES["k6c"][0]),
+    "k7": ("csrc/pconv2d_sm90.cu", (128, 161, 193, 128, 128)),
+    "k4": ("csrc/pconv_pad11_cat_sm90.cu", PCONV_SHAPES["k4"][0]),
+    "k6a": ("csrc/pconv_pad11_cat_sm90.cu", K6_SHAPES["k6a"][0]),
 }
 
 
@@ -1634,8 +1641,8 @@ def phase_fp32_forms(gen, dev):
     """Every fp32 form other than K1, once, at the shape its bf16 row
     uses, against its plain version (2e-5; the K6 forms' moment half-sums
     within 1e-4), with kernel / plain / library times (cuDNN fp32, TF32
-    off; none for a K6 form) and the bound at its kernel's rate. No path of
-    the port launches these forms."""
+    off; none for a K6 form), the bound at the 3xTF32 rate and the kernel's
+    share of it, and the bound at fp32's FMA rate. Returns the records."""
     import torch.nn.functional as F
     from rehrseg_tpu_torch.ops import pconv
     from rehrseg_tpu_torch.ops.conv2x2 import (conv2x2_valid_bias,
@@ -1643,7 +1650,7 @@ def phase_fp32_forms(gen, dev):
 
     tol, f32 = 2e-5, torch.float32
     out = {}
-    for kernel, (source, shape, peak) in FP32_FORMS.items():
+    for kernel, (source, shape) in FP32_FORMS.items():
         rec = dict(source=source, shape=list(shape), dtype=str(f32),
                    tolerance=tol, library_ms=None)
         if kernel in ("k3", "k4", "k5"):
@@ -1680,7 +1687,7 @@ def phase_fp32_forms(gen, dev):
             n_bytes = nbytes(x, wt, b, y)
         else:
             call, run_plain, ref, _, flops, n_bytes, npix = _k6_case(
-                kernel, shape, f32, gen, dev)
+                kernel, shape, f32, gen, dev, positive=kernel == "k6a")
             y, stats = call()
             torch.cuda.synchronize()
             ry, rstats = ref()
@@ -1691,10 +1698,11 @@ def phase_fp32_forms(gen, dev):
             del ry, rstats, stats
         rec["ms"] = cuda_ms(call, iters=3, warmup=1)
         rec["plain_ms"] = cuda_ms(run_plain, iters=3, warmup=1)
-        rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops, peak)
-        rec["bound_at"] = ("3xTF32: three TF32 products at 495 TFLOP/s"
-                           if peak == TF32X3_FLOPS else
-                           "fp32 FMA at 67 TFLOP/s")
+        rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops,
+                                                 TF32X3_FLOPS)
+        rec["bound_at"] = "3xTF32: three TF32 products at 495 TFLOP/s"
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        rec["fma_bound_ms"] = bound(n_bytes, flops, FP32_FLOPS)[0]
         rec["tflops"] = flops / 1e12
         rec["gbytes"] = n_bytes / 1e9
         out[kernel] = rec
@@ -2636,7 +2644,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k6 = phase_k6(gen, dev)
     k7 = phase_k7(gen, dev)
-    phase_tile_fused(params, dev)
+    tile_fused = phase_tile_fused(params, dev)
     torch.cuda.empty_cache()
     launches_fused = phase_main_fused(params, dev, gpu)
     torch.cuda.empty_cache()
@@ -2650,7 +2658,7 @@ def main() -> int:
         launches_eval, k1_fp32 = phase_evaluate(params, dev, gpu, Path(work),
                                                 gen)
         torch.cuda.empty_cache()
-        phase_fp32_forms(gen, dev)
+        fp32 = phase_fp32_forms(gen, dev)
         torch.cuda.empty_cache()
         phase_train_step(params, dev, gpu)
         torch.cuda.empty_cache()
@@ -2662,6 +2670,10 @@ def main() -> int:
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    # the fp32 VALID forms' launches on their path: the fp32 full-width
+    # tiles through pallas_conv=True (both arches)
+    tiles_fp32 = [tile_pallas[a]["launches"]
+                  for a in ("default_arch", "stage0_3conv")]
     emit({"kernels": [
         dict(name="pconv_pad11_cat", route="cuda",
              source="rehrseg_tpu_torch/csrc/pconv_pad11_cat_sm90.cu",
@@ -2719,6 +2731,39 @@ def main() -> int:
              launches=launches_fused["pconv3_valid_fused"],
              launches_in="main_fused", unfused_ms=k6["k6c"]["unfused_ms"],
              **{k: k6["k6c"][k] for k in keys}),
+        # the fp32 VALID forms and the fp32 K6 forms (an exact high
+        # product), each with its own record, bound at the 3xTF32 rate;
+        # launches on the fp32 full-width tiles
+        dict(name="pconv_valid (fp32)", route="cuda",
+             source="rehrseg_tpu_torch/csrc/pconv2d_sm90.cu",
+             replaces="rehrseg_tpu/ops/pallas_pconv.py:519",
+             launches=sum(c.get("pconv_valid", 0) for c in tiles_fp32),
+             launches_in="tile_pallas (both arches)",
+             **{k: fp32["k3"][k] for k in keys}),
+        dict(name="pconv3_valid (fp32)", route="cuda",
+             source="rehrseg_tpu_torch/csrc/pconv3_valid_sm90.cu",
+             replaces="rehrseg_tpu/ops/pallas_pconv.py:1117",
+             launches=sum(c.get("pconv3_valid", 0) for c in tiles_fp32),
+             launches_in="tile_pallas (both arches)",
+             **{k: fp32["k5"][k] for k in keys}),
+        dict(name="pconv_pad11_cat(want_stats=True) (fp32)", route="cuda",
+             source="rehrseg_tpu_torch/csrc/pconv_pad11_cat_sm90.cu",
+             replaces="rehrseg_tpu/ops/pallas_pconv.py:641",
+             launches=tile_fused["launches"]["pconv_pad11_cat_stats"],
+             launches_in="tile_fused",
+             **{k: fp32["k6a"][k] for k in keys}),
+        dict(name="pconv_valid(pre=, want_stats=True) (fp32)", route="cuda",
+             source="rehrseg_tpu_torch/csrc/pconv2d_sm90.cu",
+             replaces="rehrseg_tpu/ops/pallas_pconv.py:148",
+             launches=tile_fused["launches"]["pconv_valid_fused"],
+             launches_in="tile_fused",
+             **{k: fp32["k6b"][k] for k in keys}),
+        dict(name="pconv3_valid(pre=, want_stats=True) (fp32)", route="cuda",
+             source="rehrseg_tpu_torch/csrc/pconv3_valid_sm90.cu",
+             replaces="rehrseg_tpu/ops/pallas_pconv.py:930",
+             launches=tile_fused["launches"]["pconv3_valid_fused"],
+             launches_in="tile_fused",
+             **{k: fp32["k6c"][k] for k in keys}),
         # K7: nothing on any path calls it, in the port as in the JAX
         # package (0 launches in main, main_pallas and main_fused); bf16
         # runs K3's kernel

@@ -1,6 +1,7 @@
 // K4, K3, K7 and K6b on Hopper: the kd = 1 packed 2x2 convs + bias on one
-// input, bf16, on TMA-fed shared memory and wgmma, with the whole weight
-// tensor resident in shared memory.
+// input, on TMA-fed shared memory and wgmma: bf16 with the whole weight
+// tensor resident in shared memory, and K3, K7 and K6b in fp32 by 3xTF32
+// (fp32 K4 is pconv_pad11_cat_sm90.cu's).
 //
 // Replaces the TPU kernels of rehrseg_tpu/ops/pallas_pconv.py pconv_pad11
 // (:576, body _pad11_kernel :272; K4) and pconv_valid (:519, body
@@ -21,10 +22,12 @@
 //       columns 0..w_out are read, whatever the others hold
 //       -> y (N, hp-1, w_out, Co) aligned
 //
-// W (2, 2, Ci, Co), bias (Co), contiguous channels-last bf16; fp32
-// accumulation, the bias added in fp32, one rounding. Needs Ci, Co % 128 ==
-// 0 (so every row of channels is a multiple of 16 bytes, whatever the
-// width: K7's odd widths need nothing more).
+// W (2, 2, Ci, Co), bias (Co), contiguous channels-last; fp32
+// accumulation, the bias added in fp32. bf16: one rounding at the store;
+// fp32: none, the products fp32-accurate (3xTF32), W given split and
+// K-major (ops/pconv.py tf32x3_weights). Needs Ci, Co % 128 == 0 (so every
+// row of channels is a multiple of 16 bytes, whatever the width: K7's odd
+// widths need nothing more).
 //
 // K6b is K3 with either or both of sm90_pipeline.cuh's deferred-norm parts
 // (K6bValid2): with pre the conv reads leaky(x * sa[n] + ta[n]) * rim_mask
@@ -78,6 +81,14 @@
 // Where the weights leave no room for the ring (Ci >= 256: 256 KB), the
 // same geometry runs sm90_pipeline.cuh's streamed-weights kernel, which is
 // also the first timed variant.
+//
+// fp32 K3, K7 and K6b (Valid2F32, K6bValid2F32) run that streamed kernel
+// on its fp32 operand path (sm90_pipeline.cuh: 3xTF32, 32 channels a K
+// step, the K6b transform applied to A in registers): split into W_hi and
+// W_lo, the weights are 512 KB at Ci = 128 and cannot stay resident. The
+// three TF32 products bound them: 3 x 0.515 TFLOP at 495 TFLOP/s is 3.12
+// ms at the path's shape, against 7.7 ms at fp32's FMA rate; they move
+// about 4.1 GB (1.23 ms).
 
 #include "sm90_pipeline.cuh"
 
@@ -86,33 +97,38 @@ namespace {
 using namespace sm90;
 
 // The taps of a 2x2 conv on one input. K step ks is column tap t = ks % 2
-// of channel chunk ks / 2, both row taps (the two column taps of a chunk
-// run back to back and re-read the same rows while they are hot in L2);
-// OFF is the coordinate of tap 0 against the output pixel: -1 with the
-// pad(1, 1) rim (K4), 0 for VALID (K3, K7).
-template <int OFF>
+// of channel chunk ks / 2 (KC channels: 64 bf16, 32 fp32), both row taps
+// (the two column taps of a chunk run back to back and re-read the same
+// rows while they are hot in L2); OFF is the coordinate of tap 0 against
+// the output pixel: -1 with the pad(1, 1) rim (K4), 0 for VALID (K3, K7).
+template <int OFF, int KC = BK>
 struct Taps {
   int ci;
 
-  __device__ __forceinline__ int ksteps(int) const { return 2 * (ci / BK); }
+  __device__ __forceinline__ int ksteps(int) const { return 2 * (ci / KC); }
 
   __device__ __forceinline__ void load_a(const CUtensorMap* map,
                                          const CUtensorMap*, int ks, int img,
                                          int i0, int j0, uint32_t dst,
                                          uint32_t bar) const {
-    tma_load_4d(dst, map, bar, (ks >> 1) * BK, j0 + (ks & 1) + OFF, i0 + OFF,
+    tma_load_4d(dst, map, bar, (ks >> 1) * KC, j0 + (ks & 1) + OFF, i0 + OFF,
                 img);
   }
 
-  // W is (2, 2, Ci, Co): tap (s, t) starts at row (s*2 + t)*Ci
+  // W is (2, 2, Ci, Co): tap (s, t) starts at row (s*2 + t)*Ci (fp32:
+  // column, of the split K-major matrix)
   __device__ __forceinline__ int w_row(int ks, int, int s) const {
-    return (s * 2 + (ks & 1)) * ci + (ks >> 1) * BK;
+    return (s * 2 + (ks & 1)) * ci + (ks >> 1) * KC;
   }
 };
 
-// named so that a profile tells K4's launches from K3's
+// named so that a profile tells K4's launches from K3's (and fp32's from
+// bf16's)
 struct Pad11 : Taps<-1> {};
 struct Valid2 : Taps<0> {};
+struct Valid2F32 : Taps<0, BK_F32> {
+  static constexpr bool TF32X3 = true;
+};
 
 // K6b: F of FORM_PRE, FORM_STATS; K3's taps on leaky(x * sa + ta) *
 // rim_mask, sa, ta (N, Ci), one row per image
@@ -131,6 +147,20 @@ struct K6bValid2 : Valid2, PreSlab {
                                             int i0, int j0, uint32_t slab,
                                             int log_tw, int t) const {
     rewrite_slab(o, i0, j0 + (ks & 1), slab, log_tw, t);
+  }
+};
+
+// fp32 K6b: F of FORM_PRE, FORM_STATS, the transform in registers; with
+// FORM_STATS the exact high product (sm90_pipeline.cuh
+// tf32x3_exact_step)
+template <int F>
+struct K6bValid2F32 : Valid2F32, PreF32 {
+  static constexpr int FORM = F;
+  StatsOut so;
+
+  __device__ __forceinline__ Operands pre_operands(int ks, int img,
+                                                   int t) const {
+    return operands(img, ci, (ks >> 1) * BK_F32, ks & 1, t);
   }
 };
 
@@ -429,6 +459,65 @@ int launch_k6b(const void* x, const void* w, const void* b, void* y,
   return sa ? run(K6bValid2<FORM_PRE>{}) : run(K6bValid2<FORM_STATS>{});
 }
 
+// fp32 (3xTF32) on the streamed kernel: x read as for launch (a map of (n,
+// map_h, map_w, ci) with rows pitch_w pixels apart), w the split weights
+// (2, co, 4 ci) and, for the forms with stats, w3 their bf16 third part (4
+// ci, co), y (n, out_h, out_w, co) fp32
+template <class Conv>
+int launch_f32(const Conv& proto, const void* x, const void* w,
+               const void* w3, const void* b, void* y, int n, int map_h,
+               int map_w, int pitch_w, int ci, int co, int out_h, int out_w,
+               void* stream) {
+  if (ci % 128 || co % 128 || ci < 128 || co < 128 || n < 1 || map_h < 1 ||
+      map_w < 1 || pitch_w < map_w || out_h < 1 || out_w < 1)
+    return (int)cudaErrorInvalidValue;
+  TileGeo g;
+  int err = make_geo(&g, n, out_h, out_w, out_w, co, 1, -1, TILE_PIX_F32);
+  if (err) return err;
+  CUtensorMap mx, mw;
+  const uint64_t px = (uint64_t)ci * 4;
+  const uint64_t dims[4] = {(uint64_t)ci, (uint64_t)map_w, (uint64_t)map_h,
+                            (uint64_t)n};
+  const uint64_t strides[3] = {px, px * pitch_w, px * pitch_w * map_h};
+  const uint32_t box[4] = {BK_F32, 1u << g.log_tw, (uint32_t)g.th + 1, 1};
+  if ((err = make_map(&mx, x, 4, dims, strides, box,
+                      CU_TENSOR_MAP_DATA_TYPE_FLOAT32)))
+    return err;
+  if ((err = make_weight_map_f32(&mw, w, (int64_t)4 * ci, co))) return err;
+  CUtensorMap m3;
+  if (w3 && (err = make_third_map(&m3, w3, (int64_t)4 * ci, co))) return err;
+  Conv conv = proto;
+  conv.ci = ci;
+  return launch_conv<Conv, 1, STAGES_F32>(mx, mx, mw, conv, g, b, y,
+                                          (cudaStream_t)stream,
+                                          w3 ? &m3 : nullptr);
+}
+
+// fp32 K3 / K7 when sa, ta and stats are null, else K6b; the form follows
+// from what is given (sa and ta both or neither, stats and w3 both or
+// neither)
+int launch_valid_f32(const void* x, const void* w, const void* w3,
+                     const void* b, void* y, const void* sa, const void* ta,
+                     void* stats, int n, int hp, int wp8, int ci, int co,
+                     int w_out, float slope, void* stream) {
+  if (hp < 2 || (sa == nullptr) != (ta == nullptr) ||
+      (stats == nullptr) != (w3 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto run = [&](const auto& conv) {
+    return launch_f32(conv, x, w, w3, b, y, n, hp, w_out + 1, wp8, ci, co,
+                      hp - 1, w_out, stream);
+  };
+  auto run_fused = [&](auto conv) {
+    set_pre_f32(conv, sa, ta, slope, hp, w_out + 1);
+    conv.so = StatsOut{(float*)stats, 0};
+    return run(conv);
+  };
+  if (!sa && !stats) return run(Valid2F32{});
+  if (sa && stats) return run_fused(K6bValid2F32<FORM_PRE | FORM_STATS>{});
+  return sa ? run_fused(K6bValid2F32<FORM_PRE>{})
+            : run_fused(K6bValid2F32<FORM_STATS>{});
+}
+
 }  // namespace
 
 // K4: x (n, h, w_in, ci), w (2, 2, ci, co), b (co) -> y (n, h+1, wp8, co),
@@ -498,4 +587,21 @@ extern "C" int pconv_valid_fused_sm90_bf16_variant(
     void* stream) {
   return launch_k6b(x, w, b, y, sa, ta, stats, n, hp, wp8, ci, co, w_out,
                     slope, measure, mode, stages, log_tw, stream);
+}
+
+// fp32 by 3xTF32: K3 (and K7 with wp8 = w_out + 1) when sa, ta, stats and
+// w3 are null, K6b with sa, ta (n, ci) fp32 for the pre transform with its
+// leaky slope and / or stats (n, 16, co) fp32, zeroed by the caller, with
+// w3: x (n, hp, wp8, ci), w the split weights (2, co, 4 ci) fp32 and w3
+// the third part (4 ci, co) bf16 of ops/pconv.py tf32x3_weights (exact for
+// the form with stats), b (co) fp32 -> y (n, hp-1, w_out, co) fp32.
+// Returns as above.
+extern "C" int pconv_valid_sm90_f32(const void* x, const void* w,
+                                    const void* w3, const void* b, void* y,
+                                    const void* sa, const void* ta,
+                                    void* stats, int n, int hp, int wp8,
+                                    int ci, int co, int w_out, float slope,
+                                    void* stream) {
+  return launch_valid_f32(x, w, w3, b, y, sa, ta, stats, n, hp, wp8, ci, co,
+                          w_out, slope, stream);
 }

@@ -99,7 +99,8 @@ struct K6aPad11Cat : Pad11Cat {
   StatsOut so;
 };
 
-// fp32 K1; K4 (Cb = 0); K6a (FORM_STATS | FORM_RIM)
+// fp32 K1; K4 (Cb = 0); K6a (FORM_STATS | FORM_RIM: the exact high
+// product of sm90_pipeline.cuh tf32x3_exact_step)
 struct Pad11CatF32 : Pad11Taps<BK_F32> {
   static constexpr bool TF32X3 = true;
 };
@@ -112,12 +113,13 @@ struct K6aPad11CatF32 : Pad11CatF32 {
 
 // Conv = Pad11Cat: K1, with its variant (cluster, stages); a K6aPad11Cat:
 // one block per cluster, the sums going to `so`; an fp32 Conv: K1, K4 (cb =
-// 0, xb unread) or K6a, one block per cluster, two stages
+// 0, xb unread) or K6a (w3 its third weight part), one block per cluster,
+// two stages
 template <class Conv>
 int launch(const void* xa, const void* xb, const void* w, const void* b,
            void* y, StatsOut so, int n, int h, int w_in, int ca, int cb,
            int co, int wp8, int cluster, int stages, int log_tw,
-           void* stream) {
+           void* stream, const void* w3 = nullptr) {
   constexpr bool F32 = tf32x3_of<Conv>::value;
   const bool cb_ok = cb >= 128 || (F32 && cb == 0);
   if (ca % 128 || cb % 128 || co % 128 || ca < 128 || !cb_ok ||
@@ -147,6 +149,9 @@ int launch(const void* xa, const void* xb, const void* w, const void* b,
   err = F32 ? make_weight_map_f32(&mw, w, (int64_t)4 * (ca + cb), co)
             : make_weight_map(&mw, w, (int64_t)4 * (ca + cb), co);
   if (err) return err;
+  CUtensorMap m3;
+  if (w3 && (err = make_third_map(&m3, w3, (int64_t)4 * (ca + cb), co)))
+    return err;
   Conv conv;
   conv.ca = ca;
   conv.cb = cb;
@@ -155,7 +160,8 @@ int launch(const void* xa, const void* xb, const void* w, const void* b,
   if constexpr (F32) {
     if (cluster != 1 || stages != STAGES_F32)
       return (int)cudaErrorInvalidValue;
-    return launch_conv<Conv, 1, STAGES_F32>(ma, mb, mw, conv, g, b, y, st);
+    return launch_conv<Conv, 1, STAGES_F32>(ma, mb, mw, conv, g, b, y, st,
+                                            w3 ? &m3 : nullptr);
   } else if constexpr (form_of<Conv>::value == 0) {
     return launch_variant(cluster, stages, ma, mb, mw, conv, g, b, y, st);
   } else {
@@ -186,15 +192,16 @@ int launch_stats(const void* xa, const void* xb, const void* w,
       stream);
 }
 
-// fp32: K6a with stats, else K4 when cb = 0, else K1
-int launch_f32(const void* xa, const void* xb, const void* w, const void* b,
-               void* y, void* stats, int n, int h, int w_in, int ca, int cb,
-               int co, int wp8, void* stream) {
+// fp32: K6a with stats (and w3), else K4 when cb = 0, else K1
+int launch_f32(const void* xa, const void* xb, const void* w, const void* w3,
+               const void* b, void* y, void* stats, int n, int h, int w_in,
+               int ca, int cb, int co, int wp8, void* stream) {
+  if ((stats == nullptr) != (w3 == nullptr)) return (int)cudaErrorInvalidValue;
   if (stats) {
     if (!cb) return (int)cudaErrorInvalidValue;
     return launch<K6aPad11CatF32<FORM_STATS | FORM_RIM>>(
         xa, xb, w, b, y, StatsOut{(float*)stats, 0}, n, h, w_in, ca, cb, co,
-        wp8, 1, STAGES_F32, -1, stream);
+        wp8, 1, STAGES_F32, -1, stream, w3);
   }
   if (!cb)
     return launch<Pad11F32>(xa, xa, w, b, y, StatsOut{}, n, h, w_in, ca, 0,
@@ -250,16 +257,18 @@ extern "C" int pconv_pad11_cat_stats_sm90_bf16_variant(
                       measure, stages, log_tw, stream);
 }
 
-// fp32 by 3xTF32: K1 (stats null), K6a (stats (n, 16, co) fp32, zeroed by
-// the caller) and K4 (cb = 0, stats null; xb is not read): xa (n, h, w_in,
-// ca), xb (n, h, w_in, cb), w the split weights (2, co, 4 (ca+cb)) fp32 of
-// ops/pconv.py tf32x3_weights, b (co) fp32 -> y (n, h+1, wp8, co) fp32.
-// Returns as above.
+// fp32 by 3xTF32: K1 (stats and w3 null), K6a (stats (n, 16, co) fp32,
+// zeroed by the caller, and w3) and K4 (cb = 0, stats and w3 null; xb is
+// not read): xa (n, h, w_in, ca), xb (n, h, w_in, cb), w the split weights
+// (2, co, 4 (ca+cb)) fp32 and w3 the third part (4 (ca+cb), co) bf16 of
+// ops/pconv.py tf32x3_weights (exact for K6a), b (co) fp32 -> y (n, h+1,
+// wp8, co) fp32. Returns as above.
 extern "C" int pconv_pad11_cat_sm90_f32(const void* xa, const void* xb,
-                                        const void* w, const void* b,
-                                        void* y, void* stats, int n, int h,
-                                        int w_in, int ca, int cb, int co,
-                                        int wp8, void* stream) {
-  return launch_f32(xa, xb, w, b, y, stats, n, h, w_in, ca, cb, co, wp8,
+                                        const void* w, const void* w3,
+                                        const void* b, void* y, void* stats,
+                                        int n, int h, int w_in, int ca,
+                                        int cb, int co, int wp8,
+                                        void* stream) {
+  return launch_f32(xa, xb, w, w3, b, y, stats, n, h, w_in, ca, cb, co, wp8,
                     stream);
 }

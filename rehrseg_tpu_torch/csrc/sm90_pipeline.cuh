@@ -51,10 +51,11 @@
 // weights-resident kernel, or this one where the weights do not fit) are
 // the plain kernels with a Conv whose FORM names compile-time parts; a Conv
 // without FORM compiles to the plain kernel:
-// - FORM_PRE: the conv reads leaky(x * sa + ta) * rim_mask. The warpgroup
-//   that owns a slab rewrites it in place in shared memory (Conv::transform,
-//   PreSlab's rewrite_slab) once it has landed, then fences the async proxy
-//   and meets on a named barrier before its wgmmas read it. The wgmmas of
+// - FORM_PRE: the conv reads leaky(x * sa + ta) * rim_mask. In bf16 the
+//   warpgroup that owns a slab rewrites it in place in shared memory
+//   (Conv::transform, PreSlab's rewrite_slab) once it has landed, then
+//   fences the async proxy and meets on a named barrier before its wgmmas
+//   read it (fp32 transforms A in registers: PreF32). The wgmmas of
 //   the K step before are still running then (they are asynchronous), so
 //   the rewrite overlaps them; what it costs is shared-memory traffic beside
 //   wgmma's operand reads and a longer hold on the stage (a form that
@@ -68,8 +69,9 @@
 //   with one vector red per four channels, kind and tile
 //   (store_tile_fused).
 //
-// The fp32 operand path (a Conv with TF32X3; pconv_pad11_cat_sm90.cu's fp32
-// K1, K4 and K6a) computes fp32-accurate products on the tensor cores by
+// The fp32 operand path (a Conv with TF32X3: pconv_pad11_cat_sm90.cu's fp32
+// K1, K4 and K6a, pconv3_valid_sm90.cu's fp32 K5 and K6c, pconv2d_sm90.cu's
+// fp32 K3, K7 and K6b) computes fp32-accurate products on the tensor cores by
 // 3xTF32: each operand is split into a TF32 high part and a TF32 low part,
 // and the accumulators take hi * lo + lo * hi + hi * hi (lo * lo, below
 // 2^-22 of the product, is dropped). TF32 wgmma reads both operands K-major
@@ -89,7 +91,32 @@
 // The epilogue adds the bias in fp32 and stores without rounding
 // (store_tile_f32). What bounds it is the tensor cores' TF32 rate, three
 // products for one: 3 x 1.03 TFLOP at 495 TFLOP/s is 6.25 ms at K1's
-// served shape, against 15.4 ms for the same work at fp32's FMA rate.
+// served shape, against 15.4 ms for the same work at fp32's FMA rate. Its
+// FORM_PRE (fp32 K6b, K6c) is not a rewrite of the slab: the transform is
+// applied to A in registers as each consumer thread loads its channels
+// from the landed slab, before the split (PreF32), so shared memory
+// carries no more traffic than the plain form's; each element is
+// transformed twice, once for each row tap that reads it.
+//
+// The fp32 forms with moment sums (K6a, K6b, K6c: exact_of) need more than
+// fp32-accurate outputs. The truncation of the tensor cores' fp32
+// accumulation shortens every partial sum toward zero, and where a
+// channel's inputs are mostly positive (a deferred norm's leaky output) it
+// does so alike in every pixel: an image's sum of the stored output adds it
+// up, ten times past the sums' tolerance at K6b's path shape, where each
+// output stays within 2e-5. And W_hi + W_lo hold only 22 of the weights'
+// 24 bits, an error every pixel shares. So these forms make the large
+// product exact and the weights whole (tf32x3_exact_step): A_hi is A on a
+// grid of 2^-9 of the pixel row's largest power of two over a row tap's 32
+// channels (11 bits), W_hi is W on a grid of 2^-8 of the largest of the
+// same 32 k of a column (10 bits), so a row tap's 32 products A_hi W_hi
+// are multiples of one grid step, each at most 2^19 of them, and their
+// sum, at most 2^24 steps, is exact in fp32: what the tensor cores return.
+// The rest, A_lo W_hi + A W_lo (about 2^-9 of it), goes to an accumulator
+// of its own with a third, bf16, part of W (the bits W_hi and W_lo leave,
+// a K step's 16 KB of shared memory) times bf16 A (two m64n128k16 a row
+// tap). The products cost 3.5 TF32 products where the other forms take 3,
+// and two flushes a row tap where they take one half.
 
 #pragma once
 
@@ -160,9 +187,18 @@ struct tf32x3_of<Conv, std::void_t<decltype(Conv::TF32X3)>> {
 };
 template <class Conv>
 using elem_of = std::conditional_t<tf32x3_of<Conv>::value, float, bf16>;
+// The fp32 forms with moment sums (fp32 K6a, K6b, K6c) make their large
+// product exact (tf32x3_exact_step) and take a third, bf16, part of the
+// weights: a K step's 64 k x 128 channels, N-major in two 64-channel boxes
+// as the bf16 path's weights (DESC_B), after the stage's W_hi and W_lo.
+template <class Conv>
+constexpr bool exact_of = tf32x3_of<Conv>::value &&
+                          (form_of<Conv>::value & FORM_STATS) != 0;
+constexpr int W3_BYTES = 2 * B_HALF_BYTES;  // 16 KB
 template <class Conv>
 constexpr int stage_bytes_of =
-    tf32x3_of<Conv>::value ? STAGE_F32_BYTES : STAGE_BYTES;
+    tf32x3_of<Conv>::value ? STAGE_F32_BYTES + (exact_of<Conv> ? W3_BYTES : 0)
+                           : STAGE_BYTES;
 
 // FORM_STATS: 256 floats for each warp of the two consumer warpgroups
 constexpr int STATS_SCRATCH_BYTES = 2 * 4 * 256 * 4;
@@ -175,7 +211,8 @@ constexpr int smem_bytes(int stages, int form = 0,
          ((form & FORM_STATS) ? STATS_SCRATCH_BYTES : 0);
 }
 // a block may have 227 KB (232,448 bytes) of shared memory
-static_assert(smem_bytes(STAGES_F32, FORM_STATS, STAGE_F32_BYTES) <= 232448,
+static_assert(smem_bytes(STAGES_F32, FORM_STATS, STAGE_F32_BYTES + W3_BYTES) <=
+                  232448,
               "the fp32 ring does not fit");
 
 // ------------------------------------------------------------ device side
@@ -412,6 +449,43 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 128, fp32) = A (64 x 16, bf16, in registers) * B (16 x 128,
+// N-major in shared memory, DESC_B) [+ D], D laid out as wgmma_m64n128k16's.
+// Lane l of warp w holds a[0] = (row 16w + l/4, k 2(l%4) + {0, 1}) as a bf16
+// pair (the lower k in the low half), a[1] the same 8 rows down, a[2] and
+// a[3] the same rows at k + 8.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // x split into two TF32 values, hi + lo = x within 2^-22 |x| (ops/pconv.py
 // split_tf32): hi rounds x to nearest, ties away from zero, and lo rounds
 // the exact remainder x - hi the same way. hi's low 13 bits are cleared, so
@@ -426,6 +500,12 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
       : "f"(__fsub_rn(x, __uint_as_float(h))));
   hi = h;
   lo = l;
+}
+
+// two floats as a bf16 pair, rounded to nearest, lo in the low half
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // keep the compiler from moving reads of the accumulators above the wait
@@ -937,6 +1017,63 @@ struct PreSlab {
   }
 };
 
+// FORM_PRE on the fp32 operand path (fp32 K6b, K6c): the transform
+// leaky(x * sa + ta) * rim_mask applied to A in registers, inside the
+// step (tf32x3_step, tf32x3_exact_step), to the channels a consumer thread
+// has loaded from the landed slab and before it splits them, with the
+// roundings of pre_plain (after the multiply, the add and the leaky
+// product; the _rn forms are never contracted into one fma). The slab is
+// never rewritten, so FORM_PRE adds no shared-memory traffic; each element
+// is transformed once for each row tap that reads it. What TMA zero-filled
+// (past row hp - 1 or column tw - 1) lies outside the rim mask and gives
+// zero.
+struct PreF32 {
+  const float* sa;  // (rows, Ci)
+  const float* ta;
+  float slope;
+  int hp, tw;       // the input's rows and true width w_out + 1
+
+  // thread t's scale and shift for the K step's channels c0 + 8 q .. c0 +
+  // 8 q + 7 of sa / ta row `row` (q = t % 4: the channels tf32x3_step gives
+  // it), their rim-mask group (a 32-channel chunk lies in one: Ci / 4 is a
+  // multiple of 32) and the K step's column tap
+  struct Operands {
+    float4 s[2], t[2];
+    int grp, tap;
+  };
+
+  __device__ __forceinline__ Operands operands(int64_t row, int ci, int c0,
+                                               int tap, int t) const {
+    const int64_t off = row * ci + c0 + 8 * (t & 3);
+    const float4* ps = reinterpret_cast<const float4*>(sa + off);
+    const float4* pt = reinterpret_cast<const float4*>(ta + off);
+    return Operands{{__ldg(ps), __ldg(ps + 1)}, {__ldg(pt), __ldg(pt + 1)},
+                    c0 / (ci >> 2), tap};
+  }
+
+  __device__ __forceinline__ float leaky(float x, float s, float t) const {
+    const float v = __fadd_rn(__fmul_rn(x, s), t);
+    return v >= 0.0f ? v : __fmul_rn(v, slope);
+  }
+
+  // v: the thread's 8 channels of slab row p of the tile whose first output
+  // pixel is (i0, j0): input pixel (i0 + p / TW, j0 + tap + p % TW)
+  __device__ __forceinline__ void apply(const Operands& o, int i0, int j0,
+                                        int log_tw, int p,
+                                        float4 (&v)[2]) const {
+    const bool in = rim_ok(i0 + (p >> log_tw),
+                           j0 + o.tap + (p & ((1 << log_tw) - 1)), hp, tw,
+                           o.grp);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float4 s = o.s[c], t = o.t[c];
+      v[c] = in ? make_float4(leaky(v[c].x, s.x, t.x), leaky(v[c].y, s.y, t.y),
+                              leaky(v[c].z, s.z, t.z), leaky(v[c].w, s.w, t.w))
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+};
+
 // FORM_PRE: thread t of warpgroup wg's 128 waits for the slab of K step ks
 // and rewrites its share of it (Conv::transform). The writes reach the async
 // proxy, and every thread of the warpgroup has made its own, before any
@@ -964,10 +1101,17 @@ __device__ __forceinline__ void land_and_transform(
 // order in which tf32x3_weights lays out each 32-channel chunk of W. The
 // three products of one (s, kk) are one wgmma group, and a group waits for
 // the one before it, so that A's registers are live for two groups only.
-// The step's sums start at zero; the caller waits for the last group.
-__device__ __forceinline__ void tf32x3_step(float (&acc)[64], uint32_t sa,
+// At its end the accumulator is waited for, added to the fp32 sums and left
+// to start afresh, so all of the step's products are in sums when it
+// returns. xform(s, half, v) sees (and FORM_PRE rewrites: PreF32::apply)
+// the thread's 8 channels v of its pixel row `half` (of two) under row tap
+// s before the split.
+template <class Xform>
+__device__ __forceinline__ void tf32x3_step(float (&acc)[64],
+                                            float (&sums)[64], uint32_t sa,
                                             uint32_t sb, uint32_t tap_shift,
-                                            int warp, int lane) {
+                                            int warp, int lane,
+                                            const Xform& xform) {
   const int q = lane & 3, rq = lane >> 2;
   // row rq of warp `warp`'s 16, chunks 2q and 2q + 1 under the swizzle (rows
   // sit 128 bytes apart, every tile offset is a multiple of 8 rows)
@@ -982,6 +1126,7 @@ __device__ __forceinline__ void tf32x3_step(float (&acc)[64], uint32_t sa,
       const uint32_t row = row0 + s * tap_shift + half * 8 * ROW_BYTES;
       v[half][0] = lds_f4(row + ch0);
       v[half][1] = lds_f4(row + ch1);
+      xform(s, half, v[half]);
     }
 #pragma unroll
     for (int kk = 0; kk < BK_F32 / 8; ++kk) {
@@ -1004,6 +1149,122 @@ __device__ __forceinline__ void tf32x3_step(float (&acc)[64], uint32_t sa,
       wgmma_wait<1>();
     }
   }
+  wgmma_wait<0>();
+  fence_acc(acc);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sums[i] += acc[i];
+}
+
+// The products of one K step of an fp32 form with moment sums (exact_of),
+// for the consumer warpgroup whose slab is at sa, the stage's W_hi / W_lo at
+// sb and W's bf16 third part at sw3, a row tap at a time. The thread loads
+// its channels as tf32x3_step does (xform as there) and splits each x
+// three ways: A_hi, x rounded to the grid of its pixel row (2^-9 of the
+// power of two of the row's largest magnitude over the 32 channels, which
+// the row's 4 lanes share; adding and taking away 1.5 x 2^23 steps rounds
+// to it, to nearest even), A_lo = x - A_hi in TF32, and x in TF32 itself
+// (both rounded to nearest, ties away: a tie's sign follows a remainder's,
+// which is as often negative as positive). A_lo * W_hi and x * W_lo of the
+// 4 slices, with bf16 x times W's third part in the last group (two k16:
+// slice t gives the thread's channels 8 q + 4 t + {0..3} for k 2 q, 2 q +
+// 1, 2 q + 8, 2 q + 9, the order of tf32x3_exact_weights' third part), go
+// to acc, which is added to the fp32 sums; then the 4 slices' A_hi * W_hi,
+// exact on their grids (at most 2^10 x 2^9 steps each, 32 of them below
+// 2^24), start acc afresh in one group, added to the sums once the next
+// row tap has loaded. All of the step's products are in sums when it
+// returns.
+template <class Xform>
+__device__ __forceinline__ void tf32x3_exact_step(
+    float (&acc)[64], float (&sums)[64], uint32_t sa, uint32_t sb,
+    uint32_t sw3, uint32_t tap_shift, int warp, int lane,
+    const Xform& xform) {
+  const int q = lane & 3, rq = lane >> 2;
+  const uint32_t row0 = sa + (uint32_t)(warp * 16 + rq) * ROW_BYTES;
+  const uint32_t ch0 = (uint32_t)(((2 * q) ^ rq) * 16);
+  const uint32_t ch1 = (uint32_t)(((2 * q + 1) ^ rq) * 16);
+  auto flush = [&] {
+    wgmma_wait<0>();
+    fence_acc(acc);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sums[i] += acc[i];
+  };
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    float4 v[2][2];   // [row half][chunk]
+    float magic[2];   // [row half]: 1.5 x 2^23 grid steps
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t row = row0 + s * tap_shift + half * 8 * ROW_BYTES;
+      v[half][0] = lds_f4(row + ch0);
+      v[half][1] = lds_f4(row + ch1);
+      xform(s, half, v[half]);
+      float m = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        m = fmaxf(fmaxf(m, fmaxf(fabsf(v[half][c].x), fabsf(v[half][c].y))),
+                  fmaxf(fabsf(v[half][c].z), fabsf(v[half][c].w)));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      magic[half] = __uint_as_float(
+          ((__float_as_uint(m) & 0x7f800000u) + (14u << 23)) | 0x400000u);
+    }
+    // the row tap before's A_hi * W_hi ran while this one loaded
+    if (s == 1) flush();
+    // x of fragment element i of slice kk, and its A_hi
+    auto elem = [&](int kk, int i) {
+      const float4& c = v[i & 1][i >> 1];
+      return kk == 0 ? c.x : kk == 1 ? c.y : kk == 2 ? c.z : c.w;
+    };
+    auto grid = [&](float x, int i) {
+      return __fsub_rn(__fadd_rn(x, magic[i & 1]), magic[i & 1]);
+    };
+#pragma unroll
+    for (int kk = 0; kk < BK_F32 / 8; ++kk) {
+      uint32_t lo[4], x32[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = elem(kk, i);
+        asm("cvt.rna.tf32.f32 %0, %1;\n"
+            : "=r"(lo[i])
+            : "f"(__fsub_rn(x, grid(x, i))));
+        asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(x32[i]) : "f"(x));
+      }
+      const uint32_t tap = sb + s * B_TAP_F32_BYTES + kk * 32;
+      wgmma_fence();
+      wgmma_m64n128k8_tf32(acc, lo, desc_at(DESC_A, tap), kk);
+      wgmma_m64n128k8_tf32(acc, x32, desc_at(DESC_A, tap + B_TILE_F32_BYTES),
+                           1);
+      if (kk == BK_F32 / 8 - 1) {
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const uint32_t ab[4] = {bf16x2_rn(v[0][t].x, v[0][t].y),
+                                  bf16x2_rn(v[1][t].x, v[1][t].y),
+                                  bf16x2_rn(v[0][t].z, v[0][t].w),
+                                  bf16x2_rn(v[1][t].z, v[1][t].w)};
+          wgmma_m64n128k16_rs(
+              acc, ab,
+              desc_at(DESC_B, sw3 + (uint32_t)(32 * s + 16 * t) * 128), 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    uint32_t hi[BK_F32 / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK_F32 / 8; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        hi[kk][i] = __float_as_uint(grid(elem(kk, i), i));
+    flush();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK_F32 / 8; ++kk)
+      wgmma_m64n128k8_tf32(
+          acc, hi[kk], desc_at(DESC_A, sb + s * B_TAP_F32_BYTES + kk * 32),
+          kk);
+    wgmma_commit();
+  }
+  flush();
 }
 
 // Conv supplies the tap geometry:
@@ -1029,22 +1290,27 @@ __device__ __forceinline__ void tf32x3_step(float (&acc)[64], uint32_t sa,
 //                                        device memory for K step ks,
 //                                        asked for before the slab's wait;
 //   void transform(operands, ks, img, i0, j0, slab, log_tw, t) const
-//                                        (FORM_PRE) thread t rewrites its
-//                                        share of the landed slab;
+//                                        (FORM_PRE, bf16) thread t rewrites
+//                                        its share of the landed slab;
+//   void apply(operands, i0, j0, log_tw, p, v) const
+//                                        (FORM_PRE, fp32: PreF32) the
+//                                        transform of the thread's channels
+//                                        v of slab row p, in registers;
 // and, for the fp32 operand path, static constexpr bool TF32X3 = true.
 template <class Conv, int CLUSTER, int STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
                   const __grid_constant__ CUtensorMap map_a1,
-                  const __grid_constant__ CUtensorMap map_w, const Conv conv,
+                  const __grid_constant__ CUtensorMap map_w,
+                  const __grid_constant__ CUtensorMap map_w3, const Conv conv,
                   const TileGeo g, const elem_of<Conv>* __restrict__ bias,
                   elem_of<Conv>* __restrict__ y) {
   static_assert(CLUSTER == 1 || CLUSTER == 2, "each block loads 1/CLUSTER "
                                               "of the weight tile's 2 boxes");
   constexpr int FORM = form_of<Conv>::value;
   constexpr bool F32 = tf32x3_of<Conv>::value;
-  static_assert(!(F32 && (FORM & FORM_PRE)), "no pre rewrite of fp32 slabs");
   static_assert(!F32 || CLUSTER == 1, "fp32: one block per cluster");
+  constexpr bool EXACT = exact_of<Conv>;
   // a consumer warpgroup's pixels; a tap's weights: two boxes, the two
   // 64-channel halves of the N-major tile (bf16) or W_hi and W_lo (fp32)
   constexpr int TPIX = F32 ? TILE_PIX_F32 : TILE_PIX;
@@ -1099,7 +1365,8 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
           const uint32_t bar = full(stage);
           const uint32_t sa = ring + stage * STAGE;
           const uint32_t sb = sa + 2 * SLAB;
-          mbar_expect_tx(bar, 2 * slab_bytes + 2 * B_TAP);
+          mbar_expect_tx(bar,
+                         2 * slab_bytes + 2 * B_TAP + (EXACT ? W3_BYTES : 0));
           conv.load_a(&map_a0, &map_a1, ks, img, i0a, j0a, sa, bar);
           conv.load_a(&map_a0, &map_a1, ks, img, i0b, j0b, sa + SLAB, bar);
 #pragma unroll
@@ -1117,6 +1384,12 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
               tma_load_2d_multicast(st + rank * B_BOX, &map_w, bar,
                                     c0((int)rank), c1((int)rank),
                                     (uint16_t)((1 << CLUSTER) - 1));
+            }
+            if constexpr (EXACT) {
+              // W's third part: row tap s's 32 k-rows of each 64-channel box
+              const uint32_t w3 = sb + 2 * B_TAP + s * BK_F32 * 128;
+              tma_load_2d(w3, &map_w3, bar, n0, wr);
+              tma_load_2d(w3 + B_HALF_BYTES, &map_w3, bar, n0 + 64, wr);
             }
           }
           if (++stage == STAGES) { stage = 0; phase ^= 1u; }
@@ -1161,21 +1434,37 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
         for (int i = 0; i < 64; ++i) sums[i] = 0.0f;
       }
       for (int ks = 0; ks < ks_n; ++ks) {
-        if constexpr ((FORM & FORM_PRE) != 0)
+        if constexpr ((FORM & FORM_PRE) != 0 && !F32)
           land_and_transform(conv, ks, img, i0, j0, full(stage), phase,
                              ring + stage * STAGE + wg * SLAB, g.log_tw, wg,
                              tid % 128);
-        else
+        else if constexpr (!F32)
           mbar_wait(full(stage), phase);
         const uint32_t sa = ring + stage * STAGE + wg * SLAB;
         const uint32_t sb = ring + stage * STAGE + 2 * SLAB;
         if constexpr (F32) {
-          tf32x3_step(acc[0], sa, sb, tap_shift, warp, lane);
-          wgmma_wait<0>();  // the stage has been read: hand it back
-          release(stage);
-          fence_acc(acc[0]);
-#pragma unroll
-          for (int i = 0; i < 64; ++i) sums[i] += acc[0][i];
+          auto step = [&](const auto& xform) {
+            if constexpr (EXACT)
+              tf32x3_exact_step(acc[0], sums, sa, sb, sb + 2 * B_TAP,
+                                tap_shift, warp, lane, xform);
+            else
+              tf32x3_step(acc[0], sums, sa, sb, tap_shift, warp, lane,
+                          xform);
+          };
+          if constexpr ((FORM & FORM_PRE) != 0) {
+            // the transform in registers, as the step loads A
+            const auto o = conv.pre_operands(ks, img, tid % 128);
+            mbar_wait(full(stage), phase);
+            step([&](int s, int half, float4(&v)[2]) {
+              conv.apply(o, i0, j0, g.log_tw,
+                         warp * 16 + half * 8 + (lane >> 2) + (s << g.log_tw),
+                         v);
+            });
+          } else {
+            mbar_wait(full(stage), phase);
+            step([](int, int, float4(&)[2]) {});
+          }
+          release(stage);  // the step has waited for all its products
         } else {
           wgmma_fence();
 #pragma unroll
@@ -1288,6 +1577,17 @@ inline int make_weight_map_f32(CUtensorMap* map, const void* w,
                   CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
+// the exact fp32 forms' third weight part, (k_rows, co) bf16 N-major (rows
+// of a 32-channel chunk in the order of tf32x3_exact_step's bf16 A
+// fragments), in boxes of 32 k-rows x 64 channels
+inline int make_third_map(CUtensorMap* map, const void* w3, int64_t k_rows,
+                          int co) {
+  const uint64_t dims[2] = {(uint64_t)co, (uint64_t)k_rows};
+  const uint64_t strides[1] = {(uint64_t)co * 2};
+  const uint32_t box[2] = {64, BK_F32};
+  return make_map(map, w3, 2, dims, strides, box);
+}
+
 // the SMs of the current device (the one the launch goes to), looked up once
 // for each device
 inline int sm_count() {
@@ -1329,10 +1629,13 @@ inline int make_geo(TileGeo* g, int n_img, int out_h, int out_w, int live_w,
   return 0;
 }
 
+// w3: W's bf16 third part (make_third_map), for the exact fp32 forms only
 template <class Conv, int CLUSTER, int STAGES>
 int launch_conv(const CUtensorMap& a0, const CUtensorMap& a1,
                 const CUtensorMap& w, const Conv& conv, const TileGeo& g,
-                const void* bias, void* y, cudaStream_t stream) {
+                const void* bias, void* y, cudaStream_t stream,
+                const CUtensorMap* w3 = nullptr) {
+  if (exact_of<Conv> != (w3 != nullptr)) return (int)cudaErrorInvalidValue;
   auto kern = conv_wgmma_kernel<Conv, CLUSTER, STAGES>;
   constexpr int smem =
       smem_bytes(STAGES, form_of<Conv>::value, stage_bytes_of<Conv>);
@@ -1354,7 +1657,8 @@ int launch_conv(const CUtensorMap& a0, const CUtensorMap& a1,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, a0, a1, w, conv, g,
+  const CUtensorMap none = {};
+  e = cudaLaunchKernelEx(&cfg, kern, a0, a1, w, w3 ? *w3 : none, conv, g,
                          (const elem_of<Conv>*)bias, (elem_of<Conv>*)y);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
@@ -1394,6 +1698,17 @@ inline uint32_t bf16x2_bits(float v) {
   memcpy(&f, &v, 4);
   const uint32_t h = (f + 0x7fffu + ((f >> 16) & 1u)) >> 16;
   return h | (h << 16);
+}
+
+// the fp32 operand path's FORM_PRE operands: sa, ta (rows, Ci) fp32, the
+// leaky slope, the input's rows and true width
+inline void set_pre_f32(PreF32& p, const void* sa, const void* ta,
+                        float slope, int hp, int tw) {
+  p.sa = (const float*)sa;
+  p.ta = (const float*)ta;
+  p.slope = slope;
+  p.hp = hp;
+  p.tw = tw;
 }
 
 // a deferred-norm form's FORM_PRE operands: sa, ta (rows, Ci) bf16, the

@@ -24,7 +24,6 @@ from pathlib import Path
 
 SOURCES = {
     "accumulate_tta_tile": "accumulate_tta_tile.cu",
-    "pconv_valid": "pconv_valid.cu",
     "pconv3_valid_sm90": "pconv3_valid_sm90.cu",
     "pconv_pad11_cat_sm90": "pconv_pad11_cat_sm90.cu",
     "pconv2d_sm90": "pconv2d_sm90.cu",

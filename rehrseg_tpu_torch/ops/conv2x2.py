@@ -9,11 +9,11 @@ x (N, h+1, w+1, Ci) offset-packed at its exact (odd) width, W (2, 2, Ci,
 Co) -> y (N, h, w, Co). Nothing on the packed forward calls it: the
 forward keeps offset tensors 8-aligned wide and reaches the same math
 through K3 (:func:`rehrseg_tpu_torch.ops.pconv.pconv_valid`). On the H100
-it follows K3's kernels, with the input's row pitch w+1 and the output width
-w, which need no 8-alignment: bf16 calls K3's entry of
-``csrc/pconv2d_sm90.cu`` (the Hopper kernel; its tensor map's strides are
-multiples of 16 bytes at any width because Ci % 128 == 0), fp32 a third
-entry point of ``csrc/pconv_valid.cu`` (the kd = 1 FMA kernel).
+it calls K3's entries of ``csrc/pconv2d_sm90.cu`` with the input's row
+pitch w+1 and the output width w, which need no 8-alignment (the tensor
+maps' strides are multiples of 16 bytes at any width because Ci % 128 ==
+0): bf16 K3's Hopper kernel, fp32 its 3xTF32 form on the split weights
+(:func:`~rehrseg_tpu_torch.ops.pconv.tf32x3_weights`).
 
 The call contract is JAX's: ``None`` when Ci or Co is not a multiple of
 128. The TPU kernel's block-height choice (``_pick_bi``, which also refuses
@@ -29,8 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .pconv import (_INT, _PTR, _bias, _check, _entry, _stream, _suffix,
-                    refuse_grad)
+from .pconv import (_FLT, _INT, _PTR, _bias, _check, _entry, _stream,
+                    _suffix, refuse_grad, tf32x3_weights)
 
 
 def conv2x2_valid_bias_plain(x, w, b):
@@ -69,9 +69,12 @@ def conv2x2_valid_bias(x, w, b=None):
             err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                      n, hp, wp, c_in, c_out, wp - 1, _stream(x))
         else:
-            fn, fn_name = _entry("k7_f32", [_PTR] * 4 + [_INT] * 5)
-            err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                     n, hp, wp, c_in, c_out, _stream(x))
+            # K3's 3xTF32 entry, no deferred-norm operands
+            ws = tf32x3_weights(w)
+            fn, fn_name = _entry("k7_f32", [_PTR] * 8 + [_INT] * 6 + [_FLT])
+            err = fn(x.data_ptr(), ws.data_ptr(), None, b.data_ptr(),
+                     y.data_ptr(), None, None, None, n, hp, wp, c_in, c_out,
+                     wp - 1, 0.0, _stream(x))
     kernels.check(err, fn_name)
     conv2x2_valid_bias.launches += 1
     return y

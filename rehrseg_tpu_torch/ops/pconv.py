@@ -52,13 +52,19 @@ memory, the rim mask and moment sums in the epilogue): K1 and K6a
 (weights streamed with the input), K3, K6b and K4 ``csrc/pconv2d_sm90.cu``
 (and bf16 K7, :mod:`.conv2x2`): the weights resident in shared memory where
 they fit (Ci = 128), the streamed kernel on the same tap geometry where they
-do not. In fp32, K1, K4 and K6a run the Hopper kernel of
-``csrc/pconv_pad11_cat_sm90.cu`` by 3xTF32 (each operand split into two
-TF32 parts, :func:`split_tf32`, three TF32 products summed in fp32: the
-weights split once a call by :func:`tf32x3_weights`, the input in the
-kernel's registers), and K3, K5, K6b, K6c and K7 an FMA kernel in
-``csrc/pconv_valid.cu``. Every kernel adds the bias in fp32; a bf16 kernel
-rounds once, an fp32 one not at all.
+do not. In fp32 every form runs the same Hopper kernels by 3xTF32 (each
+operand split into two TF32 parts, :func:`split_tf32`, three TF32 products
+summed in fp32: the weights split once a call by :func:`tf32x3_weights`,
+the input in the kernel's registers, where the K6b / K6c ``pre`` transform
+is applied too): K1, K4 and K6a in ``csrc/pconv_pad11_cat_sm90.cu``, K5 and
+K6c in ``csrc/pconv3_valid_sm90.cu``, K3, K6b and K7 on the streamed kernel
+in ``csrc/pconv2d_sm90.cu``. The fp32 forms with moment sums (K6a-c) make
+their large product exact and their weights whole
+(:func:`tf32x3_exact_weights`: high parts on grids, a third, bf16, part
+of the weights): the tensor cores' truncating accumulation, and the bits
+two TF32 parts leave of a weight, would shift the output of every pixel
+alike, which an image's sum adds up. Every kernel adds the bias
+in fp32; a bf16 kernel rounds once, an fp32 one not at all.
 
 Each wrapper keeps the JAX call contract: the same shapes, dtypes, default
 ``w_out`` rule, ``(y, stats)`` when ``want_stats``, and ``None`` where the
@@ -190,15 +196,61 @@ def split_tf32(t: torch.Tensor):
     return hi, round_tf32(t - hi)
 
 
+def _k_major(w: torch.Tensor) -> torch.Tensor:
+    """Weights (taps..., Ci, Co) -> (Co, T Ci), T the product of the tap
+    axes, K-major (column k = tap * Ci + c, tap the row-major index of the
+    tap axes: 2 s + t for (2, 2, Ci, Co), (u * 2 + s) * 2 + t for (3, 2,
+    2, Ci, Co)), each 32-channel chunk in the order of the kernels' A
+    fragments: channel 8 a + 4 b + kk at position 8 kk + 4 b + a."""
+    co = w.shape[-1]
+    k = w.numel() // co
+    wk = w.reshape(k, co).t().reshape(co, k // 32, 4, 2, 4)
+    return wk.permute(0, 1, 4, 3, 2).reshape(co, k)
+
+
 def tf32x3_weights(w: torch.Tensor) -> torch.Tensor:
-    """fp32 weights (2, 2, Ci, Co) -> (2, Co, 4 Ci): W_hi and W_lo of
-    :func:`split_tf32`, K-major (column k = tap * Ci + c, tap = 2 s + t),
-    each 32-channel chunk in the order of the kernel's A fragments:
-    channel 8 a + 4 b + kk at position 8 kk + 4 b + a."""
-    ci, co = w.shape[2], w.shape[3]
-    wk = w.reshape(4 * ci, co).t()
-    wk = wk.reshape(co, 4 * ci // 32, 4, 2, 4).permute(0, 1, 4, 3, 2)
-    return torch.stack(split_tf32(wk.reshape(co, 4 * ci)))
+    """fp32 weights (taps..., Ci, Co) -> (2, Co, T Ci): W_hi and W_lo of
+    :func:`split_tf32`, laid out by :func:`_k_major`."""
+    return torch.stack(split_tf32(_k_major(w)))
+
+
+def round_tf32_even(t: torch.Tensor) -> torch.Tensor:
+    """fp32 t rounded to TF32 to nearest, ties to even: for the weights'
+    W_lo in :func:`tf32x3_exact_weights`, whose rounding every pixel
+    shares, so that no tie leans away from zero."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0xfff + ((bits >> 13) & 1)) & -0x2000).view(torch.float32)
+
+
+# a 32-channel chunk's channel at each row of tf32x3_exact_weights' third
+# part (16 t + r holds 8 (r % 8 // 2) + 4 t + r % 2 + 2 (r // 8): the k of
+# the kernel's bf16 A fragments)
+_BF16_ORDER = [8 * (r % 8 // 2) + 4 * t + r % 2 + 2 * (r // 8)
+               for t in range(2) for r in range(16)]
+
+
+def tf32x3_exact_weights(w: torch.Tensor):
+    """fp32 weights (taps..., Ci, Co) -> (split, third) for the fp32 forms
+    with moment sums (``csrc/sm90_pipeline.cuh`` ``tf32x3_exact_step``).
+    split (2, Co, T Ci) is laid out as :func:`tf32x3_weights`', but W_hi
+    is w rounded (to nearest even) to the grid of its column's 32-channel
+    chunk, 2^-8 of the power of two of the chunk's largest magnitude (at
+    most 2^9 steps: 10 bits), so that a row tap's products with A_hi on its
+    own grid sum exactly; W_lo is the remainder rounded to TF32, to nearest
+    even. third (T Ci, Co) bf16 is what W_hi + W_lo leave, rounded to
+    nearest (exact for weights within 2^-4 of their chunk's largest, the
+    others within 2^-30 of it), the rows of each chunk in the order of the
+    kernel's bf16 A fragments."""
+    co = w.shape[-1]
+    g = w.reshape(-1, 32, co)
+    step = torch.ldexp(torch.ones_like(g[:, :1]),
+                       torch.frexp(g.abs().amax(1, keepdim=True))[1] - 9)
+    hi = torch.round(g / step) * step
+    rem = g - hi
+    lo = round_tf32_even(rem)
+    third = (rem - lo)[:, torch.tensor(_BF16_ORDER, device=w.device)]
+    split = torch.stack([_k_major(t.reshape(w.shape)) for t in (hi, lo)])
+    return split, third.reshape(-1, co).to(torch.bfloat16).contiguous()
 
 
 # ------------------------------------------------------------ launches
@@ -255,10 +307,11 @@ C_ENTRIES = {
     "k6b_bf16": ("pconv2d_sm90", "pconv_valid_fused_sm90_bf16"),
     "k6b_bf16_variant": ("pconv2d_sm90",
                          "pconv_valid_fused_sm90_bf16_variant"),
-    # fp32 K3, K5, K6b and K6c
-    "valid_f32": ("pconv_valid", "pconv_valid_f32"),
+    # fp32 K3 and K6b (sa, ta, stats or null); K5 and K6c
+    "k3_f32": ("pconv2d_sm90", "pconv_valid_sm90_f32"),
+    "k5_f32": ("pconv3_valid_sm90", "pconv3_valid_sm90_f32"),
     "k7_bf16": ("pconv2d_sm90", "pconv_valid_sm90_bf16"),
-    "k7_f32": ("pconv_valid", "conv2x2_valid_bias_f32"),
+    "k7_f32": ("pconv2d_sm90", "pconv_valid_sm90_f32"),
 }
 
 
@@ -336,11 +389,14 @@ def _launch_pad11(counter, x, w, b, xb=None, want_stats=False,
                          device=x.device) if want_stats else None)
     if sfx == "f32":
         # K1, K6a and K4 (cb = 0, xb unread): one 3xTF32 entry on the
-        # split weights, stats or null (no variants)
-        ws = tf32x3_weights(w)
-        fn, fn_name = _entry("pad11_f32", [_PTR] * 6 + [_INT] * 7)
+        # split weights, K6a's exact with their third part, stats or null
+        # (no variants)
+        ws, w3 = (tf32x3_exact_weights(w) if want_stats
+                  else (tf32x3_weights(w), None))
+        fn, fn_name = _entry("pad11_f32", [_PTR] * 7 + [_INT] * 7)
         err = fn(x.data_ptr(), (x if xb is None else xb).data_ptr(),
-                 ws.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 ws.data_ptr(), w3.data_ptr() if want_stats else None,
+                 b.data_ptr(), y.data_ptr(),
                  stats.data_ptr() if want_stats else None, n, h, w_in, ca,
                  cb, c_out, wp8, _stream(x))
     elif xb is None:
@@ -371,13 +427,13 @@ def _launch_valid(counter, x, w, b, w_out, pre=None, want_stats=False,
     """K3 (x 4D, w (2, 2, Ci, Co)) or K5 (x 5D, w (3, 2, 2, Ci, Co)); K6b
     / K6c with ``pre`` or ``want_stats``. Adds one to the counter's
     ``launches`` (``fused_launches`` for a K6 form) once the kernel is
-    launched, on x's device. bf16 K3, K5, K6b and K6c run their Hopper
-    kernels; ``variant`` names one of their timed variants: (cluster,
-    stages, log2 tile width) for K5; (mode, stages, log2 tile width) for K3,
-    as for K4; (measure, stages, log2 tile width) for K6c and (measure,
-    mode, stages, log2 tile width) for K6b, measure 0 the kernel, 1 as for
-    K6a, and, with y wrong too, 2 the ``pre`` rewrite skipped, 3 its loads
-    and stores alone."""
+    launched, on x's device. Every form runs a Hopper kernel; ``variant``
+    names one of its timed variants in bf16: (cluster, stages, log2 tile
+    width) for K5; (mode, stages, log2 tile width) for K3, as for K4;
+    (measure, stages, log2 tile width) for K6c and (measure, mode, stages,
+    log2 tile width) for K6b, measure 0 the kernel, 1 as for K6a, and, with
+    y wrong too, 2 the ``pre`` rewrite skipped, 3 its loads and stores
+    alone. fp32 (3xTF32) has no variants."""
     what = "pconv_valid" if x.ndim == 4 else "pconv3_valid"
     kd = 1 if x.ndim == 4 else 3
     *lead, hp, wp8, c_in = x.shape
@@ -413,11 +469,21 @@ def _launch_valid(counter, x, w, b, w_out, pre=None, want_stats=False,
                   stats.data_ptr() if want_stats else None)
     slope = slope if pre is not None else 0.0
     if sfx == "f32":
-        # every fp32 form: one FMA entry (no variants)
-        fn, fn_name = _entry("valid_f32", [_PTR] * 7 + [_INT] * 8 + [_FLT])
-        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 *fused_args, nb, nd, hp, wp8, c_in, c_out, w_out, kd,
-                 slope, _stream(x))
+        # K3 / K6b and K5 / K6c: one 3xTF32 entry each on the split
+        # weights (exact, with their third part, for the forms with stats),
+        # the deferred-norm operands or null (no variants)
+        ws, w3 = (tf32x3_exact_weights(w) if want_stats
+                  else (tf32x3_weights(w), None))
+        if kd == 1:
+            fn, fn_name = _entry("k3_f32", [_PTR] * 8 + [_INT] * 6 + [_FLT])
+            lead_ints = (nb,)
+        else:
+            fn, fn_name = _entry("k5_f32", [_PTR] * 8 + [_INT] * 7 + [_FLT])
+            lead_ints = (nb, nd)
+        err = fn(x.data_ptr(), ws.data_ptr(),
+                 w3.data_ptr() if want_stats else None, b.data_ptr(),
+                 y.data_ptr(), *fused_args, *lead_ints, hp, wp8, c_in, c_out,
+                 w_out, slope, _stream(x))
     elif kd == 3 and not fused:
         fn, fn_name = _entry("k5_bf16", [_PTR] * 4 + [_INT] * 7, variant)
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),

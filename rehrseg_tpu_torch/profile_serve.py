@@ -39,19 +39,19 @@ import torch
 # <Valid2>, its deferred-norm form K6b <K6bValid2<..>>, or
 # conv_wgmma_kernel<Pad11, ..> / <Valid2, ..> / <K6bValid2<..>, ..> where the
 # weights do not fit in shared memory (the K6 forms are listed first: their
-# names hold the plain ones'). fp32 K1, K4 and K6a are conv_wgmma_kernel<
-# Pad11CatF32, ..>, <Pad11F32, ..> and <K6aPad11CatF32<..>, ..>; fp32 K3 and
-# K5 and the fp32 K6 forms are one FMA kernel <KD, PRE, STATS>.
+# names hold the plain ones'). The fp32 kernels are conv_wgmma_kernel
+# instantiations whose Convs' names hold the bf16 ones': K1, K4 and K6a
+# <Pad11CatF32, ..>, <Pad11F32, ..> and <K6aPad11CatF32<..>, ..>, K3 and K7
+# <Valid2F32, ..>, K6b <K6bValid2F32<..>, ..>, K5 <Valid3F32, ..> and K6c
+# <K6cValid3F32<..>, ..>.
 _CLASSES = (
     ("k6a_pconv_pad11_cat_stats", ("K6aPad11Cat",)),
-    ("k6c_pconv3_valid_fused", ("K6cValid3",
-                                "valid_f32_kernel<3, true, true>")),
-    ("k6b_pconv_valid_fused", ("K6bValid2",
-                               "valid_f32_kernel<1, true, true>")),
+    ("k6c_pconv3_valid_fused", ("K6cValid3",)),
+    ("k6b_pconv_valid_fused", ("K6bValid2",)),
     ("k1_pconv_pad11_cat", ("Pad11Cat",)),
     ("k4_pconv_pad11", ("Pad11",)),
-    ("k3_pconv_valid", ("Valid2", "valid_f32_kernel<1, false, false>")),
-    ("k5_pconv3_valid", ("Valid3", "valid_f32_kernel<3, false, false>")),
+    ("k3_pconv_valid", ("Valid2",)),
+    ("k5_pconv3_valid", ("Valid3",)),
     ("k2_accumulate_tta_tile", ("accumulate_kernel",)),
     ("conv_and_gemm", ("conv", "gemm", "xmma", "cutlass", "sm90_", "sm80_",
                        "cudnn", "implicit")),

@@ -1,5 +1,6 @@
 """Check and time the variants of the Hopper kernels (bf16 K1, K3, K4, K5,
-K6a, K6b, K6c; fp32 K1, K4, K6a by 3xTF32) on the card.
+K6a, K6b, K6c; fp32 K1, K3, K4, K5, K6a, K6b, K6c, K7 by 3xTF32) on the
+card.
 
     python -m rehrseg_tpu_torch.tune_sm90 [--check-only] [--iters N]
                                           [--rounds R] [--kernels k6b]
@@ -15,8 +16,8 @@ prints one JSON line per phase:
   check   each kernel against its plain version on fp32 copies (tolerance
           0.04; fp32: 2e-5, TF32 off) at ragged shapes, the default variant
           and, for K3, K4, K6a, K6b, K6c, every variant
-          (K6b and K6c also their pre-only and stats-only forms; the K6
-          forms' moment half-sums within 2e-2, fp32 1e-4),
+          (K6b and K6c, in both dtypes, also their pre-only and stats-only
+          forms; the K6 forms' moment half-sums within 2e-2, fp32 1e-4),
           with the first disagreeing index where one fails (exit code 1 at
           the end);
   probe   the rate at which TMA boxes shaped like the kernels' input tiles
@@ -30,8 +31,8 @@ prints one JSON line per phase:
           ring stages, tile width; K6b: K3's modes, stages and widths;
           the fp32 kernels have none), each checked first, beside the
           default variant, the library call (cuDNN, fp32 with TF32 off) on
-          the same operands (K6: none computes it; the
-          plain K1 / K3 / K5 kernel on the same operands instead) and the
+          the same operands (K6: none computes it; the plain K1 / K3 / K5
+          kernel of the same dtype on the same operands instead) and the
           kernel's bound (fp32: three TF32 products at 495 TFLOP/s): the
           median and the least of R timings of N launches, the
           candidates timed in turn, each round in its own order. The
@@ -61,6 +62,7 @@ import torch.nn.functional as F
 
 from . import kernels
 from .ops import pconv
+from .ops.conv2x2 import conv2x2_valid_bias, conv2x2_valid_bias_plain
 
 TOL = 0.04
 # the fp32 kernels (3xTF32) against their plain versions, TF32 off
@@ -77,6 +79,12 @@ K5_CHECKS = ((2, 3, 14, 32, 128, 128), (1, 1, 10, 32, 128, 256),
              (1, 2, 4, 16, 128, 384), (2, 2, 17, 40, 256, 128))
 K3_MAIN = (128, 161, 200, 128, 128)
 K4_MAIN = (128, 160, 192, 128, 128)
+# K7 (n, hp, wp, ci, co) at its exact width: the main path's K3 site's, one
+# and a half tiles wide at an odd height, Co = 256 on an image smaller than
+# a tile, Ci = 256
+K7_MAIN = (128, 161, 193, 128, 128)
+K7_CHECKS = ((2, 14, 25, 128, 128), (1, 6, 12, 128, 256),
+             (3, 9, 17, 256, 128))
 # (n, hp, wp8, ci, co) with w_out = wp8 - 8: an odd height and one and a half
 # tiles wide, Co = 384 and a batch of one, Ci = 256 (the streamed kernel) on
 # an image smaller than a tile, Ci = Co = 256, a single output row, and
@@ -153,26 +161,37 @@ def k1_operands(shape, gen, dev, dtype=torch.bfloat16):
         randn(2, 2, ca + cb, co) / (4 * (ca + cb)) ** 0.5, 0.1 * randn(co)))
 
 
-def k5_operands(shape, gen, dev):
+def k5_operands(shape, gen, dev, dtype=torch.bfloat16):
     b, d, hp, wp8, ci, co = shape
 
     def randn(*s):
         return torch.randn(*s, generator=gen, device=dev)
-    x = randn(b, d, hp, wp8, ci).bfloat16()
+    x = randn(b, d, hp, wp8, ci).to(dtype)
     x[..., wp8 - 7:, :] = 1e3     # the pad columns are never read
-    return (x, (randn(3, 2, 2, ci, co) / (12 * ci) ** 0.5).bfloat16(),
-            (0.1 * randn(co)).bfloat16())
+    return (x, (randn(3, 2, 2, ci, co) / (12 * ci) ** 0.5).to(dtype),
+            (0.1 * randn(co)).to(dtype))
 
 
-def k3_operands(shape, gen, dev):
+def k3_operands(shape, gen, dev, dtype=torch.bfloat16):
     n, hp, wp8, ci, co = shape
 
     def randn(*s):
         return torch.randn(*s, generator=gen, device=dev)
-    x = randn(n, hp, wp8, ci).bfloat16()
+    x = randn(n, hp, wp8, ci).to(dtype)
     x[..., wp8 - 7:, :] = 1e3     # the pad columns are never read
-    return (x, (randn(2, 2, ci, co) / (4 * ci) ** 0.5).bfloat16(),
-            (0.1 * randn(co)).bfloat16())
+    return (x, (randn(2, 2, ci, co) / (4 * ci) ** 0.5).to(dtype),
+            (0.1 * randn(co)).to(dtype))
+
+
+def k7_operands(shape, gen, dev, dtype=torch.float32):
+    """(n, hp, wp, ci, co): an input at its exact width, nothing past it."""
+    n, hp, wp, ci, co = shape
+
+    def randn(*s):
+        return torch.randn(*s, generator=gen, device=dev)
+    return tuple(t.to(dtype) for t in (
+        randn(n, hp, wp, ci), randn(2, 2, ci, co) / (4 * ci) ** 0.5,
+        0.1 * randn(co)))
 
 
 def k4_operands(shape, gen, dev, dtype=torch.bfloat16):
@@ -189,30 +208,54 @@ def k1_operands_f32(shape, gen, dev):
     return k1_operands(shape, gen, dev, torch.float32)
 
 
+def k6a_operands_f32(shape, gen, dev):
+    """K1's operands with inputs mostly positive (a leaky output, as a real
+    forward's K6a reads), where a bias of the output would add up in its
+    sums."""
+    xa, xb, w, b = k1_operands(shape, gen, dev, torch.float32)
+    return (F.leaky_relu(xa, SLOPE), F.leaky_relu(xb, SLOPE), w, b)
+
+
 def k4_operands_f32(shape, gen, dev):
     return k4_operands(shape, gen, dev, torch.float32)
 
 
-def k6c_operands(shape, gen, dev):
+def k3_operands_f32(shape, gen, dev):
+    return k3_operands(shape, gen, dev, torch.float32)
+
+
+def k5_operands_f32(shape, gen, dev):
+    return k5_operands(shape, gen, dev, torch.float32)
+
+
+def k6c_operands(shape, gen, dev, dtype=torch.bfloat16):
     """K5's operands and sa, ta (b, 8, ci) that differ per channel and per
     batch element."""
     b, ci = shape[0], shape[4]
-    x, w, bias = k5_operands(shape, gen, dev)
+    x, w, bias = k5_operands(shape, gen, dev, dtype)
     sa = (torch.randn(b, 1, ci, generator=gen, device=dev).abs() + 0.5)
     ta = 0.5 * torch.randn(b, 1, ci, generator=gen, device=dev)
-    return (x, w, bias, sa.expand(-1, 8, -1).bfloat16(),
-            ta.expand(-1, 8, -1).bfloat16())
+    return (x, w, bias, sa.expand(-1, 8, -1).to(dtype),
+            ta.expand(-1, 8, -1).to(dtype))
 
 
-def k6b_operands(shape, gen, dev):
+def k6b_operands(shape, gen, dev, dtype=torch.bfloat16):
     """K3's operands and sa, ta (n, 8, ci) that differ per channel and per
     image."""
     n, ci = shape[0], shape[3]
-    x, w, bias = k3_operands(shape, gen, dev)
+    x, w, bias = k3_operands(shape, gen, dev, dtype)
     sa = (torch.randn(n, 1, ci, generator=gen, device=dev).abs() + 0.5)
     ta = 0.5 * torch.randn(n, 1, ci, generator=gen, device=dev)
-    return (x, w, bias, sa.expand(-1, 8, -1).bfloat16(),
-            ta.expand(-1, 8, -1).bfloat16())
+    return (x, w, bias, sa.expand(-1, 8, -1).to(dtype),
+            ta.expand(-1, 8, -1).to(dtype))
+
+
+def k6c_operands_f32(shape, gen, dev):
+    return k6c_operands(shape, gen, dev, torch.float32)
+
+
+def k6b_operands_f32(shape, gen, dev):
+    return k6b_operands(shape, gen, dev, torch.float32)
 
 
 def run_k6a(ops, variant=None):
@@ -285,6 +328,11 @@ def run_k4(ops, variant=None):
     return pconv._launch_pad11(pconv.pconv_pad11, x, w, b, variant=variant)
 
 
+def run_k7(ops, variant=None):
+    assert variant is None      # K7 has no variants
+    return conv2x2_valid_bias(*ops)
+
+
 def ref_k1(ops):
     return pconv.pconv_pad11_cat_plain(*(t.float() for t in ops))
 
@@ -305,6 +353,10 @@ def ref_k4(ops):
     return pconv.pconv_pad11_plain(*(t.float() for t in ops))
 
 
+def ref_k7(ops):
+    return conv2x2_valid_bias_plain(*(t.float() for t in ops))
+
+
 # name -> (main shape, ragged shapes, operands, run, plain version, variants)
 KERNELS = {
     "k1": (K1_MAIN, K1_CHECKS, k1_operands, run_k1, ref_k1, K15_VARIANTS),
@@ -318,12 +370,24 @@ KERNELS = {
     # fp32 by 3xTF32: the default kernel only
     "k1_f32": (K1_MAIN, K1_CHECKS, k1_operands_f32, run_k1, ref_k1, ()),
     "k4_f32": (K4_MAIN, K4_CHECKS, k4_operands_f32, run_k4, ref_k4, ()),
-    "k6a_f32": (K1_MAIN, K6A_CHECKS, k1_operands_f32, run_k6a, ref_k6a, ()),
+    "k6a_f32": (K1_MAIN, K6A_CHECKS, k6a_operands_f32, run_k6a, ref_k6a,
+                ()),
+    "k3_f32": (K3_MAIN, K3_CHECKS, k3_operands_f32, run_k3, ref_k3, ()),
+    "k5_f32": (K5_MAIN, K5_CHECKS, k5_operands_f32, run_k5, ref_k5, ()),
+    "k6b_f32": (K3_MAIN, K6B_CHECKS, k6b_operands_f32, run_k6b, ref_k6b,
+                ()),
+    "k6c_f32": (K5_MAIN, K6C_CHECKS, k6c_operands_f32, run_k6c, ref_k6c,
+                ()),
+    "k7_f32": (K7_MAIN, K7_CHECKS, k7_operands, run_k7, ref_k7, ()),
 }
-F32 = ("k1_f32", "k4_f32", "k6a_f32")
+F32 = ("k1_f32", "k4_f32", "k6a_f32", "k3_f32", "k5_f32", "k6b_f32",
+       "k6c_f32", "k7_f32")
+# the forms whose outputs have columns > w that must be exact zeros
+PAD11 = ("k1", "k4", "k6a", "k1_f32", "k4_f32", "k6a_f32")
 ABLATION = {"k6a": K6A_ABLATION, "k6c": K6C_ABLATION, "k6b": K6B_ABLATION}
 # the K6 forms with one part alone: pre without stats, stats without pre
 FORMS = {"pre_only": dict(want_stats=False), "stats_only": dict(pre=False)}
+K6_PRE = ("k6b", "k6c", "k6b_f32", "k6c_f32")
 # the names of a variant's ints
 VARIANT_KEYS = {"k1": ("cluster", "stages", "log_tw"),
                 "k5": ("cluster", "stages", "log_tw"),
@@ -427,7 +491,7 @@ def phase_check(names, gen, dev) -> bool:
                 rec = compare(got, want,
                               stats=variant not in ABLATION.get(name, ()),
                               **tolerances(name))
-                if name in ("k1", "k4", "k6a", *F32):
+                if name in PAD11:
                     y = got[0] if name.startswith("k6a") else got
                     rec["zero_columns"] = not bool(
                         (y[:, :, shape[2] + 1:] != 0).any())
@@ -435,11 +499,11 @@ def phase_check(names, gen, dev) -> bool:
                 ok = ok and rec["ok"]
                 emit({"phase": "check", "kernel": name, "shape": shape,
                       "variant": variant, **rec})
-            if name in ("k6b", "k6c"):   # the forms "fused" does not use
+            if name in K6_PRE:   # the forms "fused" does not use
                 for form in FORMS.values():
                     got = run(ops, None, **form)
                     torch.cuda.synchronize()
-                    rec = compare(got, ref(ops, **form))
+                    rec = compare(got, ref(ops, **form), **tolerances(name))
                     ok = ok and rec["ok"]
                     emit({"phase": "check", "kernel": name, "shape": shape,
                           "form": form, **rec})
@@ -470,6 +534,11 @@ def phase_probe(dev, iters=2000):
     emit({"phase": "probe", "box": "128 rows x 128 B, pitch 512 B", **out})
 
 
+# a K6 form -> the plain kernel that is its yardstick in phase_tune
+K6_PLAIN = {"k6a": "k1", "k6b": "k3", "k6c": "k5", "k6a_f32": "k1_f32",
+            "k6b_f32": "k3_f32", "k6c_f32": "k5_f32"}
+
+
 def _library_case(name, shape, ops, want):
     """(the library call on the same operands, channels-last; FLOP; the
     bytes the function must move) at a kernel's main shape. No library call
@@ -477,14 +546,14 @@ def _library_case(name, shape, ops, want):
     on the same operands (no mask, no sums, no pre)."""
     def cl(t, fmt=torch.channels_last):
         return t.contiguous(memory_format=fmt)
-    if name in ("k6a", "k6b", "k6c", "k6a_f32"):
+    if name in K6_PLAIN:
         # K1's operands are K6a's; K6b's and K6c's are K3's and K5's, then
         # sa and ta, of which row 0 of each (., 8, ci) block is read
-        plain, conv_ops = {"k6a": ("k1", ops), "k6b": ("k3", ops[:3]),
-                           "k6c": ("k5", ops[:3]),
-                           "k6a_f32": ("k1_f32", ops)}[name]
+        plain = K6_PLAIN[name]
+        conv_ops = ops if plain.startswith("k1") else ops[:3]
         _, flops, n_bytes = _library_case(plain, shape, conv_ops, want[0])
-        n_bytes += sum(t[:, 0].numel() * 2 for t in ops[len(conv_ops):])
+        n_bytes += sum(t[:, 0].numel() * t.element_size()
+                       for t in ops[len(conv_ops):])
         run_plain = KERNELS[plain][3]
         return (lambda: run_plain(conv_ops), flops,
                 n_bytes + want[1].numel() * 4)
@@ -505,11 +574,18 @@ def _library_case(name, shape, ops, want):
         return (lambda: F.conv2d(xl, wl, b, padding=1),
                 2 * n * h * w * 4 * ci * co,
                 sum(t.numel() * t.element_size() for t in ops) + out_bytes)
+    if name == "k7_f32":
+        n, hp, wp, ci, co = shape
+        x, wt, b = ops
+        xl, wl = x.permute(0, 3, 1, 2), cl(wt.permute(3, 2, 0, 1))
+        return (lambda: F.conv2d(xl, wl, b),
+                2 * n * (hp - 1) * (wp - 1) * 4 * ci * co,
+                sum(t.numel() * t.element_size() for t in ops) + out_bytes)
     x, wt, b = ops
     w_out = x.shape[-2] - 8
     n_bytes = (x[..., :w_out + 1, :].numel() + wt.numel() + b.numel()
-               + want.numel()) * 2
-    if name == "k3":
+               + want.numel()) * x.element_size()
+    if name in ("k3", "k3_f32"):
         n, hp, wp8, ci, co = shape
         xl = cl(x[:, :, :w_out + 1].permute(0, 3, 1, 2))
         wl = cl(wt.permute(3, 2, 0, 1))
@@ -565,7 +641,7 @@ def phase_tune(names, gen, dev, iters, rounds):
                "library": stat("library"), "default": stat("default"),
                "variants": [{**dict(zip(keys, v)), **stat(v), **c}
                             for v, c in zip(variants, checks)]}
-        if name in (*ABLATION, "k6a_f32"):
+        if name in K6_PLAIN:
             # the plain kernel is the "library" entry: no mask, no sums
             rec["library_is"] = "the plain K1 / K3 / K5 kernel, same operands"
         if name in ABLATION:
@@ -585,10 +661,9 @@ def main(argv=None) -> int:
                     help="launches per timing")
     ap.add_argument("--rounds", type=int, default=7,
                     help="timings of each candidate, taken in turn")
-    ap.add_argument("--kernels",
-                    default="k1,k5,k3,k4,k6a,k6b,k6c,k1_f32,k4_f32,k6a_f32",
-                    help="the kernels to check and tune, of k1, k3, k4, k5, "
-                         "k6a, k6b, k6c, k1_f32, k4_f32, k6a_f32")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="the kernels to check and tune, of "
+                         + ", ".join(KERNELS))
     args = ap.parse_args(argv)
     names = args.kernels.split(",")
     if not torch.cuda.is_available():

@@ -559,7 +559,8 @@ def test_profile_classes_tell_the_k6_forms_from_the_plain_kernels():
             "k6a_pconv_pad11_cat_stats",
         "void conv_wgmma_kernel<Pad11Cat, 1, 3>(...)": "k1_pconv_pad11_cat",
         "void conv_resident_kernel<Pad11>(...)": "k4_pconv_pad11",
-        "void valid_f32_kernel<1, true, true>(...)": "k6b_pconv_valid_fused",
+        "void conv_wgmma_kernel<K6bValid2F32<3>, 1, 2>(...)":
+            "k6b_pconv_valid_fused",
     }
     assert {name: _classify(name) for name in want} == want
 

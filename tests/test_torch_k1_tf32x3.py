@@ -195,16 +195,30 @@ def test_k4_tf32x3_matches_pallas(ci):
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
 
 
+def _exact(plain, xs, w, b):
+    """K6a's products (those of the forms with moment sums, as
+    tests/test_torch_valid_tf32x3.py emulates them), through a plain
+    version: A_hi * W_hi + A_lo * W_hi + A * W_lo + bf16 A * W's third
+    part, then the bias."""
+    from test_torch_valid_tf32x3 import _exact_parts, _grid_split
+    parts = [[t.double() for t in _grid_split(x)] for x in xs]
+    w_hi, w_lo, w_3 = _exact_parts(w)
+    zero = torch.zeros_like(b, dtype=torch.float64)
+    x_hi, x_lo, x_32, x_bf = ([p[i] for p in parts] for i in range(4))
+    return (plain(x_hi, w_hi, zero) + plain(x_lo, w_hi, zero)
+            + plain(x_32, w_lo, zero) + plain(x_bf, w_3, b.double()))
+
+
 def test_k6a_tf32x3_matches_pallas():
-    """K6a: the same products, the full offset rim mask, and the moment
-    half-sums of the stored value."""
+    """K6a: the products of the forms with moment sums, the full offset
+    rim mask, and the moment half-sums of the stored value."""
     jnp, pp = _jax()
     xa, xb, w, b = _operands((2, 8, 16, C, C, C), seed=2)
     want_y, want_stats = pp.pconv_pad11_cat(
         *(jnp.asarray(a) for a in (xa, xb, w, b)), interpret=True,
         want_stats=True)
-    y = _tf32x3(_k1_plain, [torch.from_numpy(xa), torch.from_numpy(xb)],
-                torch.from_numpy(w), torch.from_numpy(b))
+    y = _exact(_k1_plain, [torch.from_numpy(xa), torch.from_numpy(xb)],
+               torch.from_numpy(w), torch.from_numpy(b))
     hp, wp8, co = y.shape[1:]
     y = y * pconv.offset_rim_mask(hp, wp8, co // 4, y.dtype, y.device,
                                   true_w=xa.shape[2] + 1)
