@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's serving and training paths (stages 1 and 2)
-on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving and training paths (stages 1 and 2),
+and its multi-device paths as far as one card can, on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -159,6 +160,30 @@ and nothing of the JAX package. Phases, each printing one JSON line:
            stage, steps a second with and without the saves, inference
            seconds a subject, the logged PSNR, the SR NIfTIs' shapes
            (finite); no hand kernel launches;
+  mesh     Segmenter(mesh=) on the served LR parity path at bench
+           geometry: a mesh naming cuda:0 twice (each forward's 8-way
+           mirror batch in two blocks of 4) against the single-device
+           Segmenter; bf16: K1 launched tiles x data extent times (24),
+           labels equal on >= 99 % (batches of 4 and 8 round differently
+           in bf16), seconds a volume of each (one card runs every block:
+           no scaling number); fp32 (TF32 off): labels equal outside
+           near-ties; make_mesh() over the visible card bit-equal to no
+           mesh;
+  dp       (i) two ranks spawned over gloo on cuda:0 (``chip_smoke.py
+           --dp-rank``; NCCL refuses two ranks on one card): a UASR stage-1
+           step at configs/brain.yaml's width (global batch 32, 16 a rank,
+           label channels on) and a stage-2 packed step (B = 2 x (16, 256,
+           320), one a rank), fp32, TF32 off: weights bit-equal across
+           ranks, the all-reduced gradients within 2e-3 of the 1-process
+           step on the global batch, the metrics written once; (ii) a
+           one-rank NCCL group running the stage-2 step through the same
+           code;
+  fold_all ``pipeline.stage2_segsr_all_folds`` with 2 folds over cuda:0
+           named twice on the train_loop phantom (``dataset=``), 3 steps
+           with one save and one validation: both checkpoints at step 3,
+           distinct finite fold losses, fp32 K1 launches per fold's
+           validation tile; fold k's state after one fold-parallel step
+           bit-equal to one plain step of fold k (cuDNN deterministic);
   kernels  every ported kernel with launches, error, times and bound.
 
 Then the card's name and power limit, and last the result line
@@ -169,6 +194,7 @@ exits nonzero and prints no result line.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import io
 import json
 import os
@@ -2592,6 +2618,469 @@ def phase_stage1(dev, gpu, work: Path):
     return rec
 
 
+# ------------------------------------------------------------ more than one
+# card: one card does every half of these phases, so none of their times is
+# a scaling number
+
+def phase_mesh(params, dev, gpu):
+    """Segmenter(mesh=) on the served LR parity path at bench geometry: a
+    mesh naming cuda:0 twice (each forward's 8-way mirror batch split in
+    two blocks of 4, each block's forward on its device) against the
+    single-device Segmenter. bf16 ("cat", served): K1 launched tiles x
+    data extent times, seconds a volume of each, labels equal on >= 99 %
+    (cuDNN's bf16 convs round a batch of 4 and one of 8 differently: up to
+    0.026 in a normalized logit); the largest normalized-logit difference
+    and the labels outside near-ties printed.
+    fp32 (TF32 off, fp32 K1): labels equal outside near-ties (normalized
+    logit margin below 1e-3), which shows the meshed pass sums in the
+    unmeshed order. make_mesh() over the visible card (data = 1):
+    bit-equal to no mesh. Returns K1's bf16 launches in the meshed call."""
+    from rehrseg_tpu_torch.infer import sliding_window as sw
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH
+    from rehrseg_tpu_torch.ops.pconv import pconv_pad11_cat
+    from rehrseg_tpu_torch.parallel.mesh import make_mesh
+    from rehrseg_tpu_torch.serve import Segmenter
+
+    vol = np.random.default_rng(SEED + 50).normal(size=VOLUME).astype(
+        np.float32)
+    card = torch.device("cuda", 0)
+    twice = make_mesh(devices=[card, card])
+    visible = make_mesh()
+    n_tiles = len(sw.sliding_window_starts(VOLUME, PATCH))
+    extent = twice.shape["data"]
+    rec = {}
+
+    def normalized(seg, mesh):
+        vol_p, _ = seg._prep(vol)
+        logits, weights = sw._run_sliding_window(
+            seg._fn(False), vol_p, PATCH, 1, 0.5, True, True, 2,
+            torch.bfloat16, device=dev, tta_mesh=mesh)
+        return logits / weights[..., None]
+
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        kw = dict(patch_size=PATCH, compute_dtype=dtype)
+        segs = {"single": Segmenter.from_flax(params, DEFAULT_ARCH,
+                                              device=dev, **kw),
+                "mesh_2x_cuda0": Segmenter.from_flax(
+                    params, DEFAULT_ARCH, mesh=twice, **kw)}
+        if name == "bf16":
+            segs["mesh_visible"] = Segmenter.from_flax(
+                params, DEFAULT_ARCH, mesh=visible, **kw)
+        out, r = {}, {}
+        for key, seg in segs.items():
+            seg.segment(vol)                 # warm-up, not counted
+            torch.cuda.synchronize()
+            _zero_counts()
+            t = time.perf_counter()
+            out[key] = seg.segment(vol)
+            torch.cuda.synchronize()
+            r[key] = dict(seconds_per_volume=time.perf_counter() - t,
+                          k1=pconv_pad11_cat.launches,
+                          replicas=len(seg._replicas))
+        if r["mesh_2x_cuda0"]["k1"] != n_tiles * extent \
+                or r["single"]["k1"] != n_tiles:
+            raise AssertionError(f"mesh {name}: K1 launched {r} over "
+                                 f"{n_tiles} tiles (data extent {extent})")
+        want = normalized(segs["single"], None)
+        got = normalized(segs["mesh_2x_cuda0"], twice)
+        top2 = want.topk(2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1] >= 1e-3).cpu().numpy()
+        lm, ls = out["mesh_2x_cuda0"], out["single"]
+        if lm.shape != VOLUME or lm.dtype != np.uint8:
+            raise AssertionError(f"mesh: labels {lm.shape} {lm.dtype}")
+        r["labels"] = dict(
+            equal=float(np.mean(lm == ls)),
+            near_tie_share=float(1.0 - decided.mean()),
+            differ_outside_near_ties=int(np.sum(lm[decided]
+                                                != ls[decided])),
+            max_normalized_logit_diff=float((got - want).abs().max()))
+        del got, want, top2, segs
+        torch.cuda.empty_cache()
+        if name == "bf16":
+            if visible.shape["data"] != torch.cuda.device_count():
+                raise AssertionError(f"mesh: make_mesh() {visible}")
+            if not np.array_equal(out["mesh_visible"], ls):
+                raise AssertionError("mesh: make_mesh() labels differ from "
+                                     "no mesh")
+            launches = r["mesh_2x_cuda0"]["k1"]
+        rec[name] = r
+    if rec["bf16"]["labels"]["equal"] < 0.99 \
+            or rec["fp32"]["labels"]["differ_outside_near_ties"]:
+        raise AssertionError(f"mesh: labels against the single-device "
+                             f"Segmenter's: {rec}")
+    emit({"phase": "mesh", "card": gpu, "volume": list(VOLUME),
+          "patch": list(PATCH), "grid": "parity", "hr": False,
+          "tiles": n_tiles, "data_extent": extent, **rec,
+          "k1_launches_meshed": launches,
+          "note": "both blocks run on the one card: not a scaling number"})
+    return launches
+
+
+DP_SR_BATCH = 32      # the UASR step's global batch (configs/brain.yaml)
+
+
+def _digest(module) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in module.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _host_grads(module):
+    return {k: p.grad.detach().double().cpu()
+            for k, p in module.named_parameters() if p.grad is not None}
+
+
+def _grad_err(got, want):
+    """(whole-gradient relative norm error, worst leaf's, with a leaf's
+    norm taken at least as 1e-3 of the whole gradient's)."""
+    keys = sorted(want)
+    if sorted(got) != keys:
+        raise AssertionError(f"gradient keys differ: {sorted(got)[:3]}")
+    num = sum(float((got[k] - want[k]).norm() ** 2) for k in keys) ** 0.5
+    den = sum(float(want[k].norm() ** 2) for k in keys) ** 0.5
+    floor = 1e-3 * den
+    leaf = max(_rel(got[k], want[k], floor) for k in keys)
+    return num / max(den, 1e-30), leaf
+
+
+def _dp_models(dev):
+    """The dp phase's two models and their global batches, seeded alike in
+    every process: the stage-1 UASR UNet3D at configs/brain.yaml's width
+    (batch 32 of (4, 96, 96), labels on) and the full-width SegModel
+    (B = 2 of TRAIN_PATCH), both fp32, each with its train step."""
+    from rehrseg_tpu_torch.models import convert
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH, SegModel
+    from rehrseg_tpu_torch.train import optim
+    from rehrseg_tpu_torch.train.seg_trainer import make_seg_train_step
+    from rehrseg_tpu_torch.train.sr_trainer import make_sr_train_step
+    from rehrseg_tpu_torch.train.state import TrainState
+
+    name, factory, lr_shape, hr_shape, _, ns = _sr_models()[2]
+    uasr, sr_state = _sr_state(name, factory, _sr_params(name), dev)
+    sr_step = make_sr_train_step(uasr, enable_uncertainty=True,
+                                 slice_separation=4, num_slices=ns)
+    sr_batch = _sr_batch((DP_SR_BATCH, *lr_shape[1:]),
+                         (DP_SR_BATCH, *hr_shape[1:]), dev, SEED + 60)
+    seg = SegModel(2, 4, arch=DEFAULT_ARCH)
+    convert.load_flax_params(seg, convert.random_flax_params(DEFAULT_ARCH,
+                                                             SEED + 61))
+    seg.to(dev)
+    seg_state = TrainState(seg, optim.nesterov_sgd(seg),
+                           optim.poly_epoch_schedule(1e-2, 100, 1))
+    seg_step = make_seg_train_step(seg, enable_uncertainty=True,
+                                   enable_distillation=False, remat=True)
+    return dict(uasr=(uasr, sr_state, sr_step, sr_batch),
+                seg=(seg, seg_state, seg_step, _train_batch(dev, SEED + 62)))
+
+
+def _dp_step(kind, entry, rows=slice(None)):
+    """One step of ``kind`` on ``rows`` of its global batch; (seconds,
+    loss)."""
+    from rehrseg_tpu_torch.train.seg_trainer import SegBatch
+
+    _, state, step, batch = entry
+    part = [t[rows] for t in batch]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    if kind == "seg":
+        _, m = step(state, SegBatch(*part))
+    else:
+        _, m = step(state, *part)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, loss
+
+
+def dp_rank_main(argv) -> int:
+    """One rank of the dp phase: ``chip_smoke.py --dp-rank RANK WORLD PORT
+    OUT``. A gloo group over 127.0.0.1:PORT on cuda:0 (NCCL refuses two
+    ranks on one card); each model's step on this rank's rows of the
+    global batch; rank 0 saves the all-reduced gradients, every rank its
+    weights' digest and a metrics line (written by the primary only)."""
+    from rehrseg_tpu_torch.parallel import distributed
+    from rehrseg_tpu_torch.parallel import multihost as mh
+    from rehrseg_tpu_torch.utils.metrics import MetricsLogger
+
+    rank, world, port, out = int(argv[0]), int(argv[1]), argv[2], \
+        Path(argv[3])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    if not distributed.init_distributed(f"127.0.0.1:{port}", world, rank,
+                                        backend="gloo", timeout_s=600.0):
+        raise RuntimeError("dp rank: no process group formed")
+    res = {}
+    for kind, entry in _dp_models(dev).items():
+        n = entry[3][0].shape[0] // world
+        secs, loss = _dp_step(kind, entry, slice(rank * n, (rank + 1) * n))
+        res[kind] = dict(seconds=secs, loss=loss, rows=n,
+                         digest=_digest(entry[0]))
+        if rank == 0:
+            torch.save(_host_grads(entry[0]), out / f"{kind}_grads.pt")
+        MetricsLogger(str(out)).log(1, kind=kind, rank=rank, loss=loss)
+    mh.barrier("dp-done")
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_dp(dev, gpu, work: Path):
+    """Data parallelism on the one card. (i) Two ranks spawned over gloo on
+    cuda:0 (the port only): a UASR stage-1 step (global batch 32, 16 a
+    rank, label channels on, so the dice couples the ranks) and a stage-2
+    packed step (B = 2 x TRAIN_PATCH, one a rank), fp32, TF32 off: weights
+    bit-equal across ranks, the all-reduced gradients within 2e-3
+    (relative, whole gradient) of the 1-process step on the global batch
+    on the same card, the logged loss the global batch's, one metrics
+    line a step. (ii) A one-rank NCCL group runs the same stage-2 step on
+    the global batch through the same code: the NCCL path initializes and
+    reduces on the card. No scaling number: both ranks share the card."""
+    import socket
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    root = work / "dp"
+    root.mkdir()
+    # the 1-process references on the global batch
+    ref = {}
+    for kind, entry in _dp_models(dev).items():
+        secs, loss = _dp_step(kind, entry)
+        ref[kind] = dict(seconds=secs, loss=loss,
+                         grads=_host_grads(entry[0]))
+    torch.cuda.empty_cache()
+    port = str(free_port())
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    logs = [open(root / f"rank{r}.log", "w") for r in range(2)]
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(r),
+         "2", port, str(root)], stdout=logs[r], stderr=subprocess.STDOUT,
+        env=env) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t
+    if any(p.returncode for p in procs):
+        tails = [(root / f"rank{r}.log").read_text()[-3000:]
+                 for r in range(2)]
+        raise AssertionError(f"dp: a rank failed: {tails}")
+    ranks = [json.loads((root / f"rank{r}.json").read_text())
+             for r in range(2)]
+    rec = {}
+    for kind in ("uasr", "seg"):
+        a, b = ranks[0][kind], ranks[1][kind]
+        if a["digest"] != b["digest"]:
+            raise AssertionError(f"dp {kind}: weights differ across ranks")
+        err, leaf = _grad_err(torch.load(root / f"{kind}_grads.pt"),
+                              ref[kind]["grads"])
+        loss_err = abs(a["loss"] - ref[kind]["loss"]) / abs(ref[kind]["loss"])
+        if err > 2e-3 or loss_err > 2e-3 or a["loss"] != b["loss"]:
+            raise AssertionError(f"dp {kind}: gradient {err}, loss {a['loss']}"
+                                 f" / {b['loss']} vs {ref[kind]['loss']}")
+        rec[kind] = dict(rows_per_rank=a["rows"],
+                         rank_step_seconds=[a["seconds"], b["seconds"]],
+                         one_process_step_seconds=ref[kind]["seconds"],
+                         loss=a["loss"], one_process_loss=ref[kind]["loss"],
+                         grad_rel_err=err, worst_leaf_rel_err=leaf)
+    lines = (root / "metrics.jsonl").read_text().splitlines()
+    if len(lines) != 2 or any(json.loads(ln)["rank"] != 0 for ln in lines):
+        raise AssertionError(f"dp: metrics lines {lines}")
+    # (ii) a one-rank NCCL group through the same code
+    entry = _dp_models(dev)["seg"]
+    t0 = time.perf_counter()
+    # init_distributed forms no group for one process: form it here
+    torch.cuda.set_device(dev.index or 0)
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        init_s = time.perf_counter() - t0
+        backend = torch.distributed.get_backend()
+        secs, loss = _dp_step("seg", entry)
+        err, leaf = _grad_err(_host_grads(entry[0]), ref["seg"]["grads"])
+    finally:
+        torch.distributed.destroy_process_group()
+    if backend != "nccl" or err > 2e-3:
+        raise AssertionError(f"dp nccl: backend {backend}, gradient {err}")
+    rec["nccl_one_rank"] = dict(init_seconds=init_s, step_seconds=secs,
+                                loss=loss, grad_rel_err=err,
+                                worst_leaf_rel_err=leaf)
+    del entry
+    torch.cuda.empty_cache()
+    emit({"phase": "dp", "card": gpu, "ranks": 2, "backend": "gloo",
+          "spawn_to_exit_seconds": wall, **rec,
+          "note": "two ranks on one card over gloo; NCCL across two cards "
+                  "and any scaling are not measured here"})
+    return rec
+
+
+def phase_fold_all(dev, gpu, work: Path):
+    """``pipeline.stage2_segsr_all_folds`` with 2 folds over
+    devices=[cuda:0, cuda:0] on the train_loop phase's phantom subjects
+    (``dataset=``), bf16, distillation, 3 steps with one save and one
+    validation at the end: both folds' checkpoints at step 3, finite and
+    distinct fold losses, fp32 K1 launched once per validation tile of
+    each fold and no other kernel; then fold k's state after one
+    fold-parallel step of the full-width SegModel (fp32, cuDNN
+    deterministic) equal bit for bit to one plain step of fold k on the
+    same batch. Returns the fp32 K1 launches."""
+    import copy
+
+    from rehrseg_tpu_torch import pipeline
+    from rehrseg_tpu_torch.config import Config
+    from rehrseg_tpu_torch.data.datasets import SegSRDataset
+    from rehrseg_tpu_torch.infer import sliding_window as sw
+    from rehrseg_tpu_torch.io import nifti
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH
+    from rehrseg_tpu_torch.ops.pconv import pconv_pad11_cat
+    from rehrseg_tpu_torch.parallel import fold_parallel as fp
+    from rehrseg_tpu_torch.train import checkpoint as ckpt
+
+    root = work / "fold_all"
+    patch_zyx = list(TRAIN_PATCH)
+    patch_ori = [patch_zyx[2] + 64, patch_zyx[1] + 64, patch_zyx[0]]
+    val_zyx = tuple(patch_ori[::-1])
+    rng = np.random.default_rng(SEED + 70)
+    for d in ("imagesTr", "labelsTr"):
+        (root / d).mkdir(parents=True)
+    img, lab = _phantom(rng, val_zyx[::-1])
+    nifti.write_image_itk(nifti.ItkLikeImage(img.transpose(2, 1, 0),
+                                             SPACING),
+                          str(root / "imagesTr" / "v0_0000.nii.gz"))
+    nifti.write_image_itk(nifti.ItkLikeImage(
+        lab.transpose(2, 1, 0).astype(np.uint8), SPACING),
+        str(root / "labelsTr" / "v0.nii.gz"))
+    seg_path = root / "nnUNet_results" / "DS" / "trainer"
+    seg_path.mkdir(parents=True)
+    (root / "nnUNet_preprocessed" / "DS").mkdir(parents=True)
+    (root / "nnUNet_preprocessed" / "DS" / "splits_final.json").write_text(
+        json.dumps([{"train": ["t0", "t1"], "val": ["v0"]},
+                    {"train": ["t1", "t0"], "val": ["v0"]}]))
+    hr_shape = (patch_ori[0] + 16, patch_ori[1] + 16, 4 * patch_zyx[0] + 8)
+    vols = []
+    for _ in range(2):
+        im, lb = _phantom(rng, hr_shape)
+        vols.append((im, lb, rng.uniform(0, 255, size=hr_shape).astype(
+            np.float32)))
+    ds = SegSRDataset.from_volumes(vols, 4.0, 1.0, patch_ori,
+                                   patch_zyx[::-1], random_flip=True,
+                                   uncertainty=True, device_augment=True)
+    arch = {k: list(v) if isinstance(v, tuple) else v
+            for k, v in DEFAULT_ARCH.items()}
+    cfg = Config(data_path=str(root / "imagesTr"),
+                 tmp_path=str(root / "tmp"),
+                 checkpoint_path=str(root / "ckpt"), seg_path=str(seg_path),
+                 fold="all", epochs=3, batch_size_segsr=2,
+                 save_iters_segsr=3,
+                 extra={"arch_override": arch, "patch_size_zyx": patch_zyx})
+    card = torch.device("cuda", 0)
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        segs, states, best = pipeline.stage2_segsr_all_folds(
+            cfg, dataset=ds, devices=[card, card])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = pconv_pad11_cat.launches
+    counts = _fused_counts()
+    n_tiles = len(sw.sliding_window_starts(val_zyx, val_zyx))
+    log = [json.loads(line) for line in
+           (root / "ckpt" / "segsr_folds" / "metrics.jsonl").read_text()
+           .splitlines()]
+    losses = [r[f"loss_fold{k}"] for r in log for k in range(2)
+              if f"loss_fold{k}" in r]
+    steps = [ckpt.latest_step(str(root / "ckpt" / f"segsr_fold{k}"))
+             for k in range(2)]
+    if steps != [3, 3] or [s.step for s in states] != [3, 3]:
+        raise AssertionError(f"fold_all: checkpoints at {steps}")
+    if len(losses) != 2 or not all(np.isfinite(losses)) \
+            or losses[0] == losses[1]:
+        raise AssertionError(f"fold_all: fold losses {losses}")
+    if launches != 2 * n_tiles:
+        raise AssertionError(f"fold_all: fp32 K1 launched {launches} times "
+                             f"for 2 folds x {n_tiles} tiles")
+    if any(v for k, v in counts.items() if k != "pconv_pad11_cat"):
+        raise AssertionError(f"fold_all: other kernels ran: {counts}")
+    del segs, states
+    torch.cuda.empty_cache()
+
+    # one fold-parallel step against one plain step per fold
+    from rehrseg_tpu_torch.models import convert
+    from rehrseg_tpu_torch.models.segnet import SegModel
+    from rehrseg_tpu_torch.train import optim
+    from rehrseg_tpu_torch.train.seg_trainer import make_seg_train_step
+    from rehrseg_tpu_torch.train.state import TrainState
+
+    def fold(k):
+        seg = SegModel(2, 4, arch=DEFAULT_ARCH)
+        convert.load_flax_params(seg, convert.random_flax_params(
+            DEFAULT_ARCH, SEED + 71 + k))
+        seg.to(card)
+        state = TrainState(seg, optim.nesterov_sgd(seg),
+                           optim.poly_epoch_schedule(1e-2, 100, 1))
+        return seg, state, make_seg_train_step(
+            seg, enable_uncertainty=True, enable_distillation=False,
+            remat=True)
+
+    batches = [(_train_batch(card, SEED + 73 + k),) for k in range(2)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        folds = [fold(k) for k in range(2)]
+        plain = [(copy.deepcopy(f[0]),) for f in folds]
+        mesh = fp.make_fold_mesh(2, devices=[card, card])
+        step = fp.make_fold_parallel_step([f[2] for f in folds], mesh)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step([f[1] for f in folds], batches)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        equal = []
+        for k, (seg,) in enumerate(plain):
+            state = TrainState(seg, optim.nesterov_sgd(seg),
+                               optim.poly_epoch_schedule(1e-2, 100, 1))
+            make_seg_train_step(seg, enable_uncertainty=True,
+                                enable_distillation=False,
+                                remat=True)(state, *batches[k])
+            want = seg.state_dict()
+            equal.append(all(torch.equal(v, want[n]) for n, v in
+                             folds[k][0].state_dict().items()))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if not all(equal):
+        raise AssertionError(f"fold_all: fold-parallel step differs from "
+                             f"the plain step: {equal}")
+    del folds, plain
+    torch.cuda.empty_cache()
+    emit({"phase": "fold_all", "card": gpu, "folds": 2,
+          "devices": ["cuda:0", "cuda:0"], "steps": 3, "batch": 2,
+          "patch": patch_zyx, "seconds": secs, "fold_losses": losses,
+          "best_dice": best, "checkpoint_steps": steps,
+          "k1_fp32_launches": launches, "val_tiles_per_fold": n_tiles,
+          "fold_step_fp32_seconds": step_s,
+          "fold_step_equals_plain_step": equal,
+          "printed": printed.getvalue().strip().splitlines()[-6:],
+          "note": "both folds on one card: not a scaling number"})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2667,6 +3156,10 @@ def main() -> int:
         phase_sr_train_step(dev, gpu)
         torch.cuda.empty_cache()
         phase_stage1(dev, gpu, Path(work))
+        torch.cuda.empty_cache()
+        launches_mesh = phase_mesh(params, dev, gpu)
+        phase_dp(dev, gpu, Path(work))
+        launches_folds = phase_fold_all(dev, gpu, Path(work))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2680,6 +3173,7 @@ def main() -> int:
              replaces="rehrseg_tpu/ops/pallas_pconv.py:889",
              launches=launches["pconv_pad11_cat"],
              launches_cli=launches_cli, launches_streamed=launches_streamed,
+             launches_mesh=launches_mesh,
              **{k: k1[k] for k in keys}),
         # fp32 K1: fold evaluation's path (trainer weights are fp32); its
         # bound at the 3xTF32 rate
@@ -2687,7 +3181,7 @@ def main() -> int:
              source="rehrseg_tpu_torch/csrc/pconv_pad11_cat_sm90.cu",
              replaces="rehrseg_tpu/ops/pallas_pconv.py:889",
              launches=launches_eval, launches_in="evaluate",
-             launches_train=launches_train,
+             launches_train=launches_train, launches_fold_all=launches_folds,
              **{k: k1_fp32[k] for k in keys}),
         dict(name="accumulate_tta_tile", route="cuda",
              source="rehrseg_tpu_torch/csrc/accumulate_tta_tile.cu",
@@ -2782,4 +3276,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2:]))
     sys.exit(main())

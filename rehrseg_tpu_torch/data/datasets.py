@@ -24,8 +24,9 @@ the same ``np.random.default_rng`` seed. Each dataset reads its stores in
 the constructor (h5py, imported there) or takes arrays through
 ``from_volumes``.
 
-The ``MultiprocessBatchLoader`` is still to be ported (ROADMAP queue 1,
-item 10b).
+``MultiprocessBatchLoader`` builds whole batches in worker processes from
+per-sample seeds the parent draws: the same batches as ``BatchLoader(
+shard=(0, 1))`` (or its ``shard=``), whatever the number of workers.
 """
 
 from __future__ import annotations
@@ -453,6 +454,128 @@ def _check_shard(batch_size: int, shard):
                          f"{count} processes")
     if not (0 <= index < count):
         raise ValueError(f"shard index {index} out of range [0,{count})")
+
+
+def _mp_worker(dataset, task_q, out_q):
+    """A loader worker: numpy batches from seed lists until a None task.
+    It never touches CUDA (the parent may have initialized it before the
+    fork; ``dataset.sample`` is numpy-only)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    while True:
+        task = task_q.get()
+        if task is None:
+            break
+        idx, seeds = task
+        try:
+            samples = [dataset.sample(rng=np.random.default_rng(int(s)))
+                       for s in seeds]
+            out_q.put((idx, "ok", _stack_samples(samples)))
+        except Exception as e:  # noqa: BLE001 — surfaced to the parent
+            out_q.put((idx, "err", f"{type(e).__name__}: {e}"))
+
+
+class MultiprocessBatchLoader:
+    """``num_workers`` worker processes building whole batches in parallel
+    (the reference feeds stage 2 with 4 DataLoader workers,
+    train_all.py:508).
+
+    The parent draws one seed per sample from a seeded stream and the
+    workers materialize batches from those seeds; batches come back in
+    order. The stream is byte-identical to ``BatchLoader(dataset,
+    batch_size, seed, shard=(0, 1))``, whatever ``num_workers``. shard=
+    (index, count): every process draws the whole global seed list and
+    builds its contiguous slice, as ``BatchLoader(shard=)``.
+
+    ``REHRSEG_MP_CONTEXT`` (fork, the default: the volumes are shared copy
+    on write; spawn; forkserver) picks the start method. A worker that
+    dies, or hangs while the others are dead, is reported by a liveness
+    watchdog in :meth:`next` instead of stalling the loop."""
+
+    def __init__(self, dataset, batch_size: int, num_workers: int = 2,
+                 seed: int = 0, depth: int = 2,
+                 shard: tuple[int, int] | None = None):
+        import multiprocessing as mp
+
+        _check_shard(batch_size, shard)
+        self.shard = shard
+        self.batch_size = batch_size
+        self.rng = np.random.default_rng(seed)
+        ctx = mp.get_context(os.environ.get("REHRSEG_MP_CONTEXT", "fork"))
+        self._task_q = ctx.Queue()
+        self._out_q = ctx.Queue()
+        self._procs = [ctx.Process(target=_mp_worker,
+                                   args=(dataset, self._task_q, self._out_q),
+                                   daemon=True)
+                       for _ in range(int(num_workers))]
+        for p in self._procs:
+            p.start()
+        self._inflight_cap = len(self._procs) + int(depth)
+        self._next_submit = 0
+        self._next_emit = 0
+        self._buffer: dict = {}
+        self._closed = False
+        self._pump()
+
+    def _pump(self):
+        while self._next_submit - self._next_emit < self._inflight_cap:
+            seeds = self.rng.integers(0, 2 ** 63, size=self.batch_size)
+            if self.shard is not None:
+                index, count = self.shard
+                per = self.batch_size // count
+                seeds = seeds[index * per:(index + 1) * per]
+            self._task_q.put((self._next_submit, seeds))
+            self._next_submit += 1
+
+    def next(self):
+        import queue as _queue
+
+        if self._closed:
+            raise RuntimeError("MultiprocessBatchLoader is closed")
+        self._pump()
+        while self._next_emit not in self._buffer:
+            try:
+                idx, status, item = self._out_q.get(timeout=5.0)
+            except _queue.Empty:
+                dead = [p for p in self._procs if not p.is_alive()]
+                if dead:
+                    self.close()
+                    raise RuntimeError(
+                        f"{len(dead)} loader worker process(es) died "
+                        f"(exitcodes {[p.exitcode for p in dead]}) — a "
+                        "crashed or killed child cannot report through the "
+                        "queue; loader_workers=0 or REHRSEG_MP_CONTEXT=spawn "
+                        "avoids fork-related deaths") from None
+                continue
+            if status == "err":
+                raise RuntimeError(f"loader worker failed: {item}")
+            self._buffer[idx] = item
+        out = self._buffer.pop(self._next_emit)
+        self._next_emit += 1
+        return out
+
+    def close(self):
+        """Stop the workers. Results still in flight are drained while
+        they exit: a worker cannot exit before its queued output is
+        taken."""
+        import queue as _queue
+        import time
+
+        if self._closed:
+            return
+        self._closed = True
+        for _ in self._procs:
+            self._task_q.put(None)
+        deadline = time.monotonic() + 3.0
+        while (any(p.is_alive() for p in self._procs)
+               and time.monotonic() < deadline):
+            try:
+                self._out_q.get(timeout=0.05)
+            except _queue.Empty:
+                pass
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=1.0)
 
 
 class PrefetchLoader:

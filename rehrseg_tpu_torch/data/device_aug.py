@@ -225,22 +225,46 @@ def apply_seg_aug(params, img, label_lr, label_hr, uncertainty, patch_hw,
     return (im[..., None], llr[..., None], lhr[..., None], unc[..., None])
 
 
+def shard_rows(tree, shard):
+    """The rows of this process's slice of a global batch's draws: every
+    (B_global, ...) tensor of a nested dict cut to rows [index * B /
+    count, (index + 1) * B / count). shard=None returns ``tree``."""
+    if shard is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: shard_rows(v, shard) for k, v in tree.items()}
+    index, count = shard
+    per = tree.shape[0] // count
+    return tree[index * per:(index + 1) * per]
+
+
+def global_rows(local_batch: int, shard) -> int:
+    """The global batch a process with ``local_batch`` rows draws for."""
+    return local_batch * (1 if shard is None else int(shard[1]))
+
+
 def augment_seg_batch(gen, img, label_lr, label_hr, uncertainty, patch_hw,
-                      enable_uncertainty: bool = True):
+                      enable_uncertainty: bool = True, shard=None):
     """Batched device augmentation for stage-2 training: draws from
     ``gen`` (a generator on the batch's device) and applies them. Shapes
-    as :func:`apply_seg_aug`."""
-    params = draw_seg_aug_params(gen, img.shape[0], img.shape[1], patch_hw,
-                                 img.device)
+    as :func:`apply_seg_aug`. shard=(index, count): the batch is this
+    process's slice of a global batch; the draws are the global batch's
+    (so N processes reproduce one process on the same stream) and this
+    slice's rows are applied."""
+    b = global_rows(img.shape[0], shard)
+    params = shard_rows(draw_seg_aug_params(gen, b, img.shape[1], patch_hw,
+                                            img.device), shard)
     return apply_seg_aug(params, img, label_lr, label_hr, uncertainty,
                          patch_hw, enable_uncertainty)
 
 
-def augment_sr_hr_batch(gen, hr):
+def augment_sr_hr_batch(gen, hr, shard=None):
     """Batched intensity augmentation for stage-1 SR training: the
     intensity chain and the two gamma stages on channel 0 of hr (B, D, H,
     W, C >= 1); label channels return untouched (the reference's stage-1
-    transform is intensity-only, train_set.py:259-277)."""
-    p = _draw_intensity(gen, hr.shape[0], hr.shape[1:4], hr.device)
+    transform is intensity-only, train_set.py:259-277). shard: as
+    :func:`augment_seg_batch`."""
+    p = shard_rows(_draw_intensity(gen, global_rows(hr.shape[0], shard),
+                                   hr.shape[1:4], hr.device), shard)
     im = _intensity(p, hr[..., 0])
     return torch.cat([im[..., None], hr[..., 1:]], dim=-1)

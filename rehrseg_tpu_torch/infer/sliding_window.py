@@ -30,6 +30,11 @@ The volume is uploaded as bf16 by default, as the JAX engines do, whatever
 the compute dtype. On the card the upload and the label fetch go through
 pinned host memory without blocking, so the ``_many`` engines enqueue every
 volume's tiles and argmax before they wait once for all label maps.
+
+One volume's TTA shards over several devices with ``tta_mesh=`` (a
+:class:`..parallel.mesh.Mesh`): each forward's mirror batch splits over the
+mesh's 'data' devices, and ``model_fn`` runs each block on its block's
+device (the Segmenter keeps one weight replica per distinct device).
 """
 
 from __future__ import annotations
@@ -138,6 +143,43 @@ def _to_host(labels: Sequence[torch.Tensor]) -> list:
     return [h.numpy() for h in host]
 
 
+def _mesh_devices(tta_mesh, n_batch: int):
+    """The 'data' devices a mirror batch of ``n_batch`` splits over, or None
+    without a mesh."""
+    if tta_mesh is None:
+        return None
+    from ..parallel.mesh import check_data_only
+
+    check_data_only(tta_mesh)
+    devices = tta_mesh.data_devices
+    if n_batch % len(devices):
+        raise ValueError(
+            f"the mesh's 'data' axis of {len(devices)} devices must divide "
+            f"the mirror batch of {n_batch} (tiles_per_step x flips)")
+    return devices
+
+
+def _mesh_home(tta_mesh, device):
+    """The accumulators' device: ``device``, else the mesh's first."""
+    if device is None and tta_mesh is not None:
+        return tta_mesh.first
+    return device
+
+
+def _sharded_forward(model_fn: Callable, batch: torch.Tensor,
+                     devices) -> torch.Tensor:
+    """The forward of ``batch`` split into len(devices) contiguous blocks
+    in flip order, block i run on devices[i] (``model_fn`` runs each on its
+    block's device), the outputs gathered back on the batch's device in
+    order. Every block is enqueued before any output is copied back, so
+    blocks on distinct cards run side by side."""
+    if devices is None:
+        return model_fn(batch)
+    outs = [model_fn(block.to(dev, non_blocking=True))
+            for block, dev in zip(batch.chunk(len(devices)), devices)]
+    return torch.cat([o.to(batch.device, non_blocking=True) for o in outs])
+
+
 def _padded_starts(image_size, patch_size, tile_step_size,
                    tiles_per_step: int) -> list:
     """(sx, sy, sz, valid) rows of the parity grid, padded to a multiple of
@@ -154,7 +196,7 @@ def _run_sliding_window(model_fn: Callable, data: np.ndarray, patch_size,
                         slice_separation, tile_step_size, use_gaussian,
                         mirror, num_classes, input_dtype=torch.bfloat16,
                         need_weights: bool = True, device=None,
-                        tiles_per_step: int = 1, rows=None):
+                        tiles_per_step: int = 1, rows=None, tta_mesh=None):
     """The tile loop; returns (logits (D*sep, H, W, C) fp32, weights or
     None) on the device. need_weights=False skips the weight accumulator:
     argmax(logits / weights) == argmax(logits) since the weights are
@@ -162,7 +204,13 @@ def _run_sliding_window(model_fn: Callable, data: np.ndarray, patch_size,
     one forward of batch k * n_tta; the padded rows (valid = 0) of the last
     forward add nothing. rows: the (sx, sy, sz, valid) tile starts, by
     default the parity grid of ``data``'s own shape (a streamed slab passes
-    the whole volume's grid rows that fall in it)."""
+    the whole volume's grid rows that fall in it). tta_mesh: a
+    :class:`..parallel.mesh.Mesh` whose 'data' axis splits each forward's
+    mirror batch (k tiles x n_tta flips) into contiguous blocks, one per
+    data device (``P("data")`` in the JAX engine); ``model_fn`` runs each
+    block on its device with that device's weights, the outputs come back
+    to ``device`` and are unmirrored in the same order as without a mesh.
+    A 'spatial' extent above 1 raises (ROADMAP item 10c)."""
     device = resolve_device(device)
     pd, ph, pw = (int(p) for p in patch_size)
     z_scale = int(slice_separation)
@@ -171,6 +219,7 @@ def _run_sliding_window(model_fn: Callable, data: np.ndarray, patch_size,
     g = _gaussian((od, ph, pw), bool(use_gaussian), device)
     combos = _flip_axes_combinations(3) if mirror else [()]
     n_tta = len(combos)
+    mesh_devices = _mesh_devices(tta_mesh, k * n_tta)
     vol = _upload(data, input_dtype, device)
     out_shape = (vol.shape[0] * z_scale, vol.shape[1], vol.shape[2])
     logits = torch.zeros((*out_shape, num_classes), dtype=torch.float32,
@@ -184,7 +233,9 @@ def _run_sliding_window(model_fn: Callable, data: np.ndarray, patch_size,
         group = rows[i:i + k]
         stacks = [_mirror_batch(vol[sx:sx + pd, sy:sy + ph, sz:sz + pw],
                                 combos) for sx, sy, sz, _ in group]
-        preds = model_fn(stacks[0] if k == 1 else torch.cat(stacks))
+        preds = _sharded_forward(
+            model_fn, stacks[0] if k == 1 else torch.cat(stacks),
+            mesh_devices)
         for j, (sx, sy, sz, valid) in enumerate(group):
             if not valid:
                 continue
@@ -206,15 +257,19 @@ def predict_sliding_window_logits(model_fn: Callable, data: np.ndarray,
                                   num_classes: int = 2,
                                   input_dtype=torch.bfloat16,
                                   device=None,
-                                  tiles_per_step: int = 1) -> np.ndarray:
+                                  tiles_per_step: int = 1,
+                                  tta_mesh=None) -> np.ndarray:
     """Full sliding-window prediction of one volume. model_fn maps
     (B, pd, ph, pw, C) -> (B, pd*slice_separation, ph, pw, num_classes).
     data: (D, H, W, C) numpy, already normalized. Returns
-    (D*slice_separation, H, W, num_classes) fp32 logits."""
+    (D*slice_separation, H, W, num_classes) fp32 logits. tta_mesh: the
+    mirror batch split over the mesh's 'data' devices
+    (:func:`_run_sliding_window`); ``device`` defaults to its first."""
     logits, weights = _run_sliding_window(
         model_fn, data, patch_size, slice_separation, tile_step_size,
-        use_gaussian, mirror, num_classes, input_dtype, device=device,
-        tiles_per_step=tiles_per_step)
+        use_gaussian, mirror, num_classes, input_dtype,
+        device=_mesh_home(tta_mesh, device), tiles_per_step=tiles_per_step,
+        tta_mesh=tta_mesh)
     logits = (logits / weights[..., None]).cpu().numpy()
     if np.any(np.isinf(logits)):
         raise RuntimeError("Encountered inf in predicted array.")
@@ -223,11 +278,13 @@ def predict_sliding_window_logits(model_fn: Callable, data: np.ndarray,
 
 def _labels_on_device(model_fn, data, patch_size, slice_separation,
                       tile_step_size, use_gaussian, mirror, num_classes,
-                      input_dtype, device, tiles_per_step) -> torch.Tensor:
+                      input_dtype, device, tiles_per_step,
+                      tta_mesh=None) -> torch.Tensor:
     logits, _ = _run_sliding_window(
         model_fn, data, patch_size, slice_separation, tile_step_size,
         use_gaussian, mirror, num_classes, input_dtype, need_weights=False,
-        device=device, tiles_per_step=tiles_per_step)
+        device=_mesh_home(tta_mesh, device), tiles_per_step=tiles_per_step,
+        tta_mesh=tta_mesh)
     return _argmax_uint8(logits)
 
 
@@ -240,13 +297,15 @@ def predict_sliding_window_labels(model_fn: Callable, data: np.ndarray,
                                   num_classes: int = 2,
                                   input_dtype=torch.bfloat16,
                                   device=None,
-                                  tiles_per_step: int = 1) -> np.ndarray:
+                                  tiles_per_step: int = 1,
+                                  tta_mesh=None) -> np.ndarray:
     """Like :func:`predict_sliding_window_logits` but returns the uint8
-    argmax label map (D*slice_separation, H, W)."""
+    argmax label map (D*slice_separation, H, W). tta_mesh: the mirror
+    batch split over the mesh's 'data' devices."""
     return _to_host([_labels_on_device(
         model_fn, data, patch_size, slice_separation, tile_step_size,
         use_gaussian, mirror, num_classes, input_dtype, device,
-        tiles_per_step)])[0]
+        tiles_per_step, tta_mesh)])[0]
 
 
 def predict_sliding_window_labels_many(model_fn: Callable, volumes,

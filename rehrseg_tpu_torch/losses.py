@@ -124,13 +124,19 @@ def _flatten_channel_first(x):
     return torch.movedim(x, -1, 0).reshape(x.shape[-1], -1)
 
 
-def dice_loss_sigmoid(logits, target, epsilon: float = 1e-6):
+def dice_loss_sigmoid(logits, target, epsilon: float = 1e-6, reduce=None):
     """DiceLoss with the sigmoid and a squared denominator
-    (seg_utils.py:786-873)."""
+    (seg_utils.py:786-873). Its sums run over the whole batch, so under
+    data parallelism ``reduce`` (``parallel.multihost.global_sum``) sums
+    the intersect and the denominator across processes before the ratio:
+    the dice of the global batch."""
     p = _flatten_channel_first(torch.sigmoid(logits))
     t = _flatten_channel_first(target).to(p.dtype)
     intersect = (p * t).sum(-1)
     denominator = (p * p).sum(-1) + (t * t).sum(-1)
+    if reduce is not None:
+        intersect, denominator = reduce(torch.stack([intersect,
+                                                     denominator]))
     return 1.0 - (2.0 * intersect / denominator.clamp(min=epsilon)).mean()
 
 
@@ -139,39 +145,45 @@ def bce_with_logits(logits, target):
             + torch.log1p(torch.exp(-logits.abs()))).mean()
 
 
-def bce_dice_loss(logits, target, alpha: float = 1.0, beta: float = 1.0):
-    """BCEDiceLoss (seg_utils.py:875-886)."""
+def bce_dice_loss(logits, target, alpha: float = 1.0, beta: float = 1.0,
+                  reduce=None):
+    """BCEDiceLoss (seg_utils.py:875-886); ``reduce``: as
+    :func:`dice_loss_sigmoid`'s."""
     return (alpha * bce_with_logits(logits, target)
-            + beta * dice_loss_sigmoid(logits, target))
+            + beta * dice_loss_sigmoid(logits, target, reduce=reduce))
 
 
 def l1_loss(pred, target):
     return (pred - target).abs().mean()
 
 
-def sr_loss(pred, target, alpha: float = 1.0, beta: float = 1.0):
+def sr_loss(pred, target, alpha: float = 1.0, beta: float = 1.0,
+            reduce=None):
     """Stage-1 loss without uncertainty (train_all.py:132-134): L1 on
     channel 0 (the image) + BCEDice on the other (label) channels; the L1
-    alone for single-channel SR."""
+    alone for single-channel SR. ``reduce``: the dice's cross-process sum
+    (:func:`dice_loss_sigmoid`)."""
     img_l1 = l1_loss(pred[..., 0:1], target[..., 0:1])
     if pred.shape[-1] == 1:
         return img_l1
     return img_l1 + bce_dice_loss(pred[..., 1:], target[..., 1:], alpha,
-                                  beta)
+                                  beta, reduce=reduce)
 
 
 def sr_uncertainty_loss(pred, uncertainty, target, alpha: float = 1.0,
-                        beta: float = 1.0):
+                        beta: float = 1.0, reduce=None):
     """Stage-1 loss of the UASR head (train_all.py:125-134): L1(image) +
     mean(|err| / u + log u) + L1(u, |err| detached) + BCEDice(label), the
-    last term absent for single-channel SR."""
+    last term absent for single-channel SR. ``reduce``: as
+    :func:`sr_loss`'s."""
     err = pred[..., 0:1] - target[..., 0:1]
     loss = l1_loss(pred[..., 0:1], target[..., 0:1])
     loss = loss + (err.abs() / uncertainty + torch.log(uncertainty)).mean()
     loss = loss + l1_loss(uncertainty, err.abs().detach())
     if pred.shape[-1] == 1:
         return loss
-    return loss + bce_dice_loss(pred[..., 1:], target[..., 1:], alpha, beta)
+    return loss + bce_dice_loss(pred[..., 1:], target[..., 1:], alpha, beta,
+                                reduce=reduce)
 
 
 # -------------------------------------------------------------- eval metrics

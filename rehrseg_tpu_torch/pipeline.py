@@ -31,9 +31,23 @@ K1 at every decoder concat in the model's own dtype, so a trainer's fp32
 weights run K1's fp32 kernel on the card.
 
 Entry points run on the card unless the caller passes ``device``. The
-stage-1 loops take ``dataset=`` in place of the HDF5 stores. More than one
-process (``dp_mesh``, ``--fold all``, ``loader_workers``, ``mesh_spatial``)
-is still to be ported (ROADMAP queue 1, item 10b).
+stage-1 loops take ``dataset=`` in place of the HDF5 stores.
+
+More than one card:
+  - data parallelism, one process per card over ``torch.distributed``
+    (``torchrun --nproc-per-node N -m rehrseg_tpu_torch.cli ...``): each
+    process loads its slice of the global batch (``BatchLoader(shard=)``,
+    or the worker loader with ``extra.loader_workers``; no device
+    sampler), the steps average their gradients across processes, the
+    primary alone writes artifacts, checkpoints and metrics and runs the
+    evaluations, and every skip / resume decision is the primary's,
+    broadcast (:func:`_agree`), each write followed by a barrier with the
+    JAX package's tag;
+  - ``--fold all`` (:func:`stage2_segsr_all_folds`): stage 1 once, then the
+    folds' stage-2 trainings side by side in one process, fold k on card
+    k (``parallel.fold_parallel``);
+  - ``extra.mesh_spatial`` > 1 (a patch's H sharded across cards) is
+    ROADMAP queue 1, item 10c, and raises.
 """
 
 from __future__ import annotations
@@ -54,6 +68,7 @@ from .losses import calculate_dice
 from .models import convert
 from .models.segnet import arch_from_plans
 from .models.segnet_packed import segmodel_apply_packed
+from .parallel import multihost as _mh
 from .utils.device import resolve_device
 
 
@@ -200,27 +215,54 @@ def split_subjects(cfg: Config):
     return splits[cfg.fold]["train"], splits[cfg.fold]["val"]
 
 
+def _agree(flag: bool) -> bool:
+    """The primary's filesystem-derived decision, on every process: skip
+    and resume branches must be the same everywhere, or the processes call
+    different collectives and deadlock (on shared storage ``os.path.exists``
+    can disagree across hosts). The flag itself in a single process."""
+    if not _mh.is_multihost():
+        return bool(flag)
+    return _mh.broadcast_scalar(1.0 if flag else 0.0) > 0.5
+
+
+def _dp_mesh(device, global_batch: int, what: str):
+    """The data-parallel mesh (data = the process count) under more than
+    one process, after checking the global batch divides over it; None in a
+    single process."""
+    if not _mh.is_multihost():
+        return None
+    from .parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=[resolve_device(device)] * _mh.process_count())
+    _mh.validate_global_batch(global_batch, mesh, what=what)
+    return mesh
+
+
 def _make_loader(cfg: Config, ds, batch_size: int, device=None):
-    """The training batch loader, chosen as the JAX package chooses: the
-    :class:`.data.device_sampler.DeviceSRPatchSampler` (volumes resident
-    on ``device``) where the dataset is of its kind and
-    ``extra.device_sampler`` (default true) allows it; else one background
-    thread over the seeded host stream."""
-    from .data.datasets import BatchLoader, PrefetchLoader
+    """The training batch loader, chosen as the JAX package chooses: in a
+    single process the :class:`.data.device_sampler.DeviceSRPatchSampler`
+    (volumes resident on ``device``) where the dataset is of its kind and
+    ``extra.device_sampler`` (default true) allows it; else with
+    ``extra.loader_workers`` > 0 the worker-process loader, else one
+    background thread over the seeded host stream. Under data parallelism
+    each process loads its slice of the global batch (``shard=``)."""
+    from .data.datasets import (BatchLoader, MultiprocessBatchLoader,
+                                PrefetchLoader)
 
     ex = cfg.extra or {}
-    if bool(ex.get("device_sampler", True)):
+    shard = _mh.data_shard()
+    if not _mh.is_multihost() and bool(ex.get("device_sampler", True)):
         from .data.device_sampler import DeviceSRPatchSampler
         try:
-            return DeviceSRPatchSampler(ds, batch_size,
+            return DeviceSRPatchSampler(ds, batch_size, shard=shard,
                                         device=resolve_device(device))
         except (ValueError, AttributeError):
             pass
-    if int(ex.get("loader_workers", 0) or 0) > 0:
-        raise NotImplementedError(
-            "loader_workers > 0 (MultiprocessBatchLoader) is still to be "
-            "ported (ROADMAP queue 1, item 10b)")
-    return PrefetchLoader(BatchLoader(ds, batch_size))
+    workers = int(ex.get("loader_workers", 0) or 0)
+    if workers > 0:
+        return MultiprocessBatchLoader(ds, batch_size, num_workers=workers,
+                                       shard=shard)
+    return PrefetchLoader(BatchLoader(ds, batch_size, shard=shard))
 
 
 # ------------------------------------------------------------ stage 0
@@ -260,9 +302,12 @@ def merge_images_and_labels(main_dir: str, output_dir: str) -> None:
 
 
 def preprocess(cfg: Config) -> None:
-    """Stage 0: the merged 2-channel volumes under ``tmp_path``."""
-    merge_images_and_labels(cfg.data_path,
-                            pipeline_paths(cfg)["merge_data"])
+    """Stage 0: the merged 2-channel volumes under ``tmp_path`` (written by
+    the primary)."""
+    merge_data = pipeline_paths(cfg)["merge_data"]
+    if _mh.is_primary():
+        merge_images_and_labels(cfg.data_path, merge_data)
+    _mh.barrier("preprocess")
 
 
 # ------------------------------------------------------------ stage 1
@@ -283,17 +328,23 @@ def _train_sr_loop(state, loader, step_fn, n_steps: int, save_iters: int,
     steps chain without a sync between. A checkpoint is saved every
     ``save_iters`` steps and at the end; a SIGTERM / SIGINT saves and
     raises :class:`.utils.preemption.TrainingPreempted`. The loader is
-    closed on every exit."""
+    closed on every exit.
+
+    dp_mesh: data parallelism over the process group (the mesh of
+    :func:`_dp_mesh`): the primary's weights are broadcast first, the
+    stop flag is agreed across processes every 10 steps and once after the
+    loop (a save is a lockstep call), and the device draws are the global
+    batch's, each process applying its own rows."""
     from .data.device_aug import augment_sr_hr_batch
     from .data.device_sr_sim import simulate_lr_batch
     from .utils.metrics import MetricsLogger
     from .utils.preemption import PreemptionGuard, TrainingPreempted
 
-    if dp_mesh is not None:
-        raise NotImplementedError(
-            "dp_mesh (data-parallel stage-1 training) is still to be "
-            "ported (ROADMAP queue 1, item 10b)")
     mlog = MetricsLogger(weight_dir)
+    shard = None
+    if dp_mesh is not None:
+        _mh.replicate_global(state)
+        shard = _mh.data_shard()
     sim_gen = torch.Generator(device=device).manual_seed(17)
     aug_gen = (torch.Generator(device=device).manual_seed(23) if hr_aug
                else None)
@@ -309,14 +360,18 @@ def _train_sr_loop(state, loader, step_fn, n_steps: int, save_iters: int,
     try:
         with guard:
             for it in range(start_it, n_steps):
-                if guard.should_stop:
+                stop = guard.should_stop
+                if dp_mesh is not None:
+                    stop = _mh.any_flag(stop) if it % 10 == 0 else False
+                if stop:
                     state.save(weight_dir)
                     raise TrainingPreempted(int(state.step))
                 lr_b, hr_b = (upload(a) for a in loader.next())
                 if aug_gen is not None:
-                    hr_b = augment_sr_hr_batch(aug_gen, hr_b)
+                    hr_b = augment_sr_hr_batch(aug_gen, hr_b, shard=shard)
                 if lr_sim_sep is not None:
-                    lr_b = simulate_lr_batch(sim_gen, lr_b, float(lr_sim_sep))
+                    lr_b = simulate_lr_batch(sim_gen, lr_b, float(lr_sim_sep),
+                                             shard=shard)
                 state, metrics = step_fn(state, lr_b, hr_b)
                 if it > 0 and it % save_iters == 0:
                     state.save(weight_dir)
@@ -329,7 +384,11 @@ def _train_sr_loop(state, loader, step_fn, n_steps: int, save_iters: int,
                              lr=float(state.schedule(it)))
                     print(f"  step {it}/{n_steps} loss={loss:.4f} "
                           f"(~{dt * 1e3:.0f} ms/step)")
-            if guard.should_stop:
+            # a signal in the last steps lands between the agreed checks
+            stop = guard.should_stop
+            if dp_mesh is not None:
+                stop = _mh.any_flag(stop)
+            if stop:
                 state.save(weight_dir)
                 raise TrainingPreempted(int(state.step))
     finally:
@@ -396,13 +455,13 @@ def stage1a_smore(cfg: Config, *, device=None) -> None:
         done = all(os.path.exists(os.path.join(
             smore_out, s.replace(".nii.gz", "") + "_img.nii.gz"))
             for s in subjects)
-    if done and subjects:
+    if _agree(done and bool(subjects)):
         return
 
     if not c.smore_initialization:
         # the interpolation fallback (train_all.py:321-330): no SMORE
         # NIfTIs in this branch
-        for subject in subjects:
+        for subject in subjects if _mh.is_primary() else ():
             h5_path = os.path.join(paths["sr_h5"], subject + ".h5")
             if os.path.exists(h5_path):
                 continue
@@ -415,6 +474,7 @@ def stage1a_smore(cfg: Config, *, device=None) -> None:
             write_h5(h5_path, img_hr=up_img[..., None],
                      label_hr=up_lab[..., None].astype(np.uint8),
                      image_x_rgb=fx, image_y_rgb=fy)
+        _mh.barrier("stage1a-interp")
         return
 
     device = resolve_device(device)
@@ -432,7 +492,7 @@ def stage1a_smore(cfg: Config, *, device=None) -> None:
     n_steps = _sr_steps(c)
     opt, sched = onecycle_adam(model, c.lr_sr, n_steps)
     state = TrainState(model, opt, sched)
-    if ckpt.has_checkpoint(paths["smore_ckpt"]):
+    if _agree(ckpt.has_checkpoint(paths["smore_ckpt"])):
         print("NETWORK SMORE TRAINED, LOADING LAST WEIGHTS")
         state.restore(paths["smore_ckpt"])
     if state.step < n_steps:
@@ -451,11 +511,12 @@ def stage1a_smore(cfg: Config, *, device=None) -> None:
         state = _train_sr_loop(
             state, _make_loader(c, ds, c.batch_size_sr, device), step_fn,
             n_steps, c.save_iters_sr, paths["smore_ckpt"], device=device,
-            lr_sim_sep=sep if dev_sim else None)
+            lr_sim_sep=sep if dev_sim else None,
+            dp_mesh=_dp_mesh(device, c.batch_size_sr, "batch_size_sr"))
 
     print("INFERENCE NETWORK SMORE")
     os.makedirs(smore_out, exist_ok=True)
-    for subject in subjects:
+    for subject in subjects if _mh.is_primary() else ():
         h5_path = os.path.join(paths["sr_h5"], subject + ".h5")
         out_base = os.path.join(smore_out, subject.replace(".nii.gz", ""))
         if os.path.exists(h5_path):
@@ -496,6 +557,7 @@ def stage1a_smore(cfg: Config, *, device=None) -> None:
         write_h5(h5_path, img_hr=img_hr[..., None],
                  label_hr=label_hr[..., None], image_x_rgb=fx,
                  image_y_rgb=fy)
+    _mh.barrier("stage1a")
 
 
 def _make_flavr(cfg: Config, use_uncertainty: bool):
@@ -553,6 +615,7 @@ def _train_flavr(cfg: Config, model, state, weight_dir, dataset, paths,
         state, _make_loader(c, ds, c.batch_size_sr, device), step_fn,
         n_steps, c.save_iters_sr, weight_dir, device=device,
         lr_sim_sep=c.slice_separation if dev_sim else None,
+        dp_mesh=_dp_mesh(device, c.batch_size_sr, "batch_size_sr"),
         hr_aug=bool(ex.get("device_augment_sr", False)))
 
 
@@ -582,7 +645,7 @@ def stage1b_flavr(cfg: Config, *, dataset=None, device=None):
     n_steps = _sr_steps(c)
     opt, sched = onecycle_adam(model, c.lr_sr, n_steps)
     state = TrainState(model, opt, sched)
-    if ckpt.has_checkpoint(paths["flavr_ckpt"]):
+    if _agree(ckpt.has_checkpoint(paths["flavr_ckpt"])):
         print("NETWORK FLAVR TRAINED, LOADING LAST WEIGHTS")
         state.restore(paths["flavr_ckpt"])
     if state.step < n_steps:
@@ -600,10 +663,14 @@ def _flavr_inference(cfg: Config, model, paths, device, uncertainty: bool):
     ``_uncertainty``), skipped where they all exist. One subject deep:
     subject N's forward is enqueued before subject N-1 is fetched, restored
     and written, so the host's writes overlap the card's work; writes land
-    in subject order."""
+    in subject order. The primary alone runs it; every process passes the
+    barrier after it."""
     from .infer.sr_infer import infer_flavr_volume_async, restore_intensity
     from .io.volume import parse_image, write_sr_niftis
 
+    if not _mh.is_primary():
+        _mh.barrier(f"flavr-infer-{uncertainty}")
+        return
     c = cfg
     sep = c.slice_separation
     dtype = _sr_infer_dtype(c)
@@ -641,6 +708,7 @@ def _flavr_inference(cfg: Config, model, paths, device, uncertainty: bool):
         pending = (finalize, subject, ref, out_base, orig_min, orig_max)
     if pending is not None:
         flush(pending)
+    _mh.barrier(f"flavr-infer-{uncertainty}")
 
 
 def _log_sr_psnr(cfg: Config, paths, subject: str, sr_img_zyx: np.ndarray):
@@ -687,7 +755,7 @@ def stage1c_uncertainty(cfg: Config, *, dataset=None, device=None):
     device = resolve_device(device)
     paths = pipeline_paths(c)
     model = _make_flavr(c, True)
-    if ckpt.has_checkpoint(paths["flavr_ckpt"]):
+    if _agree(ckpt.has_checkpoint(paths["flavr_ckpt"])):
         src = ckpt.restore_checkpoint_raw(paths["flavr_ckpt"])["params"]
         dst = model.state_dict()
         with torch.no_grad():
@@ -700,7 +768,7 @@ def stage1c_uncertainty(cfg: Config, *, dataset=None, device=None):
     n_steps = int(c.uncertainty_steps)
     opt, sched = onecycle_adam(model, c.lr_sr, n_steps)
     state = TrainState(model, opt, sched)
-    if ckpt.has_checkpoint(paths["flavr_unc_ckpt"]):
+    if _agree(ckpt.has_checkpoint(paths["flavr_unc_ckpt"])):
         state.restore(paths["flavr_unc_ckpt"])
     if state.step < n_steps:
         print("TRAINING NETWORK FLAVR WITH UNCERTAINTY")
@@ -715,14 +783,17 @@ def postprocess_flavr(cfg: Config) -> None:
     """The stage-2 HDF5 stores (train_all.py:457-462, sr_utils.py
     :284-304): per subject the SR image 0-255 normalized and re-blurred
     in-plane with the slice profile, the SR label, and the uncertainty
-    0-255 (zeros without stage 1c); existing stores are kept."""
+    0-255 (zeros without stage 1c); existing stores are kept. Written by
+    the primary."""
     from .infer.sr_infer import zeroonenorm255
     from .io.volume import parse_image, write_h5
     from .ops.blur import blur_axis_np, parse_kernel
 
     c = cfg
     paths = pipeline_paths(c)
-    for subject in sorted(os.listdir(paths["merge_data"])):
+    subjects = sorted(os.listdir(paths["merge_data"])) \
+        if _mh.is_primary() else ()
+    for subject in subjects:
         h5_path = os.path.join(paths["segsr_h5"],
                                subject.replace(".nii.gz", ".h5"))
         if os.path.exists(h5_path):
@@ -744,6 +815,7 @@ def postprocess_flavr(cfg: Config) -> None:
         blurred = blur_axis_np(zxy.astype(np.float32), kernel, axis=2)
         write_h5(h5_path, img=blurred[:, 0].transpose(1, 2, 0), seg=label,
                  uncertainty=unc)
+    _mh.barrier("postprocess-flavr")
 
 
 def _init_seg_params(cfg: Config, seg, arch, fold) -> None:
@@ -795,9 +867,9 @@ def _ensure_flavr_teacher(cfg: Config, flavr_model, paths):
         0, n_inputs=cfg.num_slices, n_outputs=int(cfg.slice_separation),
         use_uncertainty=cfg.enable_uncertainty), cfg.enable_uncertainty)
     src = (paths["flavr_unc_ckpt"]
-           if ckpt.has_checkpoint(paths["flavr_unc_ckpt"])
+           if _agree(ckpt.has_checkpoint(paths["flavr_unc_ckpt"]))
            else paths["flavr_ckpt"])
-    if ckpt.has_checkpoint(src):
+    if _agree(ckpt.has_checkpoint(src)):
         p = ckpt.restore_checkpoint_raw(src)["params"]
         flavr_model.load_state_dict(p, strict=True)
     return flavr_model
@@ -818,6 +890,107 @@ def _sr_head_form(cfg: Config) -> str:
     return str((cfg.extra or {}).get("sr_head_form", "auto")).lower()
 
 
+def _refuse_mesh_spatial(cfg: Config) -> None:
+    if int((cfg.extra or {}).get("mesh_spatial", 1) or 1) > 1:
+        raise NotImplementedError(
+            "mesh_spatial > 1 (spatially sharded training: a patch's H "
+            "across cards, a halo exchange at every conv) is still to be "
+            "ported (ROADMAP queue 1, item 10c)")
+
+
+def _seg_dataset(cfg: Config, paths, subjects, dataset, patch_ori,
+                 patch_xyz, seed: int = 0):
+    """Stage 2's training set: ``dataset`` when given (its augmentation
+    mode checked against the config's), else the stage-1 HDF5 stores of
+    ``subjects``. The device augmentation is the default; the host chain
+    (``device_augment: false``) is the parity oracle."""
+    from .data.datasets import SegSRDataset
+
+    c = cfg
+    device_augment = bool((c.extra or {}).get("device_augment", True))
+    if dataset is None:
+        return SegSRDataset(paths["segsr_h5"], subjects, c.slice_thickness,
+                            c.target_thickness, patch_ori, patch_xyz,
+                            c.random_flip, c.enable_uncertainty,
+                            device_augment=device_augment, seed=seed)
+    if bool(dataset.device_augment) != device_augment:
+        raise ValueError(f"dataset.device_augment={dataset.device_augment} "
+                         f"but the config asks for {device_augment}")
+    return dataset
+
+
+def _seg_train_state(cfg: Config, arch, fold, device, sched, ckpt_dir):
+    """Fold ``fold``'s SegModel on ``device`` (seeded weights, warm-started
+    from the fold's nnUNet checkpoint), the distiller under KD, their
+    optimizer and TrainState, restored from ``ckpt_dir`` when it holds a
+    checkpoint. Returns (seg model, state)."""
+    from .models.segnet import SegModel
+    from .train import checkpoint as ckpt
+    from .train.optim import nesterov_sgd, nesterov_sgd_grouped
+    from .train.state import TrainState
+
+    c = cfg
+    seg = SegModel(num_classes=2, upscale=int(c.slice_separation),
+                   input_channels=1, arch=arch)
+    _init_seg_params(c, seg, arch, fold)
+    seg.to(device)
+    params = seg
+    if c.enable_distillation:
+        params = {"seg": seg, "distiller": _make_distiller(c, arch).to(device)}
+    # KD: one uniform SGD over both modules (train_all.py:511-513); else
+    # the SR head at the full lr, the rest at 0.1x without weight decay
+    opt = nesterov_sgd(params) if c.enable_distillation \
+        else nesterov_sgd_grouped(seg)
+    state = TrainState(params, opt, sched)
+    if _agree(ckpt.has_checkpoint(ckpt_dir)):
+        state.restore(ckpt_dir)
+    return seg, state
+
+
+def _seg_step_maker(cfg: Config, seg, teacher):
+    """``remat mode -> make_seg_train_step(seg, ...)`` with the config's
+    options; ``teacher`` is the frozen FLAVR under KD, else None."""
+    from .train.seg_trainer import make_seg_train_step
+
+    c = cfg
+
+    def make_step(remat_mode):
+        return make_seg_train_step(
+            seg, enable_uncertainty=c.enable_uncertainty,
+            enable_distillation=c.enable_distillation, flavr_model=teacher,
+            teacher_window_chunk=(c.extra or {}).get("teacher_window_chunk"),
+            remat=remat_mode, precision=_precision(c),
+            sr_head_form=_sr_head_form(c))
+
+    return make_step
+
+
+def _seg_batch(cfg: Config, b, device, aug_gen, patch_xyz, shard=None):
+    """A loader batch on ``device`` as a SegBatch, augmented there when
+    ``aug_gen`` is given (the global batch's draws under ``shard``)."""
+    from .train.seg_trainer import SegBatch
+
+    arrays = [torch.from_numpy(b[k]).to(device, non_blocking=True)
+              for k in ("img", "label_lr", "label_hr", "uncertainty_lr")]
+    if aug_gen is not None:
+        from .data.device_aug import augment_seg_batch
+        arrays = augment_seg_batch(
+            aug_gen, *arrays, patch_hw=(patch_xyz[1], patch_xyz[0]),
+            enable_uncertainty=cfg.enable_uncertainty, shard=shard)
+    return SegBatch(*arrays)
+
+
+def _val_dice(cfg: Config, seg, patch_ori, subjects, device) -> float:
+    """The mean dice of ``subjects`` (fp32): the reference evaluates with
+    the ENLARGED patch (x+64, y+64, z) reversed (train_all.py:563,165)."""
+    c = cfg
+    return evaluate(seg, patch_ori[::-1], c.data_path,
+                    c.data_path.replace("imagesTr", "labelsTr"), subjects,
+                    c.slice_separation,
+                    mirror=bool((c.extra or {}).get("eval_mirror", True)),
+                    device=device)
+
+
 def stage2_segsr(cfg: Config, *, flavr_model=None, dataset=None,
                  device=None):
     """Stage-2 training (``Pipeline.stage2_segsr``); returns (seg model,
@@ -832,98 +1005,68 @@ def stage2_segsr(cfg: Config, *, flavr_model=None, dataset=None,
     subjects are evaluated with the enlarged patch and an improved dice
     tags a ``best`` checkpoint. A SIGTERM / SIGINT saves and raises
     :class:`.utils.preemption.TrainingPreempted`. ``extra.profile_dir``
-    traces steps 5-10 with torch.profiler."""
-    from .data.datasets import SegSRDataset
-    from .models.segnet import SegModel
-    from .train import checkpoint as ckpt
-    from .train.optim import (nesterov_sgd, nesterov_sgd_grouped,
-                              poly_epoch_schedule)
-    from .train.seg_trainer import (REMAT_NAMES, SegBatch,
-                                    make_seg_train_step, select_remat_mode)
-    from .train.state import TrainState
+    traces steps 5-10 with torch.profiler.
+
+    Under data parallelism (a process group of N > 1) each process trains
+    on its slice of the global ``batch_size_segsr`` (which N must divide)
+    from the primary's weights; the device augmentation draws for the
+    global batch; the remat mode is probed on the primary and broadcast;
+    the primary alone evaluates (fp32 K1), its dice and the best-dice
+    watermark broadcast; the stop flag is agreed every 10 steps and after
+    the loop."""
+    from .train.optim import poly_epoch_schedule
+    from .train.seg_trainer import (REMAT_NAMES, REMAT_UNWIRE, REMAT_WIRE,
+                                    select_remat_mode)
     from .utils.metrics import MetricsLogger
     from .utils.preemption import PreemptionGuard, TrainingPreempted
     from .utils.timer import StepTimer
 
     c = cfg
     ex = c.extra or {}
-    if int(ex.get("mesh_spatial", 1) or 1) > 1:
+    _refuse_mesh_spatial(c)
+    if _mh.is_multihost() and c.fold == "all":
         raise NotImplementedError(
-            "mesh_spatial > 1 (spatially sharded training) is still to be "
-            "ported (ROADMAP queue 1, item 10b)")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "multi-process training is still to be ported (ROADMAP queue "
-            "1, item 10b)")
+            "--fold all maps one fold per device and is exclusive with "
+            "multi-process data parallelism; run one fold per process "
+            "group with --fold k")
     device = resolve_device(device)
+    dp_mesh = _dp_mesh(device, c.batch_size_segsr, "batch_size_segsr")
+    shard = _mh.data_shard()
     paths = pipeline_paths(c)
-    sep = int(c.slice_separation)
-    arch, patch_size_zyx, patch_xyz, patch_ori = seg_arch_and_patches(c)
-    precision = _precision(c)
-    eval_mirror = bool(ex.get("eval_mirror", True))
+    arch, _, patch_xyz, patch_ori = seg_arch_and_patches(c)
 
-    seg = SegModel(num_classes=2, upscale=sep, input_channels=1, arch=arch)
-    _init_seg_params(c, seg, arch, c.fold)
-    seg.to(device)
-    params = seg
+    teacher = None
     if c.enable_distillation:
-        dist = _make_distiller(c, arch).to(device)
-        params = {"seg": seg, "distiller": dist}
-        flavr_model = _ensure_flavr_teacher(c, flavr_model, paths).to(device)
-
+        teacher = _ensure_flavr_teacher(c, flavr_model, paths).to(device)
     train_subjects, val_subjects = split_subjects(c)
-    # device augmentation is the default; the host chain (device_augment:
-    # false) is the parity oracle
-    device_augment = bool(ex.get("device_augment", True))
-    ds = dataset
-    if ds is None:
-        ds = SegSRDataset(paths["segsr_h5"], train_subjects,
-                          c.slice_thickness, c.target_thickness, patch_ori,
-                          patch_xyz, c.random_flip, c.enable_uncertainty,
-                          device_augment=device_augment)
-    elif bool(ds.device_augment) != device_augment:
-        raise ValueError(f"dataset.device_augment={ds.device_augment} but "
-                         f"the config asks for {device_augment}")
+    ds = _seg_dataset(c, paths, train_subjects, dataset, patch_ori,
+                      patch_xyz)
     loader = _make_loader(c, ds, c.batch_size_segsr, device)
-    aug_gen = None
-    if device_augment:
-        from .data.device_aug import augment_seg_batch
-        patch_hw = (patch_xyz[1], patch_xyz[0])    # in-plane (y, x)
-        aug_gen = torch.Generator(device=device).manual_seed(0)
+    aug_gen = (torch.Generator(device=device).manual_seed(0)
+               if ds.device_augment else None)
     iters_per_epoch = max(len(ds) // c.batch_size_segsr, 1)
     sched = poly_epoch_schedule(c.lr_segsr, c.epochs, iters_per_epoch)
-    # KD: one uniform SGD over both modules (train_all.py:511-513); else
-    # the SR head at the full lr, the rest at 0.1x without weight decay
-    opt = nesterov_sgd(params) if c.enable_distillation \
-        else nesterov_sgd_grouped(seg)
-    state = TrainState(params, opt, sched)
-    if ckpt.has_checkpoint(paths["segsr_ckpt"]):
-        state.restore(paths["segsr_ckpt"])
+    seg, state = _seg_train_state(c, arch, c.fold, device, sched,
+                                  paths["segsr_ckpt"])
+    if dp_mesh is not None:
+        _mh.replicate_global(state)
+        if teacher is not None:
+            _mh.replicate_global(teacher)
 
-    def make_step(remat_mode):
-        return make_seg_train_step(
-            seg, enable_uncertainty=c.enable_uncertainty,
-            enable_distillation=c.enable_distillation,
-            flavr_model=flavr_model,
-            teacher_window_chunk=ex.get("teacher_window_chunk"),
-            remat=remat_mode, precision=precision,
-            sr_head_form=_sr_head_form(c))
-
+    make_step = _seg_step_maker(c, seg, teacher)
     remat_mode = _remat_mode(c)
     step_fn = None if remat_mode == "auto" else make_step(remat_mode)
     total_steps = c.epochs * iters_per_epoch
     mlog = MetricsLogger(paths["segsr_ckpt"])
     # the best-dice watermark survives a resume
-    best_dice = mlog.max_on_disk("val_dice")
+    best_dice = _mh.broadcast_scalar(
+        mlog.max_on_disk("val_dice") if _mh.is_primary() else 0.0)
     timer = StepTimer()
     profile_dir = ex.get("profile_dir")
     prof = None
     print(f"TRAINING NETWORK REHRSeg ({total_steps} steps)")
     guard = PreemptionGuard()
     start_it = int(state.step)
-
-    def upload(a):
-        return torch.from_numpy(a).to(device, non_blocking=True)
 
     try:
         with guard:
@@ -937,23 +1080,25 @@ def stage2_segsr(cfg: Config, *, flavr_model=None, dataset=None,
                 if prof is not None and it == start_it + 10:
                     _stop_profile(prof, profile_dir)
                     prof = None
-                if guard.should_stop:
+                stop = guard.should_stop
+                if dp_mesh is not None:
+                    stop = _mh.any_flag(stop) if it % 10 == 0 else False
+                if stop:
                     state.save(paths["segsr_ckpt"])
                     raise TrainingPreempted(int(state.step))
                 timer.start()
-                b = loader.next()
-                arrays = [upload(b[k]) for k in ("img", "label_lr",
-                                                 "label_hr",
-                                                 "uncertainty_lr")]
-                if aug_gen is not None:
-                    arrays = augment_seg_batch(
-                        aug_gen, *arrays, patch_hw=patch_hw,
-                        enable_uncertainty=c.enable_uncertainty)
-                batch = SegBatch(*arrays)
+                batch = _seg_batch(c, loader.next(), device, aug_gen,
+                                   patch_xyz, shard)
                 if step_fn is None:
-                    mode, why = select_remat_mode(make_step, state, batch)
-                    print(f"remat auto-select: {REMAT_NAMES[mode]} ({why})")
-                    step_fn = make_step(mode)
+                    # probed on the primary, the choice broadcast
+                    mode = True
+                    if _mh.is_primary():
+                        mode, why = select_remat_mode(make_step, state,
+                                                      batch)
+                        print(f"remat auto-select: {REMAT_NAMES[mode]} "
+                              f"({why})")
+                    code = _mh.broadcast_scalar(float(REMAT_WIRE[mode]))
+                    step_fn = make_step(REMAT_UNWIRE[int(code)])
                 state, metrics = step_fn(state, batch)
                 timer.stop()
                 if (it + 1) % 100 == 0 or it + 1 == total_steps:
@@ -961,20 +1106,21 @@ def stage2_segsr(cfg: Config, *, flavr_model=None, dataset=None,
                              lr=float(sched(it)), step_time_s=timer.mean())
                 if (it + 1) % c.save_iters_segsr == 0:
                     if val_subjects:
-                        # the reference evaluates with the ENLARGED patch
-                        # (x+64, y+64, z) reversed (train_all.py:563,165)
-                        val_dice = evaluate(
-                            seg, patch_ori[::-1], c.data_path,
-                            c.data_path.replace("imagesTr", "labelsTr"),
-                            val_subjects, c.slice_separation,
-                            mirror=eval_mirror, device=device)
-                        print(f"Eval result: {val_dice}")
-                        mlog.log(it + 1, val_dice=float(val_dice))
+                        val_dice = 0.0
+                        if _mh.is_primary():
+                            val_dice = _val_dice(c, seg, patch_ori,
+                                                 val_subjects, device)
+                            print(f"Eval result: {val_dice}")
+                            mlog.log(it + 1, val_dice=float(val_dice))
+                        val_dice = _mh.broadcast_scalar(val_dice)
                         if val_dice > best_dice:
                             state.save(paths["segsr_ckpt"], tag="best")
                         best_dice = max(best_dice, val_dice)
                     state.save(paths["segsr_ckpt"])
-            if guard.should_stop:
+            stop = guard.should_stop
+            if dp_mesh is not None:
+                stop = _mh.any_flag(stop)
+            if stop:
                 state.save(paths["segsr_ckpt"])
                 raise TrainingPreempted(int(state.step))
     finally:
@@ -991,17 +1137,161 @@ def _stop_profile(prof, profile_dir):
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
+# ------------------------------------------------------------ stage 2, folds
+
+def _fold_splits(cfg: Config, n_folds=None):
+    """Per-fold (train, val) subjects: nnUNet's splits_final.json when
+    ``seg_path`` is set, else a round-robin K-fold of ``data_path``'s
+    subjects (``extra.synthetic_folds``, default 2)."""
+    c = cfg
+    if c.seg_path:
+        splits = _config.load_splits(c.seg_path)
+        if n_folds:
+            splits = splits[:n_folds]
+        return [(sp["train"], sp["val"]) for sp in splits]
+    subjects = [s.replace("_0000.nii.gz", "").replace(".nii.gz", "")
+                for s in sorted(os.listdir(c.data_path))]
+    k = int(n_folds or (c.extra or {}).get("synthetic_folds", 2))
+    out = []
+    for f in range(k):
+        val = subjects[f::k]
+        out.append(([s for s in subjects if s not in val], val))
+    return out
+
+
+def stage2_segsr_all_folds(cfg: Config, *, flavr_model=None, dataset=None,
+                           n_folds=None, device=None, devices=None):
+    """Stage 2 of every fold at once, one fold per device
+    (``Pipeline.stage2_segsr_all_folds``; the reference trains its folds
+    as sequential runs, train_all.py:577-583). Returns (the folds'
+    SegModels, their TrainStates, their best validation dice).
+
+    Fold k: its split's subjects (:func:`_fold_splits`), a dataset and a
+    ``BatchLoader`` seeded k, the SegModel's seeded weights warm-started
+    from fold k's nnUNet checkpoint, its state, batches, augmentation
+    generator (seeded k) and teacher copy on device k, checkpoints in
+    ``<segsr_ckpt>_fold{k}``; the metrics of every fold go to
+    ``<segsr_ckpt>_folds/metrics.jsonl``. One fold-parallel step runs every
+    fold's unchanged step (``parallel.fold_parallel``). Folds restored at
+    unequal steps resume from the largest. Every ``save_iters_segsr``
+    steps and at the end each fold is evaluated on its validation subjects
+    (fp32 K1 on its device), tagged ``best`` when it improved, and saved.
+    remat "auto" resolves to "all" here, as in the JAX package.
+
+    devices: the folds' devices (one device may be named several times);
+    default the distinct visible cards, or every fold on the CPU with
+    ``device="cpu"``. Fewer devices than folds raises. dataset: a
+    :class:`.data.datasets.SegSRDataset`, or a list of one per fold, in
+    place of the stage-1 stores. One process only."""
+    import copy
+
+    from .data.datasets import BatchLoader
+    from .parallel.fold_parallel import (make_fold_mesh,
+                                         make_fold_parallel_step)
+    from .train.optim import poly_epoch_schedule
+    from .utils.metrics import MetricsLogger
+    from .utils.preemption import PreemptionGuard, TrainingPreempted
+
+    if _mh.is_multihost():
+        raise NotImplementedError(
+            "--fold all is single-process (one fold per local card); with "
+            "several processes run one fold per process group with --fold k")
+    c = cfg
+    _refuse_mesh_spatial(c)
+    paths = pipeline_paths(c)
+    arch, _, patch_xyz, patch_ori = seg_arch_and_patches(c)
+    folds = _fold_splits(c, n_folds)
+    n = len(folds)
+    if devices is None and device is not None \
+            and torch.device(device).type == "cpu":
+        devices = [torch.device(device)] * n
+    mesh = make_fold_mesh(n, devices)
+    devs = [resolve_device(d) for d in mesh.data_devices]
+
+    teachers = {}
+    if c.enable_distillation:
+        flavr_model = _ensure_flavr_teacher(c, flavr_model, paths)
+        for d in devs:
+            if d not in teachers:
+                teachers[d] = copy.deepcopy(flavr_model).to(d)
+
+    datasets = [_seg_dataset(c, paths, train_sub,
+                             dataset[k] if isinstance(dataset, (list, tuple))
+                             else dataset, patch_ori, patch_xyz, seed=k)
+                for k, (train_sub, _) in enumerate(folds)]
+    loaders = [BatchLoader(ds, c.batch_size_segsr, seed=k)
+               for k, ds in enumerate(datasets)]
+    ckpt_dirs = [paths["segsr_ckpt"] + f"_fold{k}" for k in range(n)]
+    iters_per_epoch = max(min(len(ds) for ds in datasets)
+                          // c.batch_size_segsr, 1)
+    sched = poly_epoch_schedule(c.lr_segsr, c.epochs, iters_per_epoch)
+    remat = True if _remat_mode(c) == "auto" else _remat_mode(c)
+
+    segs, states, steps = [], [], []
+    for k, d in enumerate(devs):
+        seg, st = _seg_train_state(c, arch, k, d, sched, ckpt_dirs[k])
+        segs.append(seg)
+        states.append(st)
+        steps.append(_seg_step_maker(c, seg, teachers.get(d))(remat))
+    fold_step = make_fold_parallel_step(steps, mesh)
+    aug_gens = [torch.Generator(device=d).manual_seed(k) if ds.device_augment
+                else None for k, (d, ds) in enumerate(zip(devs, datasets))]
+
+    total_steps = c.epochs * iters_per_epoch
+    # the folds are saved together, so unequal steps mean a torn save: the
+    # folds behind lose at most one save interval
+    fold_steps = [int(st.step) for st in states]
+    if len(set(fold_steps)) > 1:
+        print(f"WARNING: unequal fold checkpoint steps {fold_steps}; "
+              "resuming from max")
+    start = max(fold_steps)
+    mlog = MetricsLogger(paths["segsr_ckpt"] + "_folds")
+    best = [mlog.max_on_disk(f"val_dice_fold{k}") for k in range(n)]
+    print(f"TRAINING NETWORK REHRSeg x{n} folds ({total_steps} steps, "
+          f"devices={[str(d) for d in devs]})")
+    guard = PreemptionGuard()
+    with guard:
+        for it in range(start, total_steps):
+            if guard.should_stop:
+                for k, st in enumerate(states):
+                    st.save(ckpt_dirs[k])
+                raise TrainingPreempted(max(int(st.step) for st in states))
+            batches = [(_seg_batch(c, loaders[k].next(), d, aug_gens[k],
+                                   patch_xyz),)
+                       for k, d in enumerate(devs)]
+            states, metrics = fold_step(states, batches)
+            last = it + 1 == total_steps
+            if (it + 1) % 100 == 0 or last:
+                mlog.log(it + 1, **{f"loss_fold{k}": float(m["loss"])
+                                    for k, m in enumerate(metrics)})
+            if (it + 1) % c.save_iters_segsr == 0 or last:
+                for k, st in enumerate(states):
+                    val_sub = folds[k][1]
+                    if val_sub:
+                        val_dice = _val_dice(c, segs[k], patch_ori, val_sub,
+                                             devs[k])
+                        print(f"Eval fold {k}: {val_dice}")
+                        mlog.log(it + 1, **{f"val_dice_fold{k}":
+                                            float(val_dice)})
+                        if val_dice > best[k]:
+                            st.save(ckpt_dirs[k], tag="best")
+                            best[k] = val_dice
+                    st.save(ckpt_dirs[k], step=total_steps if last else None)
+    return segs, states, best
+
+
 # ------------------------------------------------------------ run all
 
 def run(cfg: Config, *, device=None):
     """The whole pipeline (``Pipeline.run``): stage 0, stages 1a, 1b, 1c,
-    the stage-2 stores, then :func:`stage2_segsr` with stage 1c's FLAVR
-    (else 1b's) as the distillation teacher; each stage resumes by its
-    artifacts. Returns what :func:`stage2_segsr` returns."""
-    if cfg.fold == "all":
-        raise NotImplementedError(
-            "--fold all (one fold per device) is still to be ported "
-            "(ROADMAP queue 1, item 10b)")
+    the stage-2 stores, then :func:`stage2_segsr` (with ``fold="all"``
+    :func:`stage2_segsr_all_folds`) with stage 1c's FLAVR (else 1b's) as
+    the distillation teacher; each stage resumes by its artifacts. Returns
+    what the stage-2 function returns. Under data parallelism the global
+    batches are checked first."""
+    if _mh.is_multihost():
+        _dp_mesh(device, cfg.batch_size_sr, "batch_size_sr")
+        _dp_mesh(device, cfg.batch_size_segsr, "batch_size_segsr")
     print("=" * 20, "PROCESSING DATA", "=" * 20)
     preprocess(cfg)
     print("=" * 20, "BEGIN TRAINING STAGE ONE", "=" * 20)
@@ -1010,17 +1300,17 @@ def run(cfg: Config, *, device=None):
     unc_model, _ = stage1c_uncertainty(cfg, device=device)
     postprocess_flavr(cfg)
     teacher = unc_model if unc_model is not None else flavr_model
+    if cfg.fold == "all":
+        return stage2_segsr_all_folds(cfg, flavr_model=teacher,
+                                      device=device)
     return stage2_segsr(cfg, flavr_model=teacher, device=device)
 
 
 def main(config_path: str, fold: int | str | None = None, *, device=None,
          **overrides):
     """Load the config, check the data path (and the nnUNet results when
-    the config names them), and :func:`run`."""
-    if fold == "all":
-        raise NotImplementedError(
-            "--fold all (one fold per device) is still to be ported "
-            "(ROADMAP queue 1, item 10b)")
+    the config names them), and :func:`run`. fold: an index, None, or
+    "all" (every fold side by side, one per device)."""
     cfg = _config.load_config(config_path, fold=fold, **overrides)
     if not Path(cfg.data_path).exists():
         raise ValueError("Input image path does not exist.")

@@ -26,7 +26,10 @@ map) out; :func:`load_sr_from_checkpoint` restores a UNet3D checkpoint, and
 PyTorch's TF32 settings as they are: by default cuDNN runs fp32 convs in
 TF32 on the card.
 
-Not ported yet: ``mesh`` (ROADMAP queue 1, item 10b).
+``Segmenter(mesh=make_mesh(...))`` shards each forward's mirror-TTA batch
+over the mesh's 'data' devices on the LR parity path (one weight replica
+per distinct device; ``parallel.mesh``); a 'spatial' axis is ROADMAP queue
+1, item 10c.
 """
 
 from __future__ import annotations
@@ -54,6 +57,14 @@ from .utils.device import resolve_device
 from .utils.pad import target_pad, crop
 
 
+def _indexed(device) -> torch.device:
+    """``device`` with the current card's index where it names none."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 @dataclass
 class Segmenter:
     """Stateless-per-request volume segmenter.
@@ -71,7 +82,11 @@ class Segmenter:
     None keeps the whole volume's accumulators on the device; an int k
     streams z-slabs of k tile rows (parity grid, LR and HR), for volumes
     whose accumulators exceed the device's memory: the same labels up to
-    fp32 summation order."""
+    fp32 summation order. mesh: a :class:`.parallel.mesh.Mesh` whose
+    'data' axis splits each forward's mirror batch over its devices (LR
+    parity path, as in the JAX package; the HR and the ``_many`` paths
+    run on the mesh's first device, which ``device`` is); it composes
+    with neither streaming nor the aligned grid."""
 
     model: SegModel
     patch_size: tuple
@@ -88,24 +103,48 @@ class Segmenter:
     pallas_conv: str | bool = "cat"
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh sharding is still to be ported (ROADMAP queue 1, "
-                "item 10b)")
+        if self.mesh is not None and self.streaming:
+            raise ValueError(
+                "streaming z-slabs and mesh sharding are separate >HBM "
+                "strategies and do not compose yet — pick one (a streamed "
+                "slab would silently run on a single chip)")
         if self.tile_grid not in ("parity", "aligned"):
             raise ValueError(f"tile_grid must be 'parity' or 'aligned', "
                              f"got {self.tile_grid!r}")
         if self.tile_grid == "aligned" and (
-                not self.packed_eval or not self.mirror or self.streaming):
+                not self.packed_eval or not self.mirror
+                or self.streaming or self.mesh is not None):
             raise ValueError(
                 "tile_grid='aligned' requires packed_eval + mirror TTA and "
-                "does not compose with streaming")
+                "does not compose with streaming or mesh sharding")
+        if self.mesh is not None:
+            from .parallel.mesh import check_data_only
+
+            check_data_only(self.mesh)
+            if self.device is None:
+                self.device = self.mesh.first
+            elif _indexed(self.device) != _indexed(self.mesh.first):
+                raise ValueError(f"device {self.device} is not the mesh's "
+                                 f"first device {self.mesh.first}")
         self.device = resolve_device(self.device)
         self.patch_size = tuple(int(p) for p in self.patch_size)
         self.model = self.model.to(device=self.device,
                                    dtype=self.compute_dtype).eval()
         self.model.requires_grad_(False)
         self.params = convert.flax_tree_from_module(self.model)
+        # one weight replica per distinct device a mesh names
+        self._replicas = {next(self.model.parameters()).device:
+                          (self.model, self.params)}
+
+    def _replica(self, device: torch.device):
+        """(module, flax-layout params) on ``device``, made once."""
+        if device not in self._replicas:
+            import copy
+
+            model = copy.deepcopy(self.model).to(device)
+            self._replicas[device] = (
+                model, convert.flax_tree_from_module(model))
+        return self._replicas[device]
 
     @classmethod
     def from_flax(cls, params, arch: dict, patch_size, *,
@@ -125,7 +164,8 @@ class Segmenter:
         """The model closure the engines call on a mirror batch."""
         if not self.packed_eval:
             def unpacked(batch):
-                out = self.model(batch.to(self.compute_dtype))
+                model = self._replica(batch.device)[0]
+                out = model(batch.to(self.compute_dtype))
                 return out if dual else out[0]
             return unpacked
         arch = dict(self.model.arch)
@@ -136,7 +176,8 @@ class Segmenter:
 
         def packed(batch):
             return segmodel_apply_packed(
-                arch, self.params, batch.to(self.compute_dtype), **kw)
+                arch, self._replica(batch.device)[1],
+                batch.to(self.compute_dtype), **kw)
         return packed
 
     # ------------------------------------------------------------- core
@@ -193,15 +234,15 @@ class Segmenter:
         else:
             pred = sw.predict_sliding_window_labels(
                 self._fn(False), vol_p, self.patch_size, slice_separation=1,
-                **common)
+                tta_mesh=self.mesh, **common)
         return crop(pred, pads[:3])
 
     def segment_many(self, volumes_zyx):
         """LR masks of many volumes, all on the same engine as
         :meth:`segment` (aligned only when every volume fits it). Under
-        streaming, sequential :meth:`segment` calls: that engine manages
-        its own device memory slab by slab."""
-        if self.streaming:
+        streaming or a mesh, sequential :meth:`segment` calls: those
+        engines manage their own device memory and devices."""
+        if self.streaming or self.mesh is not None:
             return [self.segment(v) for v in volumes_zyx]
         prepped = [self._prep(v) for v in volumes_zyx]
         common = dict(num_classes=self.num_classes, device=self.device,

@@ -9,7 +9,10 @@ and everything is a tensor, a container or a plain number, so it loads with
 ``torch.load(weights_only=True)``. A save writes a temporary file and
 renames it, so a process killed mid-save leaves a step directory that
 :func:`latest_step` does not see. The port does not read orbax checkpoints;
-JAX params cross over through ``models.convert.load_flax_params``.
+JAX params cross over through ``models.convert.load_flax_params``. Under
+data parallelism every process calls :func:`save_checkpoint` in lockstep
+and the primary alone writes; all pass a barrier after the write, so any
+of them can restore it at once.
 """
 
 from __future__ import annotations
@@ -49,11 +52,15 @@ def save_checkpoint(directory: str, params, opt_state=None, *, step: int,
     dicts of them allowed). ``tag`` (e.g. "best") names the directory in
     place of the step; tag directories are ignored by :func:`latest_step`,
     so a tagged save never interferes with step-based resume."""
+    from ..parallel import multihost
+
     path = _path(directory, step if tag is None else tag, name)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save({"params": _host(params), "opt_state": _host(opt_state),
-                "step": int(step)}, path + _TMP)
-    os.replace(path + _TMP, path)
+    if multihost.is_primary():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save({"params": _host(params), "opt_state": _host(opt_state),
+                    "step": int(step)}, path + _TMP)
+        os.replace(path + _TMP, path)
+    multihost.barrier("checkpoint")
     return os.path.dirname(path)
 
 

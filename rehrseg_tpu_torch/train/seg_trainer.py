@@ -15,6 +15,13 @@ convs: the CUDA kernels have no backward) through autograd, with stages
 checkpointed as ``remat`` says and the LR / HR loss terms checkpointed on
 the packed path. :func:`select_remat_mode` picks the mode by running one
 step of each candidate and reading the card's peak memory.
+
+Under data parallelism (``parallel.multihost``) the step averages the
+gradients of the student and the distiller across processes before the
+update (the teacher is frozen), and its metrics are the global batch's
+means. The seg losses are per-sample means and the distiller's pairwise
+term is divided by the batch, so with equal local batches the mean of the
+processes' gradients is the gradient over the global batch.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from ..data.normalize import zscore_batch
 from ..losses import dc_and_weighted_ce, deep_supervision_weights
 from ..models import convert
 from ..models.segnet_packed import segmodel_apply_packed
+from ..parallel import multihost
 from .precision import policy as _policy, step_guard
 
 
@@ -209,8 +217,16 @@ def make_seg_train_step(seg_model, *, enable_uncertainty: bool,
         with step_guard(pol, state.params):
             loss, metrics = loss_fn(state.params, batch)
             loss.backward()
+        multihost.all_reduce_grads(state.params)
         state.apply_gradients()
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if multihost.is_multihost():
+            # the global batch's means, one collective for every metric
+            keys = list(metrics)
+            means = multihost.global_mean(
+                torch.stack([metrics[k].float() for k in keys]))
+            metrics = dict(zip(keys, means.unbind()))
+        return state, metrics
 
     step.loss_fn = loss_fn
     return step

@@ -9,6 +9,12 @@ uncertainty head (``rehrseg_tpu.train.sr_trainer``; the reference's
 
 Batches are channels-last like the JAX package's: LR (B, X, Y, C) for WDSR
 and (B, D, H, W, C) for FLAVR, HR likewise.
+
+Under data parallelism (a ``torch.distributed`` group, ``parallel.
+multihost``) each process steps on its slice of the global batch: the
+label dice sums its statistics across processes, the gradients are
+averaged across processes before the update, and the returned loss is the
+global batch's. Without a group all three are no-ops.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Callable
 import torch
 
 from ..losses import sr_loss, sr_uncertainty_loss
+from ..parallel import multihost
 from .precision import policy as _policy, step_guard
 
 
@@ -43,8 +50,9 @@ def make_sr_train_step(model, *, enable_uncertainty: bool,
     gradients, runs forward and backward, and applies one update at
     ``schedule(state.step)``; ``metrics["loss"]`` is a 0-d tensor on the
     device, so steps chain without a sync until the caller reads it. The
-    gradients stay in each parameter's ``.grad``; ``step.loss_fn(lr, hr)``
-    is the forward alone.
+    gradients stay in each parameter's ``.grad`` (averaged across
+    processes under data parallelism); ``step.loss_fn(lr, hr, reduce=
+    None)`` is the forward alone, ``reduce`` the dice's cross-process sum.
 
     precision: 'bf16' runs the forward and backward in bfloat16 against
     the fp32 master weights, the outputs cast back to fp32 before the loss
@@ -52,7 +60,7 @@ def make_sr_train_step(model, *, enable_uncertainty: bool,
     .step_guard`); None / 'fp32' is the reference's fp32 step."""
     pol = _policy(precision)
 
-    def loss_fn(patches_lr, patches_hr):
+    def loss_fn(patches_lr, patches_hr, reduce=None):
         target = crop_hr_target(patches_hr, int(slice_separation),
                                 num_slices)
         params = pol.cast_compute(dict(model.named_parameters()))
@@ -61,16 +69,19 @@ def make_sr_train_step(model, *, enable_uncertainty: bool,
         if enable_uncertainty:
             pred, uncertainty = out
             return sr_uncertainty_loss(pol.cast_reduce(pred),
-                                       pol.cast_reduce(uncertainty), target)
-        return sr_loss(pol.cast_reduce(out), target)
+                                       pol.cast_reduce(uncertainty), target,
+                                       reduce=reduce)
+        return sr_loss(pol.cast_reduce(out), target, reduce=reduce)
 
     def step(state, patches_lr, patches_hr):
         state.optimizer.zero_grad(set_to_none=True)
         with step_guard(pol, model):
-            loss = loss_fn(patches_lr, patches_hr)
+            loss = loss_fn(patches_lr, patches_hr,
+                           reduce=multihost.global_sum)
             loss.backward()
+        multihost.all_reduce_grads(state.params)
         state.apply_gradients()
-        return state, {"loss": loss.detach()}
+        return state, {"loss": multihost.global_mean(loss.detach())}
 
     step.loss_fn = loss_fn
     return step

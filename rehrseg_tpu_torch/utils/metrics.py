@@ -1,5 +1,6 @@
 """Structured metrics logging: the port's own copy of
-``rehrseg_tpu.utils.metrics`` (one process, so every log is written).
+``rehrseg_tpu.utils.metrics``. Under data parallelism only the primary
+process writes (every process trains in lockstep with the same metrics).
 
 Writes one JSON object per line to ``<dir>/metrics.jsonl`` with a wall-clock
 timestamp, plus keeps the running history in memory for quick inspection.
@@ -19,6 +20,10 @@ class MetricsLogger:
         self.history: list[dict] = []
 
     def log(self, step: int, **metrics):
+        # one writer keeps a shared-storage jsonl uncorrupted
+        from ..parallel.multihost import is_primary
+        if not is_primary():
+            return None
         rec = {"step": int(step), "time": time.time()}
         for k, v in metrics.items():
             try:

@@ -17,6 +17,7 @@ from rehrseg_tpu.models import SegModel as JaxSegModel
 from rehrseg_tpu.serve import Segmenter as JaxSegmenter
 from rehrseg_tpu_torch.models import convert
 from rehrseg_tpu_torch.models.segnet import SegModel
+from rehrseg_tpu_torch.parallel.mesh import Mesh, make_mesh
 from rehrseg_tpu_torch.serve import Segmenter
 from tests.test_aligned_engine import _blob_volume
 from tests.test_models import SMALL_ARCH
@@ -177,8 +178,13 @@ def test_constructor_errors(params):
     with pytest.raises(ValueError, match="streaming"):
         Segmenter(model, PATCH, tile_grid="aligned", streaming=2,
                   device="cpu")
+    mesh = make_mesh(devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="do not compose"):
+        Segmenter(model, PATCH, mesh=mesh, streaming=2)
+    with pytest.raises(ValueError, match="mesh sharding"):
+        Segmenter(model, PATCH, mesh=mesh, tile_grid="aligned")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Segmenter(model, PATCH, device="cpu", mesh=object())
+        Segmenter(model, PATCH, mesh=Mesh([[torch.device("cpu")] * 2]))
     assert Segmenter(model, PATCH, device="cpu", streaming=2).streaming == 2
 
 

@@ -36,6 +36,7 @@ from rehrseg_tpu_torch.infer.sr_infer import postprocess_sr_volume
 from rehrseg_tpu_torch.models import convert
 from rehrseg_tpu_torch.models.flavr import UNet3D
 from rehrseg_tpu_torch.models.wdsr import WDSR
+from rehrseg_tpu_torch.parallel.mesh import make_mesh
 from rehrseg_tpu_torch.train import checkpoint as ckpt
 from rehrseg_tpu_torch.train import optim, sr_trainer, torch_import
 from rehrseg_tpu_torch.train.state import TrainState
@@ -259,7 +260,8 @@ def test_train_sr_loop_saves_logs_preempts_and_resumes(tmp_path):
     """Saves every 2 steps and at the end, a log line a step (loss, lr,
     step time), the loader closed; a SIGTERM saves and raises; the rerun
     resumes at the saved step and ends where the uninterrupted run does;
-    ``dp_mesh`` raises naming ROADMAP item 10b."""
+    ``dp_mesh`` in a single process (a mesh of one CPU) trains as without
+    it (the 2-process loop is in tests/test_torch_multihost.py)."""
     ref_loader = _Signaling(BatchLoader(_wdsr_dataset(), 2), None)
     ref, ref_dir = _loop(tmp_path / "ref", 5, ref_loader)
     assert ref.step == 5 and ref_loader.closed
@@ -281,9 +283,11 @@ def test_train_sr_loop_saves_logs_preempts_and_resumes(tmp_path):
     # shared: both finish at the same step with finite weights
     for v in state.params.state_dict().values():
         assert torch.isfinite(v).all()
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        _loop(tmp_path / "mesh", 1, BatchLoader(_wdsr_dataset(), 2),
-              dp_mesh=object())
+    one, _ = _loop(tmp_path / "one", 2, BatchLoader(_wdsr_dataset(), 2))
+    meshed, _ = _loop(tmp_path / "mesh", 2, BatchLoader(_wdsr_dataset(), 2),
+                      dp_mesh=make_mesh(devices=["cpu"]))
+    for k, v in meshed.params.state_dict().items():
+        assert torch.equal(v, one.params.state_dict()[k]), k
 
 
 def _reference_flavr_sd(seed):

@@ -28,7 +28,8 @@ from rehrseg_tpu.models import WDSR as JaxWDSR
 from rehrseg_tpu.pipeline import Pipeline
 from rehrseg_tpu_torch import cli, pipeline
 from rehrseg_tpu_torch.config import Config
-from rehrseg_tpu_torch.data.datasets import SRPatchDataset
+from rehrseg_tpu_torch.data.datasets import (MultiprocessBatchLoader,
+                                           SRPatchDataset)
 from rehrseg_tpu_torch.infer.sr_infer import (interpolate_pseudo_sr,
                                               postprocess_sr_volume)
 from rehrseg_tpu_torch.io import nifti
@@ -313,8 +314,10 @@ def test_stage1b_device_path_through_dataset(tmp_path):
 
 
 def test_entry_points_raise_what_is_still_to_port(tmp_path, monkeypatch):
-    """``main``'s path checks; ``--fold all``, REHRSEG_PLATFORM,
-    ``loader_workers > 0`` and an unknown ``sr_infer_dtype`` raise."""
+    """``main``'s path checks (reached with ``--fold all`` and
+    REHRSEG_PLATFORM=cpu too); ``mesh_spatial`` > 1 raises naming ROADMAP
+    item 10c; ``loader_workers > 0`` gives the worker loader; an unknown
+    ``sr_infer_dtype`` raises."""
     phantom(tmp_path)
     _, tc = configs(tmp_path)
     cfg = {k: getattr(tc, k) for k in Config.__dataclass_fields__}
@@ -325,21 +328,31 @@ def test_entry_points_raise_what_is_still_to_port(tmp_path, monkeypatch):
     path.write_text(json.dumps({**cfg, "seg_path": str(tmp_path / "no")}))
     with pytest.raises(ValueError, match="nnUNet does not exist"):
         pipeline.main(str(path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    # --fold all and REHRSEG_PLATFORM=cpu reach main's path checks
+    with pytest.raises(ValueError, match="nnUNet does not exist"):
         cli.main(["--config", str(path), "--fold", "all"])
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        pipeline.run(Config(**{**cfg, "fold": "all"}), device="cpu")
     monkeypatch.setenv("REHRSEG_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    with pytest.raises(ValueError, match="nnUNet does not exist"):
         cli.main(["--config", str(path)])
     monkeypatch.delenv("REHRSEG_PLATFORM")
+    # spatial sharding (ROADMAP item 10c) raises before any training
+    tc.extra["mesh_spatial"] = 2
+    with pytest.raises(NotImplementedError, match="item 10c"):
+        pipeline.stage2_segsr(tc, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10c"):
+        pipeline.stage2_segsr_all_folds(
+            Config(**{**cfg, "fold": "all",
+                      "data_path": str(tmp_path / "imagesTr"),
+                      "seg_path": ""}), device="cpu")
+    del tc.extra["mesh_spatial"]
     tc.extra["loader_workers"] = 2
     pipeline.preprocess(tc)
     ds = SRPatchDataset(pipeline.pipeline_paths(tc)["merge_data"],
                         ["sub1"], 4.0, 1.0, None, "gaussian", (16, 16),
                         True)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        pipeline._make_loader(tc, ds, 2, "cpu")
+    loader = pipeline._make_loader(tc, ds, 2, "cpu")
+    assert isinstance(loader, MultiprocessBatchLoader)
+    loader.close()
     tc.extra["sr_infer_dtype"] = "fp16"
     with pytest.raises(ValueError, match="sr_infer_dtype"):
         pipeline._sr_infer_dtype(tc)

@@ -6,8 +6,8 @@ runs log (step 1, then step 2 after a resume from the step-1 checkpoint)
 at rtol 1e-4, the validation dice at 1e-3; the checkpoints (step, ``best``
 tag, final step) and a resume that continues; a preemption that saves and
 raises, then a rerun that finishes; the profile window; the warm start's
-fail-loud rule against JAX's importer; the options that are still to be
-ported raise."""
+fail-loud rule against JAX's importer; spatial sharding, still to be
+ported (ROADMAP item 10c), raises."""
 
 import json
 import os
@@ -236,10 +236,12 @@ def test_warm_start_matches_jax_importer():
 
 
 @pytest.mark.parametrize("extra", [{"mesh_spatial": 2},
-                                   {"loader_workers": 2}])
+                                   {"mesh_spatial": 4, "loader_workers": 2}])
 def test_unported_options_raise(tmp_path, extra):
+    """Spatial sharding (ROADMAP item 10c) raises, before any loader
+    worker starts."""
     seg_path = _tree(tmp_path)
     cfg = _config(Config, tmp_path, seg_path, "ckpt", 1, **extra)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 10c"):
         pipeline.stage2_segsr(cfg, dataset=_dataset(device_augment=False),
                               device="cpu")
