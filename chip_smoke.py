@@ -184,6 +184,25 @@ and nothing of the JAX package. Phases, each printing one JSON line:
            distinct finite fold losses, fp32 K1 launches per fold's
            validation tile; fold k's state after one fold-parallel step
            bit-equal to one plain step of fold k (cuDNN deterministic);
+  native   the native host library (csrc/rehrseg_host.cpp through
+           ``rehrseg_tpu_torch.native``): built or not (the compiler's
+           text), each entry point against its numpy / zlib form, and the
+           bench volume's .nii.gz read three times through native.gunzip
+           and three times through gzip.decompress, seconds of each;
+  spatial  Segmenter(mesh=make_mesh(devices=[cuda:0] * 2, spatial=2)) at
+           bench geometry (each tile's H in two blocks, parallel.spatial)
+           against the single-device Segmenter, the parity LR and dual
+           passes, bf16 "cat" (labels equal on >= 99 %) and fp32 (labels
+           equal outside near-ties): K1 launched tiles x 2 times, the
+           largest normalized-logit difference, seconds a volume, each
+           conv's rows per block; then a (data 2, spatial 2) mesh of
+           cuda:0 named four times on the bf16 LR pass (K1 tiles x 4);
+  spatial_train  the stage-2 step at full width on a spatial group of
+           cuda:0 named twice against the unsharded step (fp32, TF32 off:
+           losses 1e-6, every gradient leaf 2e-3; bf16 against fp32 5e-2),
+           ms a bf16 step both ways and the peak, then 3 steps of
+           ``stage2_segsr`` with ``extra.mesh_spatial: 2`` and one
+           validation; neither phase gives a scaling number;
   kernels  every ported kernel with launches, error, times and bound.
 
 Then the card's name and power limit, and last the result line
@@ -2083,25 +2102,21 @@ def _phantom(rng, shape):
     return img.astype(np.float32), (board * ball).astype(np.float32)
 
 
-def phase_train_loop(dev, gpu, work: Path):
-    """pipeline.stage2_segsr at full width on a seeded phantom: two
-    training subjects through SegSRDataset.from_volumes, one NIfTI
-    validation subject of one enlarged patch, the device augmentation,
-    distillation, bf16, remat chosen on the card, 6 steps with a
-    validation every 3; then a resume to step 8. Returns the K1 launches
-    in the validations."""
+def _loop_tree(root: Path):
+    """The stage-2 loop's inputs under ``root`` (the train_loop phase's): a
+    NIfTI validation subject of one enlarged patch (a checkerboard
+    phantom), nnUNet splits, two seeded training volumes through
+    SegSRDataset.from_volumes with the device augmentation, and a config
+    factory over DEFAULT_ARCH at TRAIN_PATCH, batch 2, a validation every
+    3 steps. Returns (patch zyx, validation zyx, config(epochs, **extra),
+    dataset)."""
     import json
 
-    from rehrseg_tpu_torch import pipeline
     from rehrseg_tpu_torch.config import Config
     from rehrseg_tpu_torch.data.datasets import SegSRDataset
-    from rehrseg_tpu_torch.infer import sliding_window as sw
     from rehrseg_tpu_torch.io import nifti
     from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH
-    from rehrseg_tpu_torch.ops.pconv import pconv_pad11_cat
-    from rehrseg_tpu_torch.train import checkpoint as ckpt
 
-    root = work / "train_loop"
     patch_zyx = list(TRAIN_PATCH)
     patch_ori = [patch_zyx[2] + 64, patch_zyx[1] + 64, patch_zyx[0]]
     val_zyx = tuple(patch_ori[::-1])         # one enlarged patch: one tile
@@ -2132,14 +2147,34 @@ def phase_train_loop(dev, gpu, work: Path):
     arch = {k: list(v) if isinstance(v, tuple) else v
             for k, v in DEFAULT_ARCH.items()}
 
-    def config(epochs):
+    def config(epochs, **extra):
         return Config(data_path=str(root / "imagesTr"),
                       tmp_path=str(root / "tmp"),
                       checkpoint_path=str(root / "ckpt"),
                       seg_path=str(seg_path), fold=0, epochs=epochs,
                       batch_size_segsr=2, save_iters_segsr=3,
                       extra={"arch_override": arch,
-                             "patch_size_zyx": patch_zyx})
+                             "patch_size_zyx": patch_zyx, **extra})
+
+    return patch_zyx, val_zyx, config, ds
+
+
+def phase_train_loop(dev, gpu, work: Path):
+    """pipeline.stage2_segsr at full width on a seeded phantom: two
+    training subjects through SegSRDataset.from_volumes, one NIfTI
+    validation subject of one enlarged patch, the device augmentation,
+    distillation, bf16, remat chosen on the card, 6 steps with a
+    validation every 3; then a resume to step 8. Returns the K1 launches
+    in the validations."""
+    import json
+
+    from rehrseg_tpu_torch import pipeline
+    from rehrseg_tpu_torch.infer import sliding_window as sw
+    from rehrseg_tpu_torch.ops.pconv import pconv_pad11_cat
+    from rehrseg_tpu_torch.train import checkpoint as ckpt
+
+    root = work / "train_loop"
+    patch_zyx, val_zyx, config, ds = _loop_tree(root)
 
     evals = []
     evaluate = pipeline.evaluate
@@ -2716,6 +2751,335 @@ def phase_mesh(params, dev, gpu):
     return launches
 
 
+def phase_native(gpu, work: Path):
+    """The native host library (csrc/rehrseg_host.cpp through
+    ``rehrseg_tpu_torch.native``): whether it built (the compiler's text
+    when not), each entry point against its numpy / zlib form on seeded
+    arrays, and the bench volume's .nii.gz read three times through
+    ``native.gunzip`` and three times through ``gzip.decompress``, the
+    seconds of each read and of each inflate alone."""
+    import gzip
+
+    from rehrseg_tpu_torch import native
+    from rehrseg_tpu_torch.io import nifti
+    from rehrseg_tpu_torch.ops.blur import parse_kernel
+    from rehrseg_tpu_torch.ops.bspline import as_fraction, resize_matrix
+
+    ok = native.available()
+    rng = np.random.default_rng(SEED + 40)
+    x = rng.normal(size=(6, 64, 40)).astype(np.float32)
+    payload = rng.integers(0, 255, size=1 << 20, dtype=np.uint8).tobytes()
+    kern = parse_kernel(None, "rf-pulse-slr", 3.873)
+    mat = resize_matrix(64, as_fraction(4.0), 3)
+    cases = {
+        "gunzip": (lambda: native.gunzip(gzip.compress(payload)), 0.0),
+        "gzip_compress": (lambda: gzip.decompress(
+            native.gzip_compress(payload)), 0.0),
+        "spline_filter_axis": (lambda: native.spline_filter_axis(x, 1),
+                               2e-4),
+        "blur_axis": (lambda: native.blur_axis(x, kern, 1), 1e-5),
+        "resize_axis_matrix": (lambda: native.resize_axis_matrix(x, mat, 1),
+                               1e-4),
+        "zscore_inplace": (lambda: native.zscore_inplace(x.copy()), 1e-5),
+    }
+    got = {k: fn() for k, (fn, _) in cases.items()}
+    lib, tried = native._LIB, native._TRIED
+    native._LIB, native._TRIED = None, True          # the numpy / zlib path
+    try:
+        want = {k: fn() for k, (fn, _) in cases.items()}
+    finally:
+        native._LIB, native._TRIED = lib, tried
+    errs = {}
+    for k, (_, tol) in cases.items():
+        if tol == 0.0:
+            errs[k] = 0.0 if got[k] == want[k] == payload else None
+        else:
+            errs[k] = float(np.abs(got[k] - want[k]).max())
+        if errs[k] is None or errs[k] > tol:
+            raise AssertionError(f"native {k}: {errs[k]} over {tol}")
+    vol = np.random.default_rng(SEED + 41).normal(size=VOLUME).astype(
+        np.float32)
+    path = work / "native_bench.nii.gz"
+    t = time.perf_counter()
+    nifti.write_image_itk(nifti.ItkLikeImage(vol, SPACING), str(path))
+    write_s = time.perf_counter() - t
+    raw = path.read_bytes()
+    reads = {}
+    for name, inflate in (("native", native.gunzip),
+                          ("gzip_module", gzip.decompress)):
+        real = native.gunzip
+        native.gunzip = inflate
+        try:
+            secs, inflate_s = [], []
+            for _ in range(3):
+                t = time.perf_counter()
+                arr = nifti.read_image_itk(str(path)).array
+                secs.append(time.perf_counter() - t)
+                t = time.perf_counter()
+                inflate(raw)
+                inflate_s.append(time.perf_counter() - t)
+        finally:
+            native.gunzip = real
+        if not np.array_equal(arr, vol):
+            raise AssertionError(f"native: the {name} read differs")
+        reads[name] = dict(read_seconds=secs, inflate_seconds=inflate_s)
+    emit({"phase": "native", "card": gpu, "available": ok,
+          "build_error": native.build_error(),
+          "library": str(native.library_path().name) if ok else None,
+          "max_err_vs_numpy": errs, "volume": list(VOLUME),
+          "gz_bytes": len(raw), "nii_bytes": vol.nbytes + 352,
+          "write_seconds": write_s, "reads": reads,
+          "note": "host-side: the CPUs of the card's machine"})
+
+
+def phase_spatial(params, dev, gpu):
+    """Segmenter(mesh=make_mesh(devices=[cuda:0, cuda:0], spatial=2)) at
+    bench geometry against the single-device Segmenter, each tile's H in
+    two blocks (parallel.spatial): the parity LR pass and the dual pass,
+    bf16 ("cat") and fp32 (TF32 off). Gates: bf16 labels equal on >= 99 %;
+    fp32 labels equal outside near-ties (normalized logit margin below
+    1e-3), LR and HR; K1 launched tiles x 2 times a pass. Printed: the
+    largest normalized-logit difference, seconds a volume of each, and the
+    rows each block held at each conv of one forward. Then a (data 2,
+    spatial 2) mesh of cuda:0 named four times on the bf16 LR pass, with
+    the same label gate and K1 tiles x 4. Both blocks run on the one card:
+    no scaling number. Returns K1's launches in the bf16 spatial LR
+    pass."""
+    from rehrseg_tpu_torch.infer import sliding_window as sw
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH
+    from rehrseg_tpu_torch.ops.pconv import pconv_pad11_cat
+    from rehrseg_tpu_torch.parallel import spatial as sp
+    from rehrseg_tpu_torch.parallel.mesh import make_mesh
+    from rehrseg_tpu_torch.serve import Segmenter
+
+    vol = np.random.default_rng(SEED + 60).normal(size=VOLUME).astype(
+        np.float32)
+    card = torch.device("cuda", 0)
+    mesh = make_mesh(devices=[card, card], spatial=2)
+    n_tiles = len(sw.sliding_window_starts(VOLUME, PATCH))
+    d, h, w = VOLUME
+    rec, launches = {}, None
+
+    def ones(b):
+        o = torch.ones(*b.shape[:-1], 1, device=dev)
+        return o, o.repeat_interleave(4, 1)
+
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        kw = dict(patch_size=PATCH, compute_dtype=dtype)
+        segs = {"single": Segmenter.from_flax(params, DEFAULT_ARCH,
+                                              device=dev, **kw),
+                "spatial2": Segmenter.from_flax(params, DEFAULT_ARCH,
+                                                mesh=mesh, **kw)}
+        out, r = {}, {}
+        for key, seg in segs.items():
+            if name == "bf16":
+                seg.segment(vol)             # warm-up, not counted
+            for hr in (False, True):
+                torch.cuda.synchronize()
+                _zero_counts()
+                sp.reset_record()
+                t = time.perf_counter()
+                out[key, hr] = seg.segment(vol, hr=hr)
+                torch.cuda.synchronize()
+                r[f"{key}_{'dual' if hr else 'lr'}"] = dict(
+                    seconds_per_volume=time.perf_counter() - t,
+                    k1=pconv_pad11_cat.launches)
+                if key == "spatial2" and not hr:
+                    per = len(sp.RECORD) // n_tiles
+                    r["block_rows"] = sp.RECORD[:per]
+        for key in ("lr", "dual"):
+            if r[f"spatial2_{key}"]["k1"] != n_tiles * 2 \
+                    or r[f"single_{key}"]["k1"] != n_tiles:
+                raise AssertionError(f"spatial {name} {key}: K1 launched "
+                                     f"{r} over {n_tiles} tiles")
+        if not all(len(rows) == 2 for _, rows in r["block_rows"]):
+            raise AssertionError(f"spatial: a level ran gathered at the "
+                                 f"bench tile: {r['block_rows']}")
+        # the margin reference: the dual pass's normalized logits (its LR
+        # head is the LR pass's forward)
+        vol_p, _ = segs["single"]._prep(vol)
+        dargs = (vol_p, PATCH, 4, 0.5, True, True)
+        wlr, whr = sw._dual_logits(ones, *dargs, 1, torch.bfloat16, dev)
+        refs = {}
+        for key, mesh_ in (("single", None), ("spatial2", mesh)):
+            llr, lhr = sw._dual_logits(segs[key]._fn(True), *dargs, 2,
+                                       torch.bfloat16, dev, tta_mesh=mesh_)
+            refs[key, "lr"] = refs[key, "dual_lr"] = (llr, wlr)
+            refs[key, "dual_hr"] = (lhr, whr)
+        labels = {}
+        for key, shape, got, want in (
+                ("lr", VOLUME, out["spatial2", False],
+                 out["single", False]),
+                ("dual_lr", VOLUME, out["spatial2", True][0],
+                 out["single", True][0]),
+                ("dual_hr", (4 * d, h, w), out["spatial2", True][1],
+                 out["single", True][1])):
+            if got.shape != shape or got.dtype != np.uint8 or got.max() > 1:
+                raise AssertionError(f"spatial {name} {key}: {got.shape} "
+                                     f"{got.dtype}")
+            lg, wt = refs["single", key]
+            decided = _decided(lg, wt)
+            diff = float((refs["spatial2", key][0] / wt - lg / wt).abs()
+                         .max())
+            labels[key] = dict(
+                equal=float(np.mean(got == want)),
+                near_tie_share=float(1.0 - decided.mean()),
+                differ_outside_near_ties=int(np.sum(got[decided]
+                                                    != want[decided])),
+                max_normalized_logit_diff=diff)
+        r["labels"] = labels
+        del refs, segs, wlr, whr
+        torch.cuda.empty_cache()
+        if name == "bf16":
+            launches = r["spatial2_lr"]["k1"]
+            bad = {k: v["equal"] for k, v in labels.items()
+                   if v["equal"] < 0.99}
+        else:
+            bad = {k: v["differ_outside_near_ties"]
+                   for k, v in labels.items() if v["differ_outside_near_ties"]}
+        if bad:
+            raise AssertionError(f"spatial {name}: labels against the "
+                                 f"single-device Segmenter's: {labels}")
+        rec[name] = r
+    # a (data 2, spatial 2) mesh: two mirror blocks of 4, each H-split
+    mesh4 = make_mesh(devices=[card] * 4, spatial=2)
+    kw = dict(patch_size=PATCH, compute_dtype=torch.bfloat16)
+    seg = Segmenter.from_flax(params, DEFAULT_ARCH, mesh=mesh4, **kw)
+    single = Segmenter.from_flax(params, DEFAULT_ARCH, device=dev, **kw)
+    want = single.segment(vol)
+    seg.segment(vol)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t = time.perf_counter()
+    got = seg.segment(vol)
+    torch.cuda.synchronize()
+    r4 = dict(seconds_per_volume=time.perf_counter() - t,
+              k1=pconv_pad11_cat.launches,
+              equal=float(np.mean(got == want)))
+    if r4["k1"] != n_tiles * 4 or r4["equal"] < 0.99:
+        raise AssertionError(f"spatial data 2 x spatial 2: {r4}")
+    rec["data2_spatial2_bf16_lr"] = r4
+    del seg, single
+    torch.cuda.empty_cache()
+    emit({"phase": "spatial", "card": gpu, "volume": list(VOLUME),
+          "patch": list(PATCH), "grid": "parity", "spatial": 2,
+          "tiles": n_tiles, **rec, "k1_launches_spatial": launches,
+          "note": "every block runs on the one card: no scaling number"})
+    return launches
+
+
+def phase_spatial_train(params, dev, gpu, work: Path):
+    """The stage-2 step at full width (DEFAULT_ARCH, B = 2 x (16, 256,
+    320), uncertainty, remat "hires") on a spatial group of cuda:0 named
+    twice against the unsharded step: fp32 (TF32 off) losses within 1e-6
+    relative; every gradient leaf under the train_step phase's gate, held
+    to the unpacked fp64 step within 2e-3 or twice the unsharded fp32
+    step's own error where that is larger (the deep stages' gradients are
+    ill-conditioned: another summation order moves them by up to about
+    5e-3); the sharded bf16 step against the sharded fp32 one within 5e-2;
+    ms a bf16
+    step both ways over a chain and the peak memory (both blocks on the
+    one card: the peak is not a per-card number). Then 3 steps of
+    pipeline.stage2_segsr with extra.mesh_spatial 2 (spatial_devices= the
+    card twice) on the train_loop phantom with one validation."""
+    from rehrseg_tpu_torch import pipeline
+    from rehrseg_tpu_torch.models import convert
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH, SegModel
+    from rehrseg_tpu_torch.parallel import multihost as mh
+    from rehrseg_tpu_torch.parallel import spatial as sp
+    from rehrseg_tpu_torch.train import optim
+    from rehrseg_tpu_torch.train.seg_trainer import make_seg_train_step
+    from rehrseg_tpu_torch.train.state import TrainState
+
+    card = torch.device("cuda", 0)
+    pair = [card, card]
+    batch = _train_batch(dev, SEED + 70)
+    tol, tol_bf16 = 2e-3, 5e-2
+    l_u, g_u = _one_step(params, batch, dev, remat="hires")
+    sp.reset_record()
+    l_s, g_s = _one_step(params, batch, dev, remat="hires",
+                         spatial_devices=pair)
+    n_convs = len(sp.RECORD)
+    sharded = sum(len(r) == 2 for _, r in sp.RECORD)
+    l_b, g_b = _one_step(params, batch, dev, remat="hires",
+                         precision="bf16", spatial_devices=pair)
+    _, g_r = _one_step(params, batch, dev, torch.float64, packed=False)
+
+    def flat(g):
+        return torch.cat([v.ravel() for v in g.values()])
+
+    floor = 1e-3 * float(flat(g_r).norm())
+    # (sharded vs fp64, unsharded vs fp64, sharded vs unsharded) a leaf
+    leaves = {k: (_rel(g_s[k], g_r[k], floor), _rel(g_u[k], g_r[k], floor),
+                  _rel(g_s[k], g_u[k], floor)) for k in g_r}
+    over = {k: v for k, v in leaves.items() if v[0] > max(tol, 2 * v[1])}
+    worst = max(leaves, key=lambda k: leaves[k][2])
+    loss_err = max(abs(l_s[k] - l_u[k]) / abs(l_u[k]) for k in l_u)
+    bf16_loss_err = max(abs(l_b[k] - l_s[k]) / abs(l_s[k]) for k in l_s)
+    bf16_grad_err = _rel(flat(g_b), flat(g_s))
+    if loss_err > 1e-6 or over or bf16_loss_err > tol_bf16 \
+            or bf16_grad_err > tol_bf16 or sharded == 0:
+        raise AssertionError(f"spatial_train: loss {loss_err}, leaves over "
+                             f"(sharded, unsharded vs fp64): {over}, bf16 "
+                             f"{bf16_loss_err} / {bf16_grad_err}, "
+                             f"{sharded} of {n_convs} convs sharded")
+    timing = {}
+    for key, group in (("single", None), ("spatial2", pair)):
+        seg = SegModel(2, 4, arch=DEFAULT_ARCH)
+        convert.load_flax_params(seg, params)
+        seg.to(dev)
+        state = TrainState(seg, optim.nesterov_sgd(seg),
+                           optim.poly_epoch_schedule(1e-2, 100, 1))
+        step = make_seg_train_step(seg, enable_uncertainty=True,
+                                   enable_distillation=False, remat="hires",
+                                   precision="bf16", spatial_devices=group)
+        b = batch if group is None else mh.place_global(batch, group)
+        ms, peak, losses = _time_chain(step, state, b)
+        timing[key] = dict(ms_per_step=ms, peak_mem_gb=peak, losses=losses)
+        del seg, state, step
+        torch.cuda.empty_cache()
+    # three steps of the loop, one validation at step 3
+    root = work / "spatial_loop"
+    _, _, config, ds = _loop_tree(root)
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sp.reset_record()
+    with contextlib.redirect_stdout(printed):
+        _, state, best = pipeline.stage2_segsr(
+            config(3, mesh_spatial=2), dataset=ds, device=dev,
+            spatial_devices=pair)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    lines = printed.getvalue().strip().splitlines()
+    evals = [ln for ln in lines if ln.startswith("Eval result")]
+    if state.step != 3 or len(evals) != 1 or not 0.0 <= best <= 1.0 \
+            or not any(len(r) == 2 for _, r in sp.RECORD):
+        raise AssertionError(f"spatial_train loop: step {state.step}, "
+                             f"{evals}, best {best}")
+    emit({"phase": "spatial_train", "card": gpu, "batch": TRAIN_BATCH,
+          "patch": list(TRAIN_PATCH), "spatial": 2, "remat": "hires",
+          "fp32_vs_unsharded": dict(
+              loss_rel_err=loss_err, tolerance=tol,
+              whole_grad_rel_norm=_rel(flat(g_s), flat(g_u)),
+              worst_leaf=dict(name=worst, vs_unsharded=leaves[worst][2],
+                              vs_fp64=leaves[worst][0],
+                              unsharded_vs_fp64=leaves[worst][1]),
+              leaf_vs_fp64_max=max(v[0] for v in leaves.values()),
+              leaf_rule="sharded fp32 vs unpacked fp64 <= max(2e-3, 2x "
+                        "unsharded fp32 vs unpacked fp64)",
+              losses=l_s, losses_unsharded=l_u),
+          "bf16_vs_fp32": dict(loss_rel_err=bf16_loss_err,
+                               grad_rel_norm=bf16_grad_err,
+                               tolerance=tol_bf16),
+          "convs_sharded": sharded, "convs": n_convs,
+          "bf16_chain": timing, "loop": dict(
+              steps=3, seconds=loop_s, validation=evals, best_dice=best,
+              remat=[ln for ln in lines if ln.startswith("remat")]),
+          "note": "both blocks run on the one card: neither a scaling "
+                  "number nor a per-card memory"})
+
+
 DP_SR_BATCH = 32      # the UASR step's global batch (configs/brain.yaml)
 
 
@@ -3160,6 +3524,11 @@ def main() -> int:
         launches_mesh = phase_mesh(params, dev, gpu)
         phase_dp(dev, gpu, Path(work))
         launches_folds = phase_fold_all(dev, gpu, Path(work))
+        phase_native(gpu, Path(work))
+        torch.cuda.empty_cache()
+        launches_spatial = phase_spatial(params, dev, gpu)
+        torch.cuda.empty_cache()
+        phase_spatial_train(params, dev, gpu, Path(work))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3174,6 +3543,7 @@ def main() -> int:
              launches=launches["pconv_pad11_cat"],
              launches_cli=launches_cli, launches_streamed=launches_streamed,
              launches_mesh=launches_mesh,
+             launches_spatial=launches_spatial,
              **{k: k1[k] for k in keys}),
         # fp32 K1: fold evaluation's path (trainer weights are fp32); its
         # bound at the 3xTF32 rate

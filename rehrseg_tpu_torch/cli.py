@@ -12,7 +12,9 @@ card, train data-parallel::
 (or ``REHRSEG_COORDINATOR`` / ``REHRSEG_NUM_PROCESSES`` /
 ``REHRSEG_PROCESS_ID`` per process, as for the JAX package); the process
 group forms before any CUDA work, over NCCL on the cards and gloo under
-``REHRSEG_PLATFORM=cpu``.
+``REHRSEG_PLATFORM=cpu``. With ``extra.mesh_spatial: S`` each process
+drives S cards (cards ``LOCAL_RANK * S .. + S - 1``), its stage-2 patches'
+H sharded over them, so torchrun starts cards / S processes a node.
 """
 
 from __future__ import annotations
@@ -39,9 +41,12 @@ def main(argv=None):
 
     # before any CUDA work: the process group (no-op for one process) and
     # the check that a multi-process environment really formed one
+    from .config import load_config
     from .parallel.distributed import (assert_pod_consistency,
                                        cpu_requested, init_distributed)
-    init_distributed()
+    spatial = int((load_config(args.config).extra or {}).get(
+        "mesh_spatial", 1) or 1)
+    init_distributed(cards_per_process=spatial)
     assert_pod_consistency()
     device = args.device
     if device is None and cpu_requested():

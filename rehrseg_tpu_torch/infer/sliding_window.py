@@ -31,10 +31,16 @@ the compute dtype. On the card the upload and the label fetch go through
 pinned host memory without blocking, so the ``_many`` engines enqueue every
 volume's tiles and argmax before they wait once for all label maps.
 
-One volume's TTA shards over several devices with ``tta_mesh=`` (a
+One volume shards over several devices with ``tta_mesh=`` (a
 :class:`..parallel.mesh.Mesh`): each forward's mirror batch splits over the
-mesh's 'data' devices, and ``model_fn`` runs each block on its block's
-device (the Segmenter keeps one weight replica per distinct device).
+mesh's 'data' rows, and ``model_fn`` runs each block on its row's first
+device (the Segmenter keeps one weight replica per distinct device); with
+a 'spatial' extent above 1 the block goes to ``model_fn`` as an
+:class:`..parallel.spatial.HBlocks`, its tile's H split over the row's
+devices, and the forward runs H-sharded (halo exchanges, moment sums)
+and hands back its logits gathered on the row's first device. The
+accumulators stay whole on the mesh's first device (the JAX engine shards
+them along H too).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from ..data.normalize import zscore_normalization
 from ..losses import calculate_dice
 from ..ops.gaussian import compute_gaussian
 from ..ops.tail import accumulate_tta_tile, zgrouped_combos
+from ..parallel import spatial
 from ..utils.device import resolve_device
 from ..utils.pad import crop, target_pad
 
@@ -143,20 +150,17 @@ def _to_host(labels: Sequence[torch.Tensor]) -> list:
     return [h.numpy() for h in host]
 
 
-def _mesh_devices(tta_mesh, n_batch: int):
-    """The 'data' devices a mirror batch of ``n_batch`` splits over, or None
-    without a mesh."""
+def _mesh_groups(tta_mesh, n_batch: int):
+    """The spatial device groups (mesh rows) a mirror batch of ``n_batch``
+    splits over, or None without a mesh."""
     if tta_mesh is None:
         return None
-    from ..parallel.mesh import check_data_only
-
-    check_data_only(tta_mesh)
-    devices = tta_mesh.data_devices
-    if n_batch % len(devices):
+    groups = tta_mesh.groups()
+    if n_batch % len(groups):
         raise ValueError(
-            f"the mesh's 'data' axis of {len(devices)} devices must divide "
+            f"the mesh's 'data' axis of {len(groups)} devices must divide "
             f"the mirror batch of {n_batch} (tiles_per_step x flips)")
-    return devices
+    return groups
 
 
 def _mesh_home(tta_mesh, device):
@@ -166,18 +170,27 @@ def _mesh_home(tta_mesh, device):
     return device
 
 
-def _sharded_forward(model_fn: Callable, batch: torch.Tensor,
-                     devices) -> torch.Tensor:
-    """The forward of ``batch`` split into len(devices) contiguous blocks
-    in flip order, block i run on devices[i] (``model_fn`` runs each on its
-    block's device), the outputs gathered back on the batch's device in
+def _sharded_forward(model_fn: Callable, batch: torch.Tensor, groups):
+    """The forward of ``batch`` split into len(groups) contiguous blocks in
+    flip order, block i run on groups[i] (on its first device, or H-split
+    over the group as an HBlocks when it holds several), the outputs (a
+    tensor or a tuple of them) gathered back on the batch's device in
     order. Every block is enqueued before any output is copied back, so
     blocks on distinct cards run side by side."""
-    if devices is None:
+    if groups is None:
         return model_fn(batch)
-    outs = [model_fn(block.to(dev, non_blocking=True))
-            for block, dev in zip(batch.chunk(len(devices)), devices)]
-    return torch.cat([o.to(batch.device, non_blocking=True) for o in outs])
+    outs = []
+    for block, group in zip(batch.chunk(len(groups)), groups):
+        block = block.to(group[0], non_blocking=True)
+        outs.append(model_fn(block if len(group) == 1
+                             else spatial.split(block, group)))
+
+    def cat(parts):
+        return torch.cat([o.to(batch.device, non_blocking=True)
+                          for o in parts])
+    if isinstance(outs[0], tuple):
+        return tuple(cat(p) for p in zip(*outs))
+    return cat(outs)
 
 
 def _padded_starts(image_size, patch_size, tile_step_size,
@@ -207,10 +220,11 @@ def _run_sliding_window(model_fn: Callable, data: np.ndarray, patch_size,
     the whole volume's grid rows that fall in it). tta_mesh: a
     :class:`..parallel.mesh.Mesh` whose 'data' axis splits each forward's
     mirror batch (k tiles x n_tta flips) into contiguous blocks, one per
-    data device (``P("data")`` in the JAX engine); ``model_fn`` runs each
-    block on its device with that device's weights, the outputs come back
-    to ``device`` and are unmirrored in the same order as without a mesh.
-    A 'spatial' extent above 1 raises (ROADMAP item 10c)."""
+    data row (``P("data", None, "spatial")`` in the JAX engine);
+    ``model_fn`` runs each block on its row (H-sharded over the row's
+    devices when the 'spatial' extent is above 1), the outputs come back
+    to ``device`` and are unmirrored in the same order as without a
+    mesh."""
     device = resolve_device(device)
     pd, ph, pw = (int(p) for p in patch_size)
     z_scale = int(slice_separation)
@@ -219,7 +233,7 @@ def _run_sliding_window(model_fn: Callable, data: np.ndarray, patch_size,
     g = _gaussian((od, ph, pw), bool(use_gaussian), device)
     combos = _flip_axes_combinations(3) if mirror else [()]
     n_tta = len(combos)
-    mesh_devices = _mesh_devices(tta_mesh, k * n_tta)
+    mesh_groups = _mesh_groups(tta_mesh, k * n_tta)
     vol = _upload(data, input_dtype, device)
     out_shape = (vol.shape[0] * z_scale, vol.shape[1], vol.shape[2])
     logits = torch.zeros((*out_shape, num_classes), dtype=torch.float32,
@@ -235,7 +249,7 @@ def _run_sliding_window(model_fn: Callable, data: np.ndarray, patch_size,
                                 combos) for sx, sy, sz, _ in group]
         preds = _sharded_forward(
             model_fn, stacks[0] if k == 1 else torch.cat(stacks),
-            mesh_devices)
+            mesh_groups)
         for j, (sx, sy, sz, valid) in enumerate(group):
             if not valid:
                 continue
@@ -317,29 +331,33 @@ def predict_sliding_window_labels_many(model_fn: Callable, volumes,
                                        num_classes: int = 2,
                                        input_dtype=torch.bfloat16,
                                        device=None,
-                                       tiles_per_step: int = 1):
+                                       tiles_per_step: int = 1,
+                                       tta_mesh=None):
     """Label maps of many volumes, in order. Every volume's tiles and
     argmax are enqueued before any label map is fetched, so one volume's
-    upload and the fetches overlap the card's work on the others."""
+    upload and the fetches overlap the card's work on the others.
+    tta_mesh: as in :func:`predict_sliding_window_labels`."""
     return _to_host([_labels_on_device(
         model_fn, data, patch_size, slice_separation, tile_step_size,
         use_gaussian, mirror, num_classes, input_dtype, device,
-        tiles_per_step) for data in volumes])
+        tiles_per_step, tta_mesh) for data in volumes])
 
 
 @torch.no_grad()
 def _dual_logits(model_fn: Callable, data: np.ndarray, patch_size,
                  slice_separation, tile_step_size, use_gaussian, mirror,
-                 num_classes, input_dtype, device, rows=None):
+                 num_classes, input_dtype, device, rows=None, tta_mesh=None):
     """Dual-head tile loop: model_fn returns (lr_pred, hr_pred); both
     heads accumulate in one pass. Returns (LR, HR) logits on the device.
-    rows: tile starts as in :func:`_run_sliding_window`."""
-    device = resolve_device(device)
+    rows: tile starts as in :func:`_run_sliding_window`; tta_mesh: each
+    mirror batch split over the mesh as there."""
+    device = resolve_device(_mesh_home(tta_mesh, device))
     pd, ph, pw = (int(p) for p in patch_size)
     sep = int(slice_separation)
     g_lr = _gaussian((pd, ph, pw), bool(use_gaussian), device)
     g_hr = _gaussian((pd * sep, ph, pw), bool(use_gaussian), device)
     combos = _flip_axes_combinations(3) if mirror else [()]
+    mesh_groups = _mesh_groups(tta_mesh, len(combos))
     vol = _upload(data, input_dtype, device)
     d, h, w = vol.shape[:3]
     llr = torch.zeros((d, h, w, num_classes), dtype=torch.float32,
@@ -351,7 +369,8 @@ def _dual_logits(model_fn: Callable, data: np.ndarray, patch_size,
                                      tile_step_size).tolist()
     for sx, sy, sz, *_ in rows:
         tile = vol[sx:sx + pd, sy:sy + ph, sz:sz + pw]
-        p_lr, p_hr = model_fn(_mirror_batch(tile, combos))
+        p_lr, p_hr = _sharded_forward(model_fn, _mirror_batch(tile, combos),
+                                      mesh_groups)
         pred_lr = _unmirror_mean(p_lr, combos).float()
         pred_hr = _unmirror_mean(p_hr, combos).float()
         llr[sx:sx + pd, sy:sy + ph, sz:sz + pw] += pred_lr * g_lr[..., None]
@@ -368,13 +387,15 @@ def predict_sliding_window_dual_labels(model_fn: Callable, data: np.ndarray,
                                        mirror: bool = True,
                                        num_classes: int = 2,
                                        input_dtype=torch.bfloat16,
-                                       device=None):
+                                       device=None, tta_mesh=None):
     """One-pass LR+HR prediction: returns (lr_labels, hr_labels) uint8.
     model_fn(batch) -> (lr_logits, hr_logits), HR z-upscaled by
-    slice_separation."""
+    slice_separation. tta_mesh: as in
+    :func:`predict_sliding_window_labels`."""
     llr, lhr = _dual_logits(model_fn, data, patch_size, slice_separation,
                             tile_step_size, use_gaussian, mirror,
-                            num_classes, input_dtype, device)
+                            num_classes, input_dtype, device,
+                            tta_mesh=tta_mesh)
     return tuple(_to_host([_argmax_uint8(llr), _argmax_uint8(lhr)]))
 
 

@@ -1,5 +1,6 @@
 """Minimal pure-Python NIfTI-1 reader/writer: the port's own copy of
-``rehrseg_tpu.io.nifti`` (gzip, struct and numpy only).
+``rehrseg_tpu.io.nifti`` (gzip, struct and numpy; a ``.gz`` read inflates
+through the native host library, :mod:`rehrseg_tpu_torch.native`).
 
 The single-file format (.nii / .nii.gz): 348-byte header, optional
 extensions, voxel data. Supports the dtypes and fields the pipeline needs
@@ -96,11 +97,14 @@ def _open_maybe_gz(path: str, mode: str):
 
 
 def _read_maybe_gz(path: str) -> bytes:
-    """Read (and inflate) file contents."""
+    """Read (and inflate) file contents; ``.gz`` inflates through the
+    native host library (:func:`rehrseg_tpu_torch.native.gunzip`, which
+    falls back to the gzip module)."""
     with open(path, "rb") as f:
         raw = f.read()
     if str(path).endswith(".gz"):
-        return gzip.decompress(raw)
+        from .. import native
+        return native.gunzip(raw)
     return raw
 
 

@@ -56,7 +56,9 @@ from ..ops.pack2d import (
     pack_conv_weights_cell4z2, conv_packed_s2_cell4z2, unpack_cell4z2,
     pack_bias_cell4z2, fused_upsample_conv1,
     norm_scale_shift_from_stats, offset_stats_xla, apply_norm_act_packed,
+    stats_dtype, conv_packed_h,
 )
+from ..parallel import spatial as sp
 
 
 def _to3(v):
@@ -64,10 +66,13 @@ def _to3(v):
 
 
 def _instance_norm(x, scale, bias, eps):
-    """Statistics in fp32 whatever the compute dtype; the normalize stays
-    in x.dtype (the JAX package's bf16 serving numerics)."""
+    """Statistics in fp32 whatever the compute dtype (fp64 for fp64
+    input); the normalize stays in x.dtype (the JAX package's bf16
+    serving numerics)."""
+    if isinstance(x, sp.HBlocks):
+        return sp.instance_norm(x, scale, bias, eps)
     spatial = tuple(range(1, x.ndim - 1))
-    x32 = x.float()
+    x32 = stats_dtype(x)
     m = x32.mean(spatial, keepdim=True)
     v = x32.var(spatial, correction=0, keepdim=True)
     y = (x - m.to(x.dtype)) * torch.rsqrt(v + eps).to(x.dtype)
@@ -77,25 +82,82 @@ def _instance_norm(x, scale, bias, eps):
 
 
 def _conv_std(x, w, b, strides):
-    pad = tuple((k // 2, k // 2) for k in w.shape[:3])
-    y = conv_general(x, w, strides, pad)
-    return y + b if b is not None else y
+    def fn(t, w_, b_):
+        pad = tuple((k // 2, k // 2) for k in w_.shape[:3])
+        y = conv_general(t, w_, strides, pad)
+        return y + b_ if b_ is not None else y
+
+    k = w.shape[1]
+    return sp.conv(fn, x, w, b, k=k, s=strides[1], pad=(k // 2, k // 2),
+                   tag="conv_std")
 
 
 def _transpconv_std(x, wt, b, strides):
     """Stride == kernel transposed conv; wt in the flax transpose_kernel
     layout (*K, O, I), direct spatial indexing (= torch's (I, O, *K))."""
-    xc = x.permute(0, 4, 1, 2, 3)
-    y = F.conv_transpose3d(xc, wt.permute(4, 3, 0, 1, 2), None,
-                           stride=tuple(strides))
-    y = y.permute(0, 2, 3, 4, 1)
-    return y + b if b is not None else y
+    def fn(t, wt_, b_):
+        y = F.conv_transpose3d(t.permute(0, 4, 1, 2, 3),
+                               wt_.permute(4, 3, 0, 1, 2), None,
+                               stride=tuple(strides))
+        y = y.permute(0, 2, 3, 4, 1)
+        return y + b_ if b_ is not None else y
+
+    return sp.local(fn, x, wt, b, scale=strides[1])
+
+
+def _cat(*ts):
+    return torch.cat(ts, dim=-1)
+
+
+def _leaky(x, slope):
+    return sp.local(F.leaky_relu, x, slope)
+
+
+def _packing(x, w4, b, *, offset_out=False, out_w=None):
+    """:func:`conv_packing` (a (kd, 4, 4) stride-(2, 2) conv, H padded
+    (2, 2) for offset output, else (1, 1)), sharded along H for an
+    HBlocks."""
+    return sp.conv(lambda t, w_, b_: conv_packing(
+        t, w_, b_, offset_out=offset_out, out_w=out_w), x, w4, b, k=4, s=2,
+        pad=(2, 2) if offset_out else (1, 1), tag="conv_packing")
+
+
+def _packed(x, wp, b, *, d_stride=1, hw_pad="valid", out_w=None,
+            in_w=None):
+    """:func:`conv_packed` (an (S, S) stride-1 packed conv, H padded as
+    ``hw_pad`` says), sharded along H for an HBlocks."""
+    k, pad = conv_packed_h(wp, hw_pad)
+    return sp.conv(lambda t, w_, b_: conv_packed(
+        t, w_, b_, d_stride=d_stride, hw_pad=hw_pad, out_w=out_w,
+        in_w=in_w), x, wp, b, k=k, pad=pad, tag=f"conv_packed_{hw_pad}")
+
+
+def _k1_cat(xs, w, b):
+    """K1 on an aligned pair of (B, D, h, w, C) tensors (D folded into the
+    batch), for an H block of a spatial forward."""
+    xa, xb = xs
+    bsz, d = xa.shape[0], xa.shape[1]
+    r = pconv.pconv_pad11_cat(
+        xa.reshape(bsz * d, *xa.shape[2:]).contiguous(),
+        xb.reshape(bsz * d, *xb.shape[2:]).contiguous(), w, b)
+    return r.reshape(bsz, d, *r.shape[1:])
+
+
+def _norm_packed(y, scale, nbias, eps, **kw):
+    if isinstance(y, sp.HBlocks):
+        return sp.instance_norm_packed(y, scale, nbias, eps, **kw)
+    return instance_norm_packed(y, scale, nbias, eps, **kw)
 
 
 def _unpack(x, layout, tw=None):
     if layout == "a":
-        return depth_to_space_hw(x)
+        return sp.local(depth_to_space_hw, x, scale=2)
     if layout == "o":
+        if isinstance(x, sp.HBlocks):
+            # an offset block's unpacked rows straddle the next block's
+            # first row; no path of the forward unpacks an offset tensor
+            # at a level that runs sharded, so this gathers and splits
+            return sp.split(_unpack(sp.gather(x), layout, tw), x.group)
         if tw is not None and tw != x.shape[3]:
             x = x[:, :, :, :tw]      # strip K1's pad columns
         return offset_to_unpacked_hw(x)
@@ -117,8 +179,11 @@ def _packable(kernel, h, w, feats, pack_max_channels):
 
 
 def _mask_offset(y, c, tw=None):
-    return y * offset_rim_mask(y.shape[2], y.shape[3], c, y.dtype, y.device,
-                               true_w=tw)
+    """y times the offset rim mask; an H block takes its global rows of
+    it (only the outermost blocks hold a rim row)."""
+    hp, wp = y.shape[2], y.shape[3]
+    return sp.local_rows(lambda t, r0, r1: t * offset_rim_mask(
+        hp, wp, c, t.dtype, t.device, true_w=tw)[r0:r1], y)
 
 
 def _round8(v):
@@ -186,7 +251,7 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
     pallas_cat = bool(pallas)
     pair = isinstance(x, (tuple, list))
     if pair and (layout != "a" or len(x) != 2 or not pallas_cat):
-        x = torch.cat(list(x), dim=-1)
+        x = sp.local(_cat, *x)
         pair = False
     deferred = isinstance(x, _Deferred)
     x0 = x.y if deferred else (x[0] if pair else x)
@@ -224,19 +289,19 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
     if take_packed:
         if strided and layout != "u":
             if pair:
-                x = torch.cat(list(x), dim=-1)
+                x = sp.local(_cat, *x)
                 pair = False
             if layout == "a":
                 wp = pack_conv_weights(w, in_splits=in_splits,
                                        packed_out=False,
                                        aligned_in_strided=True)
-                y = conv_packed(x, wp, b, d_stride=stride[0], hw_pad="pad10")
+                y = _packed(x, wp, b, d_stride=stride[0], hw_pad="pad10")
             else:
                 wp = pack_conv_weights(w, in_splits=in_splits,
                                        packed_out=False)
-                y = conv_packed(x, wp, b, d_stride=stride[0], in_w=otw)
+                y = _packed(x, wp, b, d_stride=stride[0], in_w=otw)
             y = _instance_norm(y, scale, nbias, eps)
-            return F.leaky_relu(y, slope), "u", None
+            return _leaky(y, slope), "u", None
 
         if not strided:
             kd = int(kernel[0])
@@ -252,11 +317,11 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                                                    kd))
                 if out == "o" and (pallas_all or fuse_emit):
                     out_tw = x.shape[3] // 2 + 1
-                    y = conv_packing(x, w4, pb, offset_out=True,
-                                     out_w=_round8(out_tw))
+                    y = _packing(x, w4, pb, offset_out=True,
+                                 out_w=_round8(out_tw))
                     defer_out = fuse_emit
                 else:
-                    y = conv_packing(x, w4, pb, offset_out=(out == "o"))
+                    y = _packing(x, w4, pb, offset_out=(out == "o"))
             elif layout == "a":
                 wp = pack_conv_weights(w, in_splits=in_splits)
                 pb = pack_bias(b) if b is not None else None
@@ -265,7 +330,12 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                 fuse_emit = (pallas_fused
                              and _fused_consumable(feats, out_tw, kd))
                 y = None
-                if pair and kd == 1:
+                if pair and kd == 1 and isinstance(x0, sp.HBlocks):
+                    # K1 on each H block with its halo rows
+                    if pconv.pconv_pad11_cat_covers(x[0], x[1], wp[0]):
+                        y = sp.conv(_k1_cat, tuple(x), wp[0], pb, k=2,
+                                    pad=(1, 1), tag="pconv_pad11_cat")
+                elif pair and kd == 1:
                     bsz, d = x0.shape[0], x0.shape[1]
                     r = pconv.pconv_pad11_cat(
                         x[0].reshape(bsz * d, *x[0].shape[2:]).contiguous(),
@@ -277,7 +347,7 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                             defer_out = True
                         y = r.reshape(bsz, d, *r.shape[1:])
                 if y is None and pair:
-                    x = torch.cat(list(x), dim=-1)
+                    x = sp.local(_cat, *x)
                     pair = False
                 if y is None and pallas_all and kd == 1:
                     bsz, d = x.shape[0], x.shape[1]
@@ -295,7 +365,7 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                                     out_w=_round8(out_tw))
                     defer_out = fuse_emit
                 elif y is None:
-                    y = conv_packed(x, wp, pb, hw_pad="pad11")
+                    y = _packed(x, wp, pb, hw_pad="pad11")
                     out_tw = None
             else:  # offset -> aligned
                 wp = pack_conv_weights(w, in_splits=in_splits)
@@ -342,7 +412,7 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                 if y is None:
                     # a widened offset input: the conv reads only its
                     # true columns
-                    y = conv_packed(x, wp, pb, in_w=otw)
+                    y = _packed(x, wp, pb, in_w=otw)
             if out == "o":
                 if defer_out:
                     if out_stats is None:
@@ -350,9 +420,9 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                     return (_defer_offset(y, out_stats, scale, nbias, eps,
                                           slope, out_tw), out, out_tw)
                 y = _mask_offset(y, feats, tw=out_tw)
-                y = instance_norm_packed(y, scale, nbias, eps,
-                                         offset_parity=True, true_w=out_tw)
-                y = _mask_offset(F.leaky_relu(y, slope), feats, tw=out_tw)
+                y = _norm_packed(y, scale, nbias, eps, offset_parity=True,
+                                 true_w=out_tw)
+                y = _mask_offset(_leaky(y, slope), feats, tw=out_tw)
             elif out_stats is not None:
                 # fused aligned finalize: one apply pass from the kernel's
                 # moments
@@ -362,17 +432,16 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                     y.dtype)
                 y = apply_norm_act_packed(y, sa, ta, slope)
             else:
-                y = F.leaky_relu(instance_norm_packed(y, scale, nbias, eps),
-                                 slope)
+                y = _leaky(_norm_packed(y, scale, nbias, eps), slope)
             return y, out, out_tw
 
     # ---------------- standard path
     if pair:
-        x = torch.cat(list(x), dim=-1)
+        x = sp.local(_cat, *x)
     x = _unpack(x, layout, otw)
     y = _conv_std(x, w, b, stride)
     y = _instance_norm(y, scale, nbias, eps)
-    return F.leaky_relu(y, slope), "u", None
+    return _leaky(y, slope), "u", None
 
 
 def _leaves(tree):
@@ -432,6 +501,12 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
         raise ValueError(f"unknown remat {remat!r}")
     if sr_head_form not in ("auto", "cell4", "legacy"):
         raise ValueError(f"unknown sr_head_form {sr_head_form!r}")
+    if (isinstance(x, sp.HBlocks) and len(x.group) > 1
+            and pallas_conv in (True, "fused")):
+        raise ValueError(
+            f"pallas_conv={pallas_conv!r} is a port-only mode with no "
+            f"spatial form: an H-sharded forward runs pallas_conv False or "
+            f"'cat' (the JAX package's Segmenter runs 'cat')")
     a = dict(arch)
     n = a["n_stages"]
     feats = a["features_per_stage"]
@@ -453,7 +528,7 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
     cur, layout, cur_tw = x, "u", None
     skips = []  # (tensor, layout, true offset width or None)
     for s in range(n):
-        def enc_stage(cur_in, sp, *, _s=s, _in=layout, _tw=cur_tw):
+        def enc_stage(cur_in, stp, *, _s=s, _in=layout, _tw=cur_tw):
             y, lay, tw = cur_in, _in, _tw
             n_convs = a["n_conv_per_stage"][_s]
             for i in range(n_convs):
@@ -461,7 +536,7 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
                 want = (("o" if n_convs - i >= 2 else "a") if lay == "u"
                         else "a")
                 y, lay, tw = _conv_norm_act(
-                    y, lay, sp[f"conv_{i}"], kernels[_s], st, feats[_s], a,
+                    y, lay, stp[f"conv_{i}"], kernels[_s], st, feats[_s], a,
                     pack_max_channels=pack_max_channels, want_out=want,
                     tw=tw, pallas=pallas_conv)
             if isinstance(y, _Deferred):      # a stage ends finalized
@@ -490,17 +565,19 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
                      and skip_layout in ("a", "u"))
         lres = _unpack(lres, lres_layout, lres_tw)
 
-        def dec_stage(lres_in, skip_in, tp, sp, *, _s=s, _ridx=ridx,
+        def dec_stage(lres_in, skip_in, tp, stp, *, _s=s, _ridx=ridx,
                       _pack=pack_here, _skip_layout=skip_layout,
                       _skip_tw=skip_tw, _out_ch=out_ch, _stride=stride):
             wt, bt = tp["kernel"], tp.get("bias")
             tw = None
             if _pack:
-                up = pointwise_packed_transpconv(
-                    lres_in, pack_transpconv_weights(wt),
-                    pack_bias(bt) if bt is not None else None)   # ALIGNED
-                skip_p = (skip_in if _skip_layout == "a"
-                          else space_to_depth_hw(skip_in))
+                up = sp.local(pointwise_packed_transpconv, lres_in,
+                              pack_transpconv_weights(wt),
+                              pack_bias(bt) if bt is not None
+                              else None)                       # ALIGNED
+                skip_p = (skip_in if _skip_layout == "a" else sp.conv(
+                    space_to_depth_hw, skip_in, k=2, s=2,
+                    tag="space_to_depth"))
                 # conv_0 receives the PAIR: K1 fuses the concat, or
                 # _conv_norm_act concatenates
                 y = (up, skip_p)
@@ -510,12 +587,12 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
                 splits = [_out_ch, skip_ch]
             else:
                 up = _transpconv_std(lres_in, wt, bt, _stride)
-                y = torch.cat([up, _unpack(skip_in, _skip_layout, _skip_tw)],
-                              dim=-1)
+                y = sp.local(_cat, up,
+                             _unpack(skip_in, _skip_layout, _skip_tw))
                 lay, splits = "u", None
             for i in range(a["n_conv_per_stage_decoder"][_s]):
                 y, lay, tw = _conv_norm_act(
-                    y, lay, sp[f"conv_{i}"], kernels[_ridx], (1, 1, 1),
+                    y, lay, stp[f"conv_{i}"], kernels[_ridx], (1, 1, 1),
                     _out_ch, a, pack_max_channels=pack_max_channels,
                     in_splits=splits if i == 0 else None, want_out="a",
                     tw=tw, pallas=pallas_conv)
@@ -536,9 +613,11 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
                 # pointwise seg head in packed space; unpack only the
                 # num_classes-channel logits
                 wp = pack_pointwise_weights(wseg[0, 0, 0].to(cur.dtype))
-                lg = torch.matmul(cur, wp) + pack_bias(bseg)
+                lg = sp.local(lambda t, w_, b_: torch.matmul(t, w_) + b_,
+                              cur, wp, pack_bias(bseg))
                 if layout == "o":
                     lg = _mask_offset(lg, n_cls, tw=cur_tw)
+                lg = sp.gather(lg)          # logits on the group's first
                 if plane_out:
                     # packed channel order is (cell, class)
                     seg_logits = torch.stack(
@@ -547,7 +626,7 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
                 else:
                     seg_logits = _unpack(lg, layout, cur_tw)
             else:
-                seg_logits = _conv_std(cur, wseg, bseg, (1, 1, 1))
+                seg_logits = sp.gather(_conv_std(cur, wseg, bseg, (1, 1, 1)))
                 if plane_out:
                     seg_logits = torch.movedim(seg_logits, -1, 1)
             features, features_layout, features_tw = cur, layout, cur_tw
@@ -564,45 +643,56 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
     hr = _ckpt(remat, "head", 0, n)(head)(features, w1=w1, b1=b1, w2=w2,
                                           b2=b2)
     if return_skips:
-        return seg_logits, hr, [_unpack(t, l, tw) for t, l, tw in skips]
+        return seg_logits, hr, [_unpack(sp.gather(t), l, tw)
+                                for t, l, tw in skips]
     return seg_logits, hr
 
 
 def _sr_head(feats_in, *, layout, tw, w1, b1, w2, b2, upscale, plane_out,
              sr_head_form):
+    """The SR head; an HBlocks input runs its convs sharded along H and
+    gathers the last conv's output (the head's logits) on the group's first
+    device."""
     if layout == "a":
         # SR head fully packed (D-upsampling commutes with in-plane packing)
         if w1.shape[0] == 3 and sr_head_form != "legacy":
-            h1 = fused_upsample_conv1(feats_in, w1, b1, upscale)
+            h1 = sp.conv(lambda t, w_, b_: fused_upsample_conv1(
+                t, w_, b_, upscale), feats_in, w1, b1, k=2, pad=(1, 1),
+                tag="fused_upsample_conv1")
         else:
-            up = upsample_axis_linear(feats_in, upscale, axis=1,
-                                      align_corners=True)
-            h1 = conv_packed(up, pack_conv_weights(w1), pack_bias(b1),
-                             hw_pad="pad11")
-        h1 = _mask_offset(torch.relu(h1), w1.shape[-1])
+            up = sp.local(lambda t: upsample_axis_linear(
+                t, upscale, axis=1, align_corners=True), feats_in)
+            h1 = _packed(up, pack_conv_weights(w1), pack_bias(b1),
+                         hw_pad="pad11")
+        h1 = _mask_offset(sp.local(torch.relu, h1), w1.shape[-1])
         ncl = w2.shape[-1]
         if ((h1.shape[2] - 1) % 2 == 0 and (h1.shape[3] - 1) % 2 == 0
                 and sr_head_form != "legacy"):
             if h1.shape[1] % 2 == 0 and sr_head_form != "cell4":
-                out = conv_packed_s2_cell4z2(
-                    h1, pack_conv_weights_cell4z2(w2), pack_bias_cell4z2(b2))
+                out = sp.gather(sp.conv(
+                    conv_packed_s2_cell4z2, h1, pack_conv_weights_cell4z2(w2),
+                    pack_bias_cell4z2(b2), k=5, s=2, pad=(1, 1),
+                    tag="conv_packed_s2_cell4z2"))
                 planes = unpack_cell4z2(out, ncl)
                 return torch.stack(planes, dim=1 if plane_out else -1)
-            out = conv_packed_s2_cell4(h1, pack_conv_weights_cell4(w2),
-                                       pack_bias_cell4(b2))
+            out = sp.gather(sp.conv(
+                conv_packed_s2_cell4, h1, pack_conv_weights_cell4(w2),
+                pack_bias_cell4(b2), k=5, s=2, pad=(1, 1),
+                tag="conv_packed_s2_cell4"))
             if plane_out:
                 return torch.stack(
                     [depth_to_space_cell(out[..., c::ncl], 4)[..., 0]
                      for c in range(ncl)], dim=1)
             return depth_to_space_cell(out, 4)
-        out = conv_packed(h1, pack_conv_weights(w2), pack_bias(b2))
+        out = sp.gather(_packed(h1, pack_conv_weights(w2), pack_bias(b2)))
         if plane_out:
             return torch.stack(
                 [depth_to_space_hw(out[..., c::ncl])[..., 0]
                  for c in range(ncl)], dim=1)
         return depth_to_space_hw(out)
     f = _unpack(feats_in, layout, tw)
-    up = upsample_axis_linear(f, upscale, axis=1, align_corners=True)
-    h1 = torch.relu(_conv_std(up, w1, b1, (1, 1, 1)))
-    hr = _conv_std(h1, w2, b2, (1, 1, 1))
+    up = sp.local(lambda t: upsample_axis_linear(t, upscale, axis=1,
+                                                 align_corners=True), f)
+    h1 = sp.local(torch.relu, _conv_std(up, w1, b1, (1, 1, 1)))
+    hr = sp.gather(_conv_std(h1, w2, b2, (1, 1, 1)))
     return torch.movedim(hr, -1, 1) if plane_out else hr

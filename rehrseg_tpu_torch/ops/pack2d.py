@@ -394,6 +394,14 @@ def conv_packed(xp: torch.Tensor, wp: torch.Tensor, b, *,
     return y + b if b is not None else y
 
 
+def conv_packed_h(wp: torch.Tensor, hw_pad: str = "valid") -> tuple:
+    """(kernel rows, (lo, hi) H padding) of :func:`conv_packed` with
+    weights ``wp`` and ``hw_pad``: what a caller that splits H needs."""
+    if hw_pad == "valid" and wp.shape[1] == 4:
+        return 4, (1, 1)
+    return wp.shape[1], _HW_PADS[hw_pad][0]
+
+
 def pointwise_packed_transpconv(x: torch.Tensor, wp: torch.Tensor,
                                 b) -> torch.Tensor:
     """x (B, D, h, w, Ci) unpacked; wp (kd, Ci, 4Co). kd==1: output aligned
@@ -413,13 +421,20 @@ def pack_bias(b: torch.Tensor) -> torch.Tensor:
     return b.repeat(4)
 
 
+def stats_dtype(x: torch.Tensor) -> torch.Tensor:
+    """x in the dtype a norm's moments are taken in: fp32, or x's own
+    dtype where that is wider (fp64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def instance_norm_packed(xp: torch.Tensor, scale, bias,
                          epsilon: float = 1e-5,
                          offset_parity: bool = False,
                          true_w: int | None = None) -> torch.Tensor:
     """InstanceNorm over the true spatial extent of a packed tensor
     (B, D, h, w, 4C): per-channel moments are the group-averaged moments of
-    the four (dy, dx) groups, taken in fp32; the normalize runs in
+    the four (dy, dx) groups, taken in fp32 (fp64 for fp64 input,
+    :func:`stats_dtype`); the normalize runs in
     ``xp.dtype``. offset_parity: rim already masked to zero, (h-1)*(w-1)
     real pixels per group, var = E[x^2] - E[x]^2. true_w: true offset width
     of a widened tensor (pad columns are zeros and do not count)."""
@@ -429,7 +444,7 @@ def instance_norm_packed(xp: torch.Tensor, scale, bias,
     def group_mean(t):
         return t.reshape(b_, 4, c).mean(1).repeat(1, 4)
 
-    x32 = xp.float()
+    x32 = stats_dtype(xp)
     if offset_parity:
         n = d * (h - 1) * ((true_w if true_w is not None else w) - 1)
         m1 = group_mean(x32.sum((1, 2, 3)) / n)

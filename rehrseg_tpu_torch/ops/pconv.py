@@ -513,6 +513,18 @@ def _launch_valid(counter, x, w, b, w_out, pre=None, want_stats=False,
 
 # ------------------------------------------------------------ wrappers
 
+def pconv_pad11_cat_covers(xa, xb, w) -> bool:
+    """Whether K1 takes this pair (anything with ``.shape`` and ``.dtype``,
+    channels last, (..., h, w, C)) and weights (2, 2, Ca+Cb, Co): equal
+    leading dims and dtypes, w % 8 == 0 and every channel count % 128 ==
+    0."""
+    ca, cb = xa.shape[-1], xb.shape[-1]
+    return (tuple(xa.shape[:-1]) == tuple(xb.shape[:-1])
+            and xa.dtype == xb.dtype and w.shape[2] == ca + cb
+            and xa.shape[-2] % 8 == 0 and ca % 128 == 0 and cb % 128 == 0
+            and w.shape[-1] % 128 == 0)
+
+
 def pconv_pad11_cat(xa, xb, w, b=None, *, want_stats=False):
     """K1: fused concat + pad11. xa (N, h, w, Ca), xb (N, h, w, Cb), w
     (2, 2, Ca+Cb, Co) with input channels ordered [xa | xb] -> offset
@@ -523,13 +535,8 @@ def pconv_pad11_cat(xa, xb, w, b=None, *, want_stats=False):
     offset rim mask of true width w+1, and the call returns (y, stats)
     with stats (N, 16, Co) fp32 partials of the stored value."""
     refuse_grad("pconv_pad11_cat", xa, xb, w, b)
-    n, h, w_in, ca = xa.shape
-    cb = xb.shape[-1]
     c_out = w.shape[-1]
-    if (tuple(xb.shape[:3]) != (n, h, w_in) or xa.dtype != xb.dtype
-            or w.shape[2] != ca + cb):
-        return None
-    if w_in % 8 or ca % 128 or cb % 128 or c_out % 128:
+    if not pconv_pad11_cat_covers(xa, xb, w):
         return None
     w = w.to(xa.dtype)
     b = _bias(b, c_out, xa)

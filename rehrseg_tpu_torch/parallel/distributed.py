@@ -37,7 +37,8 @@ def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None, *,
                      backend: str | None = None,
-                     timeout_s: float = 1800.0) -> bool:
+                     timeout_s: float = 1800.0,
+                     cards_per_process: int = 1) -> bool:
     """Form the process group when the run has more than one process.
 
     Returns True if it formed one; False, doing nothing, for one process or
@@ -45,8 +46,10 @@ def init_distributed(coordinator_address: str | None = None,
     backend: None picks ``gloo`` under ``REHRSEG_PLATFORM=cpu`` and
     ``nccl`` otherwise; a caller may name one (``gloo`` on CUDA tensors is
     for a card shared by several processes, which NCCL refuses). With
-    ``nccl`` the process's card (``LOCAL_RANK``, else the process index
-    modulo the visible cards) is made current before the group forms."""
+    ``nccl`` the process's first card (``LOCAL_RANK``, else the process
+    index modulo the processes the visible cards hold, times
+    ``cards_per_process``: a spatially sharded run drives that many cards
+    a process) is made current before the group forms."""
     if dist.is_available() and dist.is_initialized():
         return False
     env = os.environ
@@ -76,9 +79,12 @@ def init_distributed(coordinator_address: str | None = None,
         if n_cards == 0:
             raise RuntimeError("backend nccl: no CUDA device is visible "
                                "(REHRSEG_PLATFORM=cpu selects gloo)")
-        local = int(env.get("LOCAL_RANK", process_id % n_cards))
-        if local >= n_cards:
-            raise RuntimeError(f"local rank {local} but {n_cards} visible "
+        per = int(cards_per_process)
+        local = int(env.get("LOCAL_RANK",
+                            process_id % max(n_cards // per, 1))) * per
+        if local + per > n_cards:
+            raise RuntimeError(f"local rank {local // per} with {per} "
+                               f"card(s) a process but {n_cards} visible "
                                f"card(s)")
         torch.cuda.set_device(local)
     dist.init_process_group(

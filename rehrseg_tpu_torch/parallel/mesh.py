@@ -2,35 +2,31 @@
 axes ``("data", "spatial")``.
 
 The JAX package shards with ``jax.sharding``: a batch placed over the
-mesh's ``'data'`` axis, params replicated, and XLA's partitioner inserting
-the collectives. PyTorch has no such partitioner, so the mesh here is a
+mesh's ``'data'`` axis, a tile's or a patch's H over ``'spatial'``, params
+replicated, and XLA's partitioner inserting the collectives and the halo
+exchanges. PyTorch has no such partitioner, so the mesh here is a
 description that the code which runs on it reads:
 
   - the sliding-window engines split each forward's mirror-TTA batch over
-    the ``'data'`` devices (``infer.sliding_window``, ``tta_mesh=``);
+    the mesh's rows (``infer.sliding_window``, ``tta_mesh=``), and each
+    row's block runs H-sharded over that row's devices (its *spatial
+    group*, :meth:`Mesh.groups`) through :mod:`.spatial`;
   - data-parallel training is one process per card over
     ``torch.distributed`` (:mod:`.multihost`): each process loads its slice
     of the global batch (``BatchLoader(shard=)``) and the step all-reduces
-    the gradients (:func:`.multihost.all_reduce_grads`).
+    the gradients (:func:`.multihost.all_reduce_grads`); with a spatial
+    extent above 1 each process drives a group of cards and its step runs
+    H-sharded over them (:func:`.multihost.place_global`).
 
 So ``batch_sharding``, ``shard_batch``, ``replicate`` and ``replicated``
 have no counterpart: the engine places each block of a batch on its
 device itself, and :func:`.multihost.replicate_global` broadcasts the
-primary's parameters. A ``'spatial'`` extent above 1 (a tile's H sharded
-across cards, with the halo exchange and the norm statistics' all-reduce
-that XLA inserts for JAX) is ROADMAP queue 1, item 10c, and raises.
+primary's parameters.
 """
 
 from __future__ import annotations
 
 import torch
-
-
-def _spatial_not_ported(spatial: int):
-    return NotImplementedError(
-        f"a 'spatial' mesh axis of {spatial} (tile H sharded across devices,"
-        f" with a halo exchange at every conv) is still to be ported "
-        f"(ROADMAP queue 1, item 10c)")
 
 
 class Mesh:
@@ -60,6 +56,10 @@ class Mesh:
     def first(self) -> torch.device:
         return self.devices[0][0]
 
+    def groups(self) -> list:
+        """Each data index's spatial devices (a row of the grid)."""
+        return [list(row) for row in self.devices]
+
     def __repr__(self):
         return f"Mesh(shape={self.shape}, devices={self.devices})"
 
@@ -72,9 +72,10 @@ def visible_cards() -> list:
 def make_mesh(n_devices: int | None = None, spatial: int = 1,
               devices=None) -> Mesh:
     """A (data, spatial) mesh over ``devices`` (default: every visible card)
-    or their first ``n_devices``. Asking for more devices than there are
-    raises; so does a ``spatial`` that does not divide the count (the JAX
-    package's ValueError) and, for now, any ``spatial`` > 1."""
+    or their first ``n_devices``: the JAX package's (n / spatial, spatial)
+    grid, device i at row i // spatial, column i % spatial. Asking for more
+    devices than there are raises; so does a ``spatial`` that does not
+    divide the count (the JAX package's ValueError)."""
     if devices is None:
         devices = visible_cards()
         if not devices:
@@ -95,13 +96,5 @@ def make_mesh(n_devices: int | None = None, spatial: int = 1,
             f"({n_devices}); on a single card only mesh_spatial=1 works — "
             f"for CPU validation name the devices "
             f"(devices=[torch.device('cpu')] * N)")
-    if spatial > 1:
-        raise _spatial_not_ported(spatial)
     return Mesh([devices[i * spatial:(i + 1) * spatial]
                  for i in range(n_devices // spatial)])
-
-
-def check_data_only(mesh: Mesh) -> None:
-    """Raise for a mesh with a 'spatial' extent above 1 (item 10c)."""
-    if mesh.shape["spatial"] > 1:
-        raise _spatial_not_ported(mesh.shape["spatial"])

@@ -16,8 +16,12 @@ statistics across processes through :func:`global_sum`.
   generator seeded alike, which advances in lockstep (each process draws
   for the whole global batch and applies its own rows, ``device_aug``'s
   and ``device_sr_sim``'s ``shard=``).
-- ``place_global`` and ``replicate_any`` place a batch sharded over a
-  ``'spatial'`` axis: ROADMAP queue 1, item 10c.
+- with a ``'spatial'`` extent S > 1 each process drives S cards (its
+  *spatial group*): :func:`place_global` places its batch as H-blocks
+  over them and :func:`replicate_any` keeps the parameters on the group's
+  first card, from which the step copies them to each block's card
+  (differentiably: autograd adds the blocks' gradients into the leaf), so
+  :func:`all_reduce_grads` runs across processes as without S.
 
 Every function is a no-op in a process without a process group, so call
 sites do not branch. Collectives run whenever a group exists, of one
@@ -211,3 +215,39 @@ def global_mean(t: torch.Tensor) -> torch.Tensor:
     t = t.detach().clone()
     dist.all_reduce(t)
     return t / dist.get_world_size()
+
+
+def place_global(tree, spatial_devices):
+    """A batch (a tensor, or a dict / tuple / NamedTuple of them, each
+    (B, D, H, W, ...) with H at dim 2) placed for a spatially sharded step:
+    each tensor split along H into even blocks over ``spatial_devices``
+    (:class:`.spatial.HBlocks`), or moved to the one device of a group of
+    one. The process's slice of the global batch stays whole along B."""
+    from . import spatial
+
+    group = [torch.device(d) for d in spatial_devices]
+
+    def place(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if len(group) == 1:
+            return t.to(group[0], non_blocking=True)
+        return spatial.split(t.to(group[0], non_blocking=True), group)
+
+    if isinstance(tree, dict):
+        return {k: place(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(place(v) for v in tree)) \
+            if hasattr(tree, "_fields") else tuple(place(v) for v in tree)
+    return place(tree)
+
+
+def replicate_any(tree, spatial_devices):
+    """Parameters (a module, a dict of modules or a TrainState) on the
+    spatial group's first device, broadcast from the primary when a
+    process group exists (:func:`replicate_global`); returns ``tree``.
+    The step copies them to every block's device itself."""
+    home = torch.device(spatial_devices[0])
+    for m in _modules(tree):
+        m.to(home)
+    return replicate_global(tree)

@@ -46,8 +46,10 @@ More than one card:
   - ``--fold all`` (:func:`stage2_segsr_all_folds`): stage 1 once, then the
     folds' stage-2 trainings side by side in one process, fold k on card
     k (``parallel.fold_parallel``);
-  - ``extra.mesh_spatial`` > 1 (a patch's H sharded across cards) is
-    ROADMAP queue 1, item 10c, and raises.
+  - ``extra.mesh_spatial: S`` > 1 (:func:`stage2_segsr`): each process
+    drives S cards, cuda:(LOCAL_RANK * S + j), and its stage-2 steps run
+    each patch's H sharded over them (``parallel.spatial``); the data
+    extent is the process count.
 """
 
 from __future__ import annotations
@@ -890,12 +892,34 @@ def _sr_head_form(cfg: Config) -> str:
     return str((cfg.extra or {}).get("sr_head_form", "auto")).lower()
 
 
-def _refuse_mesh_spatial(cfg: Config) -> None:
-    if int((cfg.extra or {}).get("mesh_spatial", 1) or 1) > 1:
-        raise NotImplementedError(
-            "mesh_spatial > 1 (spatially sharded training: a patch's H "
-            "across cards, a halo exchange at every conv) is still to be "
-            "ported (ROADMAP queue 1, item 10c)")
+def _mesh_spatial(cfg: Config) -> int:
+    return int((cfg.extra or {}).get("mesh_spatial", 1) or 1)
+
+
+def _spatial_group(cfg: Config, device, spatial_devices=None):
+    """The devices a process's stage-2 patches shard over along H: the
+    ``extra.mesh_spatial`` = S cards cuda:(LOCAL_RANK * S + j), S names of
+    the CPU for ``device="cpu"``, or ``spatial_devices`` as given (one
+    device may be named several times); None for S = 1."""
+    s = _mesh_spatial(cfg)
+    if spatial_devices is not None:
+        group = [torch.device(d) for d in spatial_devices]
+        if len(group) != s:
+            raise ValueError(f"{len(group)} spatial_devices for "
+                             f"mesh_spatial={s}")
+        return group if s > 1 else None
+    if s == 1:
+        return None
+    if device.type == "cpu":
+        return [device] * s
+    base = int(os.environ.get("LOCAL_RANK", 0)) * s
+    n = torch.cuda.device_count()
+    if base + s > n:
+        raise ValueError(
+            f"mesh_spatial={s} needs cards {base}..{base + s - 1} for this "
+            f"process but {n} are visible; run cards / {s} processes a "
+            f"node, or name the devices (spatial_devices=)")
+    return [torch.device("cuda", base + j) for j in range(s)]
 
 
 def _seg_dataset(cfg: Config, paths, subjects, dataset, patch_ori,
@@ -947,9 +971,10 @@ def _seg_train_state(cfg: Config, arch, fold, device, sched, ckpt_dir):
     return seg, state
 
 
-def _seg_step_maker(cfg: Config, seg, teacher):
+def _seg_step_maker(cfg: Config, seg, teacher, spatial_devices=None):
     """``remat mode -> make_seg_train_step(seg, ...)`` with the config's
-    options; ``teacher`` is the frozen FLAVR under KD, else None."""
+    options; ``teacher`` is the frozen FLAVR under KD, else None;
+    ``spatial_devices`` the group the step shards H over, or None."""
     from .train.seg_trainer import make_seg_train_step
 
     c = cfg
@@ -960,7 +985,7 @@ def _seg_step_maker(cfg: Config, seg, teacher):
             enable_distillation=c.enable_distillation, flavr_model=teacher,
             teacher_window_chunk=(c.extra or {}).get("teacher_window_chunk"),
             remat=remat_mode, precision=_precision(c),
-            sr_head_form=_sr_head_form(c))
+            sr_head_form=_sr_head_form(c), spatial_devices=spatial_devices)
 
     return make_step
 
@@ -992,7 +1017,7 @@ def _val_dice(cfg: Config, seg, patch_ori, subjects, device) -> float:
 
 
 def stage2_segsr(cfg: Config, *, flavr_model=None, dataset=None,
-                 device=None):
+                 device=None, spatial_devices=None):
     """Stage-2 training (``Pipeline.stage2_segsr``); returns (seg model,
     train state, best val dice).
 
@@ -1013,7 +1038,13 @@ def stage2_segsr(cfg: Config, *, flavr_model=None, dataset=None,
     global batch; the remat mode is probed on the primary and broadcast;
     the primary alone evaluates (fp32 K1), its dice and the best-dice
     watermark broadcast; the stop flag is agreed every 10 steps and after
-    the loop."""
+    the loop.
+
+    With ``extra.mesh_spatial: S`` > 1 each step shards its patches' H over
+    the process's spatial group (:func:`_spatial_group`; ``spatial_devices``
+    names it, e.g. one card several times): the batch is placed as H-blocks
+    (``multihost.place_global``), the state, the teacher and the
+    validation live on the group's first device."""
     from .train.optim import poly_epoch_schedule
     from .train.seg_trainer import (REMAT_NAMES, REMAT_UNWIRE, REMAT_WIRE,
                                     select_remat_mode)
@@ -1023,13 +1054,15 @@ def stage2_segsr(cfg: Config, *, flavr_model=None, dataset=None,
 
     c = cfg
     ex = c.extra or {}
-    _refuse_mesh_spatial(c)
     if _mh.is_multihost() and c.fold == "all":
         raise NotImplementedError(
             "--fold all maps one fold per device and is exclusive with "
             "multi-process data parallelism; run one fold per process "
             "group with --fold k")
     device = resolve_device(device)
+    group = _spatial_group(c, device, spatial_devices)
+    if group is not None:
+        device = group[0]
     dp_mesh = _dp_mesh(device, c.batch_size_segsr, "batch_size_segsr")
     shard = _mh.data_shard()
     paths = pipeline_paths(c)
@@ -1048,12 +1081,16 @@ def stage2_segsr(cfg: Config, *, flavr_model=None, dataset=None,
     sched = poly_epoch_schedule(c.lr_segsr, c.epochs, iters_per_epoch)
     seg, state = _seg_train_state(c, arch, c.fold, device, sched,
                                   paths["segsr_ckpt"])
-    if dp_mesh is not None:
+    if group is not None:
+        _mh.replicate_any(state, group)
+        if teacher is not None:
+            _mh.replicate_any(teacher, group)
+    elif dp_mesh is not None:
         _mh.replicate_global(state)
         if teacher is not None:
             _mh.replicate_global(teacher)
 
-    make_step = _seg_step_maker(c, seg, teacher)
+    make_step = _seg_step_maker(c, seg, teacher, group)
     remat_mode = _remat_mode(c)
     step_fn = None if remat_mode == "auto" else make_step(remat_mode)
     total_steps = c.epochs * iters_per_epoch
@@ -1089,6 +1126,8 @@ def stage2_segsr(cfg: Config, *, flavr_model=None, dataset=None,
                 timer.start()
                 batch = _seg_batch(c, loader.next(), device, aug_gen,
                                    patch_xyz, shard)
+                if group is not None:
+                    batch = _mh.place_global(batch, group)
                 if step_fn is None:
                     # probed on the primary, the choice broadcast
                     mode = True
@@ -1197,7 +1236,11 @@ def stage2_segsr_all_folds(cfg: Config, *, flavr_model=None, dataset=None,
             "--fold all is single-process (one fold per local card); with "
             "several processes run one fold per process group with --fold k")
     c = cfg
-    _refuse_mesh_spatial(c)
+    if _mesh_spatial(c) > 1:
+        raise NotImplementedError(
+            "--fold all maps one fold per device and is exclusive with "
+            "multi-host DP and mesh_spatial; run one fold per host/config "
+            "with --fold k")
     paths = pipeline_paths(c)
     arch, _, patch_xyz, patch_ori = seg_arch_and_patches(c)
     folds = _fold_splits(c, n_folds)

@@ -26,10 +26,10 @@ map) out; :func:`load_sr_from_checkpoint` restores a UNet3D checkpoint, and
 PyTorch's TF32 settings as they are: by default cuDNN runs fp32 convs in
 TF32 on the card.
 
-``Segmenter(mesh=make_mesh(...))`` shards each forward's mirror-TTA batch
-over the mesh's 'data' devices on the LR parity path (one weight replica
-per distinct device; ``parallel.mesh``); a 'spatial' axis is ROADMAP queue
-1, item 10c.
+``Segmenter(mesh=make_mesh(..., spatial=S))`` shards each forward's
+mirror-TTA batch over the mesh's 'data' rows and, with S > 1, each tile's
+H over a row's S devices (``parallel.mesh``, ``parallel.spatial``) on the
+parity paths, LR and dual, one weight replica per distinct device.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ from .models import convert
 from .models.flavr import UNet3D
 from .models.segnet import SegModel
 from .models.segnet_packed import segmodel_apply_packed
+from .parallel.spatial import HBlocks
 from .pipeline import seg_arch_and_patches
 from .train import checkpoint as ckpt
 from .utils.device import resolve_device
@@ -82,11 +83,15 @@ class Segmenter:
     None keeps the whole volume's accumulators on the device; an int k
     streams z-slabs of k tile rows (parity grid, LR and HR), for volumes
     whose accumulators exceed the device's memory: the same labels up to
-    fp32 summation order. mesh: a :class:`.parallel.mesh.Mesh` whose
-    'data' axis splits each forward's mirror batch over its devices (LR
-    parity path, as in the JAX package; the HR and the ``_many`` paths
-    run on the mesh's first device, which ``device`` is); it composes
-    with neither streaming nor the aligned grid."""
+    fp32 summation order. mesh: a (data, spatial)
+    :class:`.parallel.mesh.Mesh` whose 'data' axis splits each forward's
+    mirror batch over its rows and whose 'spatial' axis splits each tile's
+    H over a row's devices (the parity paths: LR, dual and ``_many``; the
+    JAX package meshes the LR path); the accumulators stay on the mesh's
+    first device, which ``device`` is. It composes with neither streaming
+    nor the aligned grid, and a spatial extent above 1 runs pallas_conv
+    "cat" (or False, the unpacked forward through the packed one's plain
+    path): True and "fused" have no spatial form and raise."""
 
     model: SegModel
     patch_size: tuple
@@ -118,9 +123,13 @@ class Segmenter:
                 "tile_grid='aligned' requires packed_eval + mirror TTA and "
                 "does not compose with streaming or mesh sharding")
         if self.mesh is not None:
-            from .parallel.mesh import check_data_only
-
-            check_data_only(self.mesh)
+            if (self.mesh.shape["spatial"] > 1
+                    and self.pallas_conv in (True, "fused")):
+                raise ValueError(
+                    f"pallas_conv={self.pallas_conv!r} is a port-only mode "
+                    f"with no spatial form; a mesh with a 'spatial' extent "
+                    f"of {self.mesh.shape['spatial']} serves pallas_conv "
+                    f"'cat' (the JAX package's)")
             if self.device is None:
                 self.device = self.mesh.first
             elif _indexed(self.device) != _indexed(self.mesh.first):
@@ -162,13 +171,21 @@ class Segmenter:
 
     def _fn(self, dual: bool, plane_out: bool = False):
         """The model closure the engines call on a mirror batch."""
+        arch = dict(self.model.arch)
         if not self.packed_eval:
             def unpacked(batch):
-                model = self._replica(batch.device)[0]
-                out = model(batch.to(self.compute_dtype))
+                if isinstance(batch, HBlocks):
+                    # H-sharded: the packed forward with nothing packed is
+                    # the unpacked SegModel's math
+                    return segmodel_apply_packed(
+                        arch, self._replica(batch.device)[1],
+                        batch.to(self.compute_dtype), dual=dual,
+                        upscale=self.model.upscale,
+                        num_classes=self.num_classes, pack_max_channels=0)
+                out = self._replica(batch.device)[0](
+                    batch.to(self.compute_dtype))
                 return out if dual else out[0]
             return unpacked
-        arch = dict(self.model.arch)
         kw = dict(num_classes=self.num_classes, pack_max_channels=64,
                   plane_out=plane_out, pallas_conv=self.pallas_conv)
         if dual:
@@ -224,6 +241,8 @@ class Segmenter:
             dual = (sw.predict_sliding_window_dual_labels_streamed
                     if self.streaming
                     else sw.predict_sliding_window_dual_labels)
+            if not self.streaming:
+                common["tta_mesh"] = self.mesh
             lr_full, hr_full = dual(self._fn(True), vol_p, self.patch_size,
                                     slice_separation=self.slice_separation,
                                     **common)
@@ -239,10 +258,11 @@ class Segmenter:
 
     def segment_many(self, volumes_zyx):
         """LR masks of many volumes, all on the same engine as
-        :meth:`segment` (aligned only when every volume fits it). Under
-        streaming or a mesh, sequential :meth:`segment` calls: those
-        engines manage their own device memory and devices."""
-        if self.streaming or self.mesh is not None:
+        :meth:`segment` (aligned only when every volume fits it; a mesh
+        runs the parity ``_many`` engine over it). Under streaming,
+        sequential :meth:`segment` calls: that engine manages its own
+        device memory."""
+        if self.streaming:
             return [self.segment(v) for v in volumes_zyx]
         prepped = [self._prep(v) for v in volumes_zyx]
         common = dict(num_classes=self.num_classes, device=self.device,
@@ -260,7 +280,7 @@ class Segmenter:
             preds = sw.predict_sliding_window_labels_many(
                 self._fn(False), [vol_p for vol_p, _ in prepped],
                 self.patch_size, slice_separation=1, mirror=self.mirror,
-                **common)
+                tta_mesh=self.mesh, **common)
         return [crop(p, pads[:3]) for p, (_, pads) in zip(preds, prepped)]
 
     # ------------------------------------------------------------- files

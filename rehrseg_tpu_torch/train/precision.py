@@ -49,9 +49,11 @@ class Policy:
     def _cast(self, tree, dtype):
         if self.is_identity:
             return tree
+        from ..parallel.spatial import HBlocks
+
         return _map(tree, lambda t: t.to(dtype)
-                    if isinstance(t, torch.Tensor) and t.is_floating_point()
-                    else t)
+                    if (isinstance(t, torch.Tensor) and t.is_floating_point())
+                    or isinstance(t, HBlocks) else t)
 
     def cast_compute(self, tree):
         """Cast every floating leaf to compute_dtype."""

@@ -16,6 +16,15 @@ checkpointed as ``remat`` says and the LR / HR loss terms checkpointed on
 the packed path. :func:`select_remat_mode` picks the mode by running one
 step of each candidate and reading the card's peak memory.
 
+With a spatial group (``spatial_devices``, the JAX package's
+``'spatial'`` mesh axis) the step runs the packed forward H-sharded over
+the group (:mod:`..parallel.spatial`: a halo exchange at every conv, the
+norm moments summed across blocks), the parameters on the group's first
+device and copied to each block's inside the step; the LR and HR logits
+and the student's skips come back gathered on the first device, where the
+losses, the teacher and the distiller run (the JAX package shards those
+too).
+
 Under data parallelism (``parallel.multihost``) the step averages the
 gradients of the student and the distiller across processes before the
 update (the teacher is frozen), and its metrics are the global batch's
@@ -38,7 +47,7 @@ from ..data.normalize import zscore_batch
 from ..losses import dc_and_weighted_ce, deep_supervision_weights
 from ..models import convert
 from ..models.segnet_packed import segmodel_apply_packed
-from ..parallel import multihost
+from ..parallel import multihost, spatial
 from .precision import policy as _policy, step_guard
 
 
@@ -114,7 +123,8 @@ def make_seg_train_step(seg_model, *, enable_uncertainty: bool,
                         packed: bool = True,
                         remat=True,
                         precision: str | None = None,
-                        sr_head_form: str = "auto") -> Callable:
+                        sr_head_form: str = "auto",
+                        spatial_devices=None) -> Callable:
     """Returns step(state, batch) -> (state, metrics).
 
     ``state``: a :class:`..train.state.TrainState` whose params are the
@@ -136,8 +146,18 @@ def make_seg_train_step(seg_model, *, enable_uncertainty: bool,
     cast once here to the compute dtype (a copy when that is not fp32).
     sr_head_form: the packed SR head's emission ('auto' | 'cell4' |
     'legacy'). A bf16 step on the CPU runs without oneDNN
-    (:func:`.precision.step_guard`)."""
+    (:func:`.precision.step_guard`). spatial_devices: a group of devices
+    (one device may be named more than once) over which the forward runs
+    H-sharded; the batch may come placed by
+    :func:`..parallel.multihost.place_global` (an image that comes whole is
+    split here), every other batch field is gathered on the first device.
+    Deep supervision has no spatial form (its heads are the module's)."""
     pol = _policy(precision)
+    group = ([torch.device(d) for d in spatial_devices]
+             if spatial_devices is not None else None)
+    if group is not None and len(group) > 1 and deep_supervision:
+        raise ValueError("deep_supervision runs the module's forward, which "
+                         "has no spatial form; use spatial_devices=None")
     ds_scales = (ds_scales_from_arch(seg_model.arch)
                  if deep_supervision else None)
     use_packed = bool(packed) and not deep_supervision
@@ -167,11 +187,14 @@ def make_seg_train_step(seg_model, *, enable_uncertainty: bool,
         return fn(*args)
 
     def forward(model, img):
-        if use_packed:
+        if use_packed or isinstance(img, spatial.HBlocks):
+            # unpacked and H-sharded: the packed forward with nothing
+            # packed is the module's math
             params = pol.cast_compute(convert.flax_tree_from_module(model))
             return segmodel_apply_packed(
                 arch, params, pol.cast_compute(img), dual=True,
-                upscale=upscale, pack_max_channels=64, return_skips=True,
+                upscale=upscale, return_skips=True,
+                pack_max_channels=64 if use_packed else 0,
                 remat=remat, sr_head_form=sr_head_form)
         params = pol.cast_compute(dict(model.named_parameters()))
         return torch.func.functional_call(
@@ -180,7 +203,12 @@ def make_seg_train_step(seg_model, *, enable_uncertainty: bool,
 
     def loss_fn(params, batch: SegBatch):
         model = params["seg"] if enable_distillation else params
-        lr_logits, hr_logits, skips = forward(model, batch.img)
+        img = batch.img
+        if (group is not None and len(group) > 1
+                and not isinstance(img, spatial.HBlocks)):
+            img = spatial.split(img.to(group[0]), group)
+        batch = SegBatch(img, *(spatial.gather(t) for t in batch[1:]))
+        lr_logits, hr_logits, skips = forward(model, img)
         lr_logits = pol.cast_reduce(lr_logits)
         hr_logits = pol.cast_reduce(hr_logits)
         unc = batch.uncertainty_lr if enable_uncertainty else None
@@ -200,7 +228,7 @@ def make_seg_train_step(seg_model, *, enable_uncertainty: bool,
         metrics = {"loss_lr": loss_lr, "loss_hr": loss_hr}
         if enable_distillation:
             feats = flavr_teacher_features(
-                teacher, batch.img, batch.label_lr,
+                teacher, spatial.gather(batch.img), batch.label_lr,
                 window_chunk=teacher_window_chunk,
                 compute_dtype=(None if pol.is_identity
                                else pol.compute_dtype))

@@ -5,7 +5,8 @@ count names it for JAX) against JAX's ``predict_sliding_window_labels(
 tta_mesh=make_mesh(8))`` on the same bridged weights, labels equal
 wherever the reference logit margin is >= 1e-3 (the engine tests' rule);
 the meshed port against the unmeshed port; the Segmenter's ValueErrors
-against JAX's; a 'spatial' axis > 1 raising and naming ROADMAP item 10c."""
+against JAX's; ``make_mesh(spatial=)`` giving JAX's (data, spatial) grid.
+The spatial axis's engines are tests/test_torch_spatial.py's."""
 
 import numpy as np
 import pytest
@@ -111,9 +112,9 @@ def test_mesh_must_divide_the_mirror_batch(params):
 
 
 def test_segmenter_mesh_matches_unmeshed(params):
-    """Segmenter(mesh=) on the LR parity path, segment_many's sequential
-    fallback, the mesh's first device as the Segmenter's, one weight
-    replica for a device named twice."""
+    """Segmenter(mesh=) on the LR parity path, segment_many over the mesh,
+    the mesh's first device as the Segmenter's, one weight replica for a
+    device named twice."""
     kw = dict(compute_dtype=torch.float32)
     plain = Segmenter.from_flax(params, SMALL_ARCH, PATCH, device="cpu",
                                 **kw)
@@ -156,8 +157,20 @@ def test_segmenter_mesh_errors_match_jax(params):
 
 
 def test_spatial_axis_raises_naming_10c(params):
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        make_mesh(devices=[CPU] * 4, spatial=2)
+    """The name is the one this test had while a 'spatial' axis raised;
+    it now checks that ``make_mesh(spatial=)`` builds JAX's grid (device
+    i at row i // spatial, column i % spatial) and that the meshed engine
+    and Segmenter take it, while a count the axis does not divide still
+    raises JAX's ValueError."""
+    names = [torch.device("cpu", i) for i in range(8)]
+    for n, spatial in ((8, 2), (4, 4), (8, 1)):
+        mesh = make_mesh(n, spatial=spatial, devices=names)
+        jmesh = jax_make_mesh(n, spatial=spatial)
+        assert mesh.shape == dict(jmesh.shape)
+        assert [[d.index for d in row] for row in mesh.devices] == \
+            [[d.id for d in row] for row in jmesh.devices]
+        assert mesh.groups() == mesh.devices
+        assert mesh.data_devices == [row[0] for row in mesh.devices]
     with pytest.raises(ValueError, match="must divide") as got:
         make_mesh(devices=[CPU] * 3, spatial=2)
     with pytest.raises(ValueError, match="must divide") as want:
@@ -166,11 +179,10 @@ def test_spatial_axis_raises_naming_10c(params):
     spatial = Mesh([[CPU, CPU]])
     assert spatial.shape == {"data": 1, "spatial": 2}
     vol = np.zeros((4, 16, 16, 1), np.float32)
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        tsw.predict_sliding_window_labels(_port_fn(params), vol, PATCH,
-                                          tta_mesh=spatial)
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        Segmenter(SegModel(2, 4, arch=SMALL_ARCH), PATCH, mesh=spatial)
+    assert tsw.predict_sliding_window_labels(
+        _port_fn(params), vol, PATCH, tta_mesh=spatial).shape == (4, 16, 16)
+    assert Segmenter(SegModel(2, 4, arch=SMALL_ARCH), PATCH,
+                     mesh=spatial).device == CPU
 
 
 def test_make_mesh_defaults_to_the_cards(monkeypatch):

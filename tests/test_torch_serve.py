@@ -183,8 +183,14 @@ def test_constructor_errors(params):
         Segmenter(model, PATCH, mesh=mesh, streaming=2)
     with pytest.raises(ValueError, match="mesh sharding"):
         Segmenter(model, PATCH, mesh=mesh, tile_grid="aligned")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Segmenter(model, PATCH, mesh=Mesh([[torch.device("cpu")] * 2]))
+    # a spatial mesh builds; the port-only modes have no spatial form
+    spatial = Mesh([[torch.device("cpu")] * 2])
+    assert Segmenter(model, PATCH, mesh=spatial).mesh is spatial
+    for mode in (True, "fused"):
+        with pytest.raises(ValueError, match="no spatial form"):
+            Segmenter(model, PATCH, mesh=spatial, pallas_conv=mode)
+    assert Segmenter(model, PATCH, mesh=mesh, pallas_conv="fused").mesh \
+        is mesh
     assert Segmenter(model, PATCH, device="cpu", streaming=2).streaming == 2
 
 

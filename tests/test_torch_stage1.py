@@ -29,12 +29,14 @@ from rehrseg_tpu.pipeline import Pipeline
 from rehrseg_tpu_torch import cli, pipeline
 from rehrseg_tpu_torch.config import Config
 from rehrseg_tpu_torch.data.datasets import (MultiprocessBatchLoader,
-                                           SRPatchDataset)
+                                           SegSRDataset, SRPatchDataset)
 from rehrseg_tpu_torch.infer.sr_infer import (interpolate_pseudo_sr,
                                               postprocess_sr_volume)
 from rehrseg_tpu_torch.io import nifti
 from rehrseg_tpu_torch.io.volume import parse_image
 from rehrseg_tpu_torch.models import convert
+from rehrseg_tpu_torch.models.flavr import UNet3D
+from rehrseg_tpu_torch.parallel import spatial as sparse
 from tests.test_pipeline_e2e import TINY_ARCH, _tiny_config
 from tests.test_torch_cli import _run_blocked
 from tests.test_torch_sr import TOL
@@ -313,11 +315,26 @@ def test_stage1b_device_path_through_dataset(tmp_path):
     shutil.rmtree(tc.checkpoint_path)
 
 
+def _spatial_dataset():
+    """Two seeded stage-2 volumes at the tiny config's patch (4, 16, 16),
+    device augmentation on."""
+    rng = np.random.default_rng(5)
+    vols = []
+    for _ in range(2):
+        img = rng.normal(size=(20, 20, 8)).astype(np.float32)
+        vols.append((img, (img > 0.4).astype(np.float32),
+                     rng.uniform(0, 255, size=img.shape).astype(np.float32)))
+    return SegSRDataset.from_volumes(vols, 4.0, 1.0, (20, 20, 4),
+                                     (16, 16, 4), random_flip=True,
+                                     uncertainty=True, device_augment=True)
+
+
 def test_entry_points_raise_what_is_still_to_port(tmp_path, monkeypatch):
     """``main``'s path checks (reached with ``--fold all`` and
-    REHRSEG_PLATFORM=cpu too); ``mesh_spatial`` > 1 raises naming ROADMAP
-    item 10c; ``loader_workers > 0`` gives the worker loader; an unknown
-    ``sr_infer_dtype`` raises."""
+    REHRSEG_PLATFORM=cpu too); ``mesh_spatial`` > 1 trains stage 2 with
+    each patch's H over two names of the CPU, and ``--fold all`` refuses
+    it with JAX's message; ``loader_workers > 0`` gives the worker loader;
+    an unknown ``sr_infer_dtype`` raises."""
     phantom(tmp_path)
     _, tc = configs(tmp_path)
     cfg = {k: getattr(tc, k) for k in Config.__dataclass_fields__}
@@ -335,15 +352,27 @@ def test_entry_points_raise_what_is_still_to_port(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="nnUNet does not exist"):
         cli.main(["--config", str(path)])
     monkeypatch.delenv("REHRSEG_PLATFORM")
-    # spatial sharding (ROADMAP item 10c) raises before any training
+    # spatial sharding trains (a seeded teacher, a seeded dataset); --fold
+    # all keeps JAX's refusal
     tc.extra["mesh_spatial"] = 2
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        pipeline.stage2_segsr(tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10c"):
+    sparse.reset_record()
+    _, state, _ = pipeline.stage2_segsr(
+        tc, flavr_model=UNet3D(2, 4, 4), dataset=_spatial_dataset(),
+        device="cpu")
+    assert state.step == 2 and len(sparse.RECORD) > 0
+    assert any(len(rows) == 2 for _, rows in sparse.RECORD)
+    assert all(torch.isfinite(p).all() for p in state.params["seg"]
+               .parameters())
+    with pytest.raises(NotImplementedError, match="mesh_spatial") as got:
         pipeline.stage2_segsr_all_folds(
             Config(**{**cfg, "fold": "all",
                       "data_path": str(tmp_path / "imagesTr"),
                       "seg_path": ""}), device="cpu")
+    jc_all = _tiny_config(tmp_path)
+    jc_all.fold, jc_all.extra["mesh_spatial"] = "all", 2
+    with pytest.raises(NotImplementedError) as want:
+        Pipeline(jc_all)
+    assert str(got.value) == str(want.value)
     del tc.extra["mesh_spatial"]
     tc.extra["loader_workers"] = 2
     pipeline.preprocess(tc)

@@ -6,8 +6,8 @@ runs log (step 1, then step 2 after a resume from the step-1 checkpoint)
 at rtol 1e-4, the validation dice at 1e-3; the checkpoints (step, ``best``
 tag, final step) and a resume that continues; a preemption that saves and
 raises, then a rerun that finishes; the profile window; the warm start's
-fail-loud rule against JAX's importer; spatial sharding, still to be
-ported (ROADMAP item 10c), raises."""
+fail-loud rule against JAX's importer; spatially sharded training
+(``extra.mesh_spatial``) against the unsharded run."""
 
 import json
 import os
@@ -27,6 +27,7 @@ from rehrseg_tpu_torch.config import Config
 from rehrseg_tpu_torch.data.datasets import SegSRDataset
 from rehrseg_tpu_torch.models import convert
 from rehrseg_tpu_torch.models.segnet import SegModel
+from rehrseg_tpu_torch.parallel import spatial as sparse
 from rehrseg_tpu_torch.train import checkpoint as ckpt
 from rehrseg_tpu_torch.train import torch_import
 from rehrseg_tpu_torch.utils.preemption import TrainingPreempted
@@ -238,10 +239,25 @@ def test_warm_start_matches_jax_importer():
 @pytest.mark.parametrize("extra", [{"mesh_spatial": 2},
                                    {"mesh_spatial": 4, "loader_workers": 2}])
 def test_unported_options_raise(tmp_path, extra):
-    """Spatial sharding (ROADMAP item 10c) raises, before any loader
-    worker starts."""
+    """The name is the one this test had while spatial sharding raised:
+    ``extra.mesh_spatial`` now trains (with the worker loader too), each
+    patch's H over that many names of the CPU, and logs the loss the
+    unsharded run logs (1e-5) with the same validation dice."""
     seg_path = _tree(tmp_path)
-    cfg = _config(Config, tmp_path, seg_path, "ckpt", 1, **extra)
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        pipeline.stage2_segsr(cfg, dataset=_dataset(device_augment=False),
-                              device="cpu")
+    logs = {}
+    for name, ex in (("sharded", extra),
+                     ("whole", {**extra, "mesh_spatial": 1})):
+        cfg = _config(Config, tmp_path, seg_path, name, 1, **ex)
+        sparse.reset_record()
+        _, state, best = pipeline.stage2_segsr(
+            cfg, dataset=_dataset(device_augment=False), device="cpu")
+        assert state.step == 1
+        sharded = [rows for _, rows in sparse.RECORD if len(rows) > 1]
+        assert (len(sharded) > 0) == (name == "sharded")
+        logs[name] = (_log(str(tmp_path / name)), best)
+    (got, got_best), (want, want_best) = logs["sharded"], logs["whole"]
+    assert [sorted(r) for r in got] == [sorted(r) for r in want]
+    for g, w in zip(got, want):
+        if "loss" in w:
+            assert g["loss"] == pytest.approx(w["loss"], rel=1e-5)
+    assert got_best == pytest.approx(want_best, rel=1e-3, abs=1e-3)

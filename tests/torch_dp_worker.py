@@ -1,6 +1,6 @@
 """One rank of the port's multi-process CPU tests (spawned by
-tests/test_torch_multihost.py and tests/test_torch_stage2_dp.py; pytest
-does not collect it):
+tests/test_torch_multihost.py, tests/test_torch_stage2_dp.py and
+tests/test_torch_spatial_train.py; pytest does not collect it):
 
     python tests/torch_dp_worker.py SCENARIO RANK WORLD PORT OUT_DIR
 
@@ -250,11 +250,12 @@ def dp_loop(rank, world, out, n_steps=3):
     return weights_of(model)
 
 
-def scenario_stage2(rank, world, out):
+def scenario_stage2(rank, world, out, spatial=None):
     """One data-parallel stage-2 step, plain and distilled (uncertainty
     on, fp32, packed, remat none), against the 1-process step on the
     global batch from the same weights (each rank computes that one
-    without the group's reduction)."""
+    without the group's reduction, unsharded). spatial: the rank's step
+    runs H-sharded over these devices."""
     from rehrseg_tpu_torch.models.distiller import Distiller
     from rehrseg_tpu_torch.models.flavr import UNet3D
     from rehrseg_tpu_torch.models.segnet import SegModel
@@ -286,11 +287,15 @@ def scenario_stage2(rank, world, out):
             state = TrainState(p, optim.nesterov_sgd(p), sched)
             step = st.make_seg_train_step(
                 model, enable_uncertainty=True, enable_distillation=kd,
-                flavr_model=flavr, remat=False)
+                flavr_model=flavr, remat=False,
+                spatial_devices=spatial if p is params else None)
             return state, step
 
         state, step = make(params)
-        state, m = step(state, st.SegBatch(*local_rows(batch, rank, world)))
+        local = st.SegBatch(*local_rows(batch, rank, world))
+        if spatial is not None:
+            local = mh.place_global(local, spatial)
+        state, m = step(state, local)
         grads, weights = grads_of(params), weights_of(params)
         ref_state, ref_step = make(ref_params)
         loss, _ = ref_step.loss_fn(
@@ -376,8 +381,16 @@ def scenario_stage2_loop(rank, world, out):
     return stage2_loop_run(out, "ckpt_dp")
 
 
+def scenario_stage2_spatial(rank, world, out):
+    """:func:`scenario_stage2` with each rank's step H-sharded over two
+    names of the CPU (``extra.mesh_spatial: 2`` under two processes)."""
+    cpu = torch.device("cpu")
+    return scenario_stage2(rank, world, out, spatial=[cpu, cpu])
+
+
 SCENARIOS = {"multihost": scenario_multihost, "stage2": scenario_stage2,
-             "stage2_loop": scenario_stage2_loop}
+             "stage2_loop": scenario_stage2_loop,
+             "stage2_spatial": scenario_stage2_spatial}
 
 
 def main():
