@@ -560,13 +560,15 @@ def _aligned_logits(model_fn: Callable, data: np.ndarray, patch_size, *,
         batch = _mirror_batch_zgrouped(vol[sx:sx + pd, sy:sy + ph,
                                            sz:sz + pw])
         out = model_fn(batch)
+        lr = (out[0] if sep else out).contiguous()
+        # K2 rounds the gaussian to the preds' dtype: cast it once, at the
+        # first tile (a no-op from then on), not in every call
+        g_lr = g_lr.to(lr.dtype)
+        accumulate_tta_tile(llr, lr, g_lr, row, z_scale=1)
         if sep:
-            accumulate_tta_tile(llr, out[0].contiguous(), g_lr, row,
-                                z_scale=1)
-            accumulate_tta_tile(lhr, out[1].contiguous(), g_hr, row,
-                                z_scale=sep)
-        else:
-            accumulate_tta_tile(llr, out.contiguous(), g_lr, row, z_scale=1)
+            hr = out[1].contiguous()
+            g_hr = g_hr.to(hr.dtype)
+            accumulate_tta_tile(lhr, hr, g_hr, row, z_scale=sep)
     return (llr, lhr) if sep else llr
 
 

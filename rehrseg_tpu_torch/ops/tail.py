@@ -12,17 +12,19 @@ in place, with preds (8, C, od, ph, pw) in the z-grouped combo order of
 dtype (as the TPU kernel does, pallas_tail.py:241-244), and the per-element
 sum taken in fp32 in the TPU kernel's order.
 
-On the H100 (``csrc/accumulate_tta_tile.cu``) it is one elementwise pass
+On the H100 (``csrc/accumulate_tta_tile.cu``) it is one streaming pass
 with no matrix work: bound by bytes alone (8 pred reads, one gaussian read
 and one accumulator read + write per output element; about 98 MB per LR
-launch and 393 MB per HR launch at the serving shapes). Each output
-element belongs to one thread, which computes the unflips as index
-arithmetic (d -> od-1-d for the last four combos, y -> ph-1-y for an
-h-flip, x -> pw-1-x for a w-flip), so neighbouring threads read
-neighbouring (or, flipped, reverse-neighbouring) addresses and the
-accumulator is updated without atomics: launches on one stream are
-serialized. Any offsets are accepted; the aligned grid's sy % 8 / sz % 128
-starts are one case of them.
+launch and 393 MB per HR launch at the serving shapes). Its vector
+instance gives each thread one 16-byte chunk of a row (8 bf16 or 4 fp32
+lanes): the unflips are index arithmetic (d -> od-1-d for the last four
+combos, row y -> ph-1-y for an h-flip, the mirrored chunk for a w-flip,
+its lanes taken in reverse in registers) and the accumulator moves as
+float4s, without atomics: an element belongs to one thread and launches on
+one stream are serialized. A general instance, one element a thread,
+takes the operands the vector one cannot (:func:`_k2_vector_ok`), so any
+offsets are accepted; the aligned grid's sy % 8 / sz % 128 starts take
+the vector instance.
 """
 
 from __future__ import annotations
@@ -85,6 +87,18 @@ C_ENTRIES = {
 }
 
 
+def _k2_vector_ok(logits, preds, gaussian, sz):
+    """Whether K2's vector instance takes these (contiguous) operands:
+    rows of preds and gaussian in whole 16-byte chunks, float4 rows of the
+    accumulator (W and the tile's start sz multiples of 4), and every base
+    pointer 16-byte aligned. Otherwise the general instance runs."""
+    lanes = 16 // preds.element_size()
+    return (preds.shape[-1] % lanes == 0 and logits.shape[-1] % 4 == 0
+            and sz % 4 == 0
+            and all(t.data_ptr() % 16 == 0
+                    for t in (logits, preds, gaussian)))
+
+
 def _launch(logits, preds, gaussian, region, z_scale):
     zo, sy, sz, valid = region
     c, d, h, w = logits.shape
@@ -102,15 +116,16 @@ def _launch(logits, preds, gaussian, region, z_scale):
     if preds.dtype not in C_ENTRIES:
         raise TypeError(f"accumulate_tta_tile: no kernel for {preds.dtype}")
     lib, fn_name = C_ENTRIES[preds.dtype]
+    vec = int(_k2_vector_ok(logits, preds, gaussian, sz))
     # build (at first use) and launch on the tensors' device
     with torch.cuda.device(logits.device):
         fn = getattr(kernels.load(lib), fn_name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 \
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 \
             + [ctypes.c_void_p]
         stream = torch.cuda.current_stream(logits.device).cuda_stream
         err = fn(logits.data_ptr(), preds.data_ptr(), gaussian.data_ptr(),
-                 c, d, h, w, od, ph, pw, zo, sy, sz, valid, stream)
+                 c, d, h, w, od, ph, pw, zo, sy, sz, valid, vec, stream)
     kernels.check(err, fn_name)
     accumulate_tta_tile.launches += 1
     return logits
@@ -123,8 +138,10 @@ def accumulate_tta_tile(logits, preds, gaussian, offsets, *, z_scale=1):
     logits (C, D, H, W) fp32; preds (8, C, od, ph, pw); gaussian
     (od, ph, pw); offsets (sx, sy, sz, valid) ints, sx on the LR z grid.
     Returns ``logits``. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise; inputs that require grad in grad mode
-    raise (the kernel has no backward)."""
+    launch the kernel (its vector or its general instance) or raise;
+    inputs that require grad in grad mode raise (the kernel has no
+    backward). A gaussian already in the preds' dtype is used as it is,
+    so a caller that casts it once saves a pass per call."""
     refuse_grad("accumulate_tta_tile", logits, preds, gaussian)
     if logits.device.type == "cpu":
         return accumulate_tta_tile_plain(logits, preds, gaussian, offsets,
