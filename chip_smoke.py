@@ -243,9 +243,14 @@ TF32X3_FLOPS = 495e12 / 3
 PATCH = (16, 320, 384)
 VOLUME = (20, 455, 633)
 SEED = 0
+T0 = time.perf_counter()
 
 
 def emit(obj):
+    """One JSON line; a phase's line also gets the seconds since the
+    script started (``at_seconds``)."""
+    if "phase" in obj:
+        obj = {**obj, "at_seconds": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1998,9 +2003,31 @@ def _rel(a, b, floor=0.0):
     return float((a - b).norm() / max(float(b.norm()), floor, 1e-30))
 
 
-def _one_step(params, batch, dev, dtype=torch.float32, **kw):
+def _kd_models(dev):
+    """The seeded full-width distillation teacher (UNet3D) and Distiller
+    on ``dev``."""
+    from rehrseg_tpu_torch.models import convert
+    from rehrseg_tpu_torch.models.distiller import Distiller
+    from rehrseg_tpu_torch.models.flavr import UNet3D
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH
+
+    teacher = UNet3D(2, 4, 4)
+    convert.load_flax_flavr_params(
+        teacher, convert.random_flavr_params(SEED + 8), False)
+    student_dim = DEFAULT_ARCH["features_per_stage"][1]
+    dist = Distiller(student_dim, 64)
+    convert.load_flax_distiller_params(
+        dist, convert.random_distiller_params(SEED + 9,
+                                              student_dim=student_dim))
+    return teacher.to(dev), dist.to(dev)
+
+
+def _one_step(params, batch, dev, dtype=torch.float32, distill=False,
+              **kw):
     """Losses and gradients (fp64, on the host) of one step of a fresh
-    full-width SegModel whose weights and batch are ``dtype``."""
+    full-width SegModel whose weights and batch are ``dtype`` (fp32 with
+    ``distill``: the teacher and the Distiller of :func:`_kd_models`; the
+    SegModel's gradients only)."""
     from rehrseg_tpu_torch.models import convert
     from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH, SegModel
     from rehrseg_tpu_torch.train import optim
@@ -2011,10 +2038,15 @@ def _one_step(params, batch, dev, dtype=torch.float32, **kw):
     seg = SegModel(2, 4, arch=DEFAULT_ARCH)
     convert.load_flax_params(seg, params)
     seg.to(dev, dtype)
-    state = TrainState(seg, optim.nesterov_sgd(seg),
+    train_params, teacher = seg, None
+    if distill:
+        teacher, dist = _kd_models(dev)
+        train_params = {"seg": seg, "distiller": dist}
+    state = TrainState(train_params, optim.nesterov_sgd(train_params),
                        optim.poly_epoch_schedule(1e-2, 100, 1))
     step = make_seg_train_step(seg, enable_uncertainty=True,
-                               enable_distillation=False, **kw)
+                               enable_distillation=distill,
+                               flavr_model=teacher, **kw)
     _, m = step(state, SegBatch(*(t.to(dtype) for t in batch)))
     out = ({k: float(v) for k, v in m.items()},
            {k: (p.grad if p.grad is not None else torch.zeros_like(p))
@@ -2035,8 +2067,6 @@ def phase_train_step(params, dev, gpu):
     import copy
 
     from rehrseg_tpu_torch.models import convert
-    from rehrseg_tpu_torch.models.distiller import Distiller
-    from rehrseg_tpu_torch.models.flavr import UNet3D
     from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH, SegModel
     from rehrseg_tpu_torch.train import optim
     from rehrseg_tpu_torch.train.seg_trainer import (
@@ -2060,16 +2090,8 @@ def phase_train_step(params, dev, gpu):
         seg.to(dev)
         train_params, teacher = seg, None
         if distill:
-            teacher = UNet3D(2, 4, 4)
-            convert.load_flax_flavr_params(
-                teacher, convert.random_flavr_params(SEED + 8), False)
-            teacher.to(dev)
-            dist = Distiller(DEFAULT_ARCH["features_per_stage"][1], 64)
-            convert.load_flax_distiller_params(
-                dist, convert.random_distiller_params(
-                    SEED + 9, student_dim=DEFAULT_ARCH["features_per_stage"]
-                    [1]))
-            train_params = {"seg": seg, "distiller": dist.to(dev)}
+            teacher, dist = _kd_models(dev)
+            train_params = {"seg": seg, "distiller": dist}
         state = TrainState(train_params, optim.nesterov_sgd(train_params),
                            optim.poly_epoch_schedule(1e-2, 100, 1))
 
@@ -2903,6 +2925,19 @@ def phase_native(gpu, work: Path):
           "note": "host-side: the CPUs of the card's machine"})
 
 
+def _gated_buffers(record, names, where):
+    """A buffer record ((name, starts, devices) entries) as dicts, gated:
+    the names in order, every buffer in two even H blocks."""
+    from rehrseg_tpu_torch.parallel.spatial import partition
+
+    got = [dict(name=n, starts=s, devices=d) for n, s, d in record]
+    if [b["name"] for b in got] != names or any(
+            len(b["devices"]) != 2
+            or b["starts"] != partition(b["starts"][-1], 2) for b in got):
+        raise AssertionError(f"{where}: buffer record {got}")
+    return got
+
+
 def phase_spatial(params, dev, gpu):
     """Segmenter(mesh=make_mesh(devices=[cuda:0, cuda:0], spatial=2)) at
     bench geometry against the single-device Segmenter, each tile's H in
@@ -2911,11 +2946,15 @@ def phase_spatial(params, dev, gpu):
     fp32 labels equal outside near-ties (normalized logit margin below
     1e-3), LR and HR; K1 launched tiles x 2 times a pass. Printed: the
     largest normalized-logit difference, seconds a volume of each, and the
-    rows each block held at each conv of one forward. Then a (data 2,
-    spatial 2) mesh of cuda:0 named four times on the bf16 LR pass, with
-    the same label gate and K1 tiles x 4. Both blocks run on the one card:
-    no scaling number. Returns K1's launches in the bf16 spatial LR
-    pass."""
+    rows each block held at each conv of one forward. The engine's buffer
+    record (infer.sliding_window.BUFFERS) of each spatial pass is printed
+    and gated: the volume, each accumulator, the label maps and the first
+    tile and its logits each in two even H blocks, none whole. Then a
+    (data 2, spatial 2) mesh of cuda:0 named four times on the bf16 LR
+    pass, with the same label and record gates and K1 tiles x 4. Both
+    blocks run on the one card: no scaling number, and the seconds of a
+    spatial pass over the single-device one's are the blocks' overhead.
+    Returns K1's launches in the bf16 spatial LR pass."""
     from rehrseg_tpu_torch.infer import sliding_window as sw
     from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH
     from rehrseg_tpu_torch.ops.pconv import pconv_pad11_cat
@@ -2930,6 +2969,14 @@ def phase_spatial(params, dev, gpu):
     n_tiles = len(sw.sliding_window_starts(VOLUME, PATCH))
     d, h, w = VOLUME
     rec, launches = {}, None
+
+    def buffers(name, dual):
+        return _gated_buffers(
+            sw.BUFFERS, ["volume", "logits_x1", "logits_x4", "tile",
+                         "tile_logits_x1", "tile_logits_x4", "labels",
+                         "labels"] if dual else
+            ["volume", "logits_x1", "tile", "tile_logits_x1", "labels"],
+            f"spatial {name}")
 
     def ones(b):
         o = torch.ones(*b.shape[:-1], 1, device=dev)
@@ -2949,15 +2996,22 @@ def phase_spatial(params, dev, gpu):
                 torch.cuda.synchronize()
                 _zero_counts()
                 sp.reset_record()
+                sw.reset_buffers()
                 t = time.perf_counter()
                 out[key, hr] = seg.segment(vol, hr=hr)
                 torch.cuda.synchronize()
                 r[f"{key}_{'dual' if hr else 'lr'}"] = dict(
                     seconds_per_volume=time.perf_counter() - t,
                     k1=pconv_pad11_cat.launches)
+                if key == "spatial2":
+                    r[f"buffers_{'dual' if hr else 'lr'}"] = buffers(
+                        f"{name} {'dual' if hr else 'lr'}", hr)
                 if key == "spatial2" and not hr:
                     per = len(sp.RECORD) // n_tiles
                     r["block_rows"] = sp.RECORD[:per]
+        r["overhead"] = {
+            k: r[f"spatial2_{k}"]["seconds_per_volume"]
+            / r[f"single_{k}"]["seconds_per_volume"] for k in ("lr", "dual")}
         for key in ("lr", "dual"):
             if r[f"spatial2_{key}"]["k1"] != n_tiles * 2 \
                     or r[f"single_{key}"]["k1"] != n_tiles:
@@ -2973,8 +3027,10 @@ def phase_spatial(params, dev, gpu):
         wlr, whr = sw._dual_logits(ones, *dargs, 1, torch.bfloat16, dev)
         refs = {}
         for key, mesh_ in (("single", None), ("spatial2", mesh)):
-            llr, lhr = sw._dual_logits(segs[key]._fn(True), *dargs, 2,
-                                       torch.bfloat16, dev, tta_mesh=mesh_)
+            # the spatial accumulators joined for the comparison only
+            llr, lhr = (sp.gather(t) for t in sw._dual_logits(
+                segs[key]._fn(True), *dargs, 2, torch.bfloat16, dev,
+                tta_mesh=mesh_))
             refs[key, "lr"] = refs[key, "dual_lr"] = (llr, wlr)
             refs[key, "dual_hr"] = (lhr, whr)
         labels = {}
@@ -3021,12 +3077,14 @@ def phase_spatial(params, dev, gpu):
     seg.segment(vol)
     torch.cuda.synchronize()
     _zero_counts()
+    sw.reset_buffers()
     t = time.perf_counter()
     got = seg.segment(vol)
     torch.cuda.synchronize()
     r4 = dict(seconds_per_volume=time.perf_counter() - t,
               k1=pconv_pad11_cat.launches,
-              equal=float(np.mean(got == want)))
+              equal=float(np.mean(got == want)),
+              buffers=buffers("data 2 x spatial 2", False))
     if r4["k1"] != n_tiles * 4 or r4["equal"] < 0.99:
         raise AssertionError(f"spatial data 2 x spatial 2: {r4}")
     rec["data2_spatial2_bf16_lr"] = r4
@@ -3048,28 +3106,41 @@ def phase_spatial_train(params, dev, gpu, work: Path):
     step's own error where that is larger (the deep stages' gradients are
     ill-conditioned: another summation order moves them by up to about
     5e-3); the sharded bf16 step against the sharded fp32 one within 5e-2;
-    ms a bf16
-    step both ways over a chain and the peak memory (both blocks on the
-    one card: the peak is not a per-card number). Then 3 steps of
-    pipeline.stage2_segsr with extra.mesh_spatial 2 (spatial_devices= the
-    card twice) on the train_loop phantom with one validation."""
+    the step's buffer record (seg_trainer.STEP_BUFFERS: the batch's
+    fields and the logits) in two even H blocks. Then the same with
+    distillation (the full-width teacher and Distiller): fp32 losses
+    within 1e-5 relative of the unsharded step, the record with the
+    student's skip and the teacher's features, every teacher conv in two
+    blocks. ms a bf16 step both ways, plain and distilled, over a chain
+    (compare_spatial_step.step_times: plain in two rounds, the second in
+    reverse order, the faster of each config's two kept; distilled in
+    one) and the peak memory (both blocks on the one card: the
+    peak is not a per-card number, and the ms over the unsharded step's
+    are the blocks' overhead). Then 3 steps of pipeline.stage2_segsr with
+    extra.mesh_spatial 2 (spatial_devices= the card twice) on the
+    train_loop phantom with one validation."""
     from rehrseg_tpu_torch import pipeline
-    from rehrseg_tpu_torch.models import convert
-    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH, SegModel
-    from rehrseg_tpu_torch.parallel import multihost as mh
+    from rehrseg_tpu_torch.compare_spatial_step import step_times
     from rehrseg_tpu_torch.parallel import spatial as sp
-    from rehrseg_tpu_torch.train import optim
-    from rehrseg_tpu_torch.train.seg_trainer import make_seg_train_step
-    from rehrseg_tpu_torch.train.state import TrainState
+    from rehrseg_tpu_torch.train import seg_trainer as st
 
     card = torch.device("cuda", 0)
     pair = [card, card]
     batch = _train_batch(dev, SEED + 70)
-    tol, tol_bf16 = 2e-3, 5e-2
+    tol, tol_bf16, tol_kd = 2e-3, 5e-2, 1e-5
+
+    def buffers(kd):
+        return _gated_buffers(
+            st.STEP_BUFFERS, ["img", "label_lr", "label_hr",
+                              "uncertainty_lr", "logits_lr", "logits_hr"]
+            + (["skip", "teacher_features"] if kd else []), "spatial_train")
+
     l_u, g_u = _one_step(params, batch, dev, remat="hires")
     sp.reset_record()
+    st.STEP_BUFFERS.clear()
     l_s, g_s = _one_step(params, batch, dev, remat="hires",
                          spatial_devices=pair)
+    step_buffers = buffers(False)
     n_convs = len(sp.RECORD)
     sharded = sum(len(r) == 2 for _, r in sp.RECORD)
     l_b, g_b = _one_step(params, batch, dev, remat="hires",
@@ -3094,21 +3165,37 @@ def phase_spatial_train(params, dev, gpu, work: Path):
                              f"(sharded, unsharded vs fp64): {over}, bf16 "
                              f"{bf16_loss_err} / {bf16_grad_err}, "
                              f"{sharded} of {n_convs} convs sharded")
-    timing = {}
-    for key, group in (("single", None), ("spatial2", pair)):
-        seg = SegModel(2, 4, arch=DEFAULT_ARCH)
-        convert.load_flax_params(seg, params)
-        seg.to(dev)
-        state = TrainState(seg, optim.nesterov_sgd(seg),
-                           optim.poly_epoch_schedule(1e-2, 100, 1))
-        step = make_seg_train_step(seg, enable_uncertainty=True,
-                                   enable_distillation=False, remat="hires",
-                                   precision="bf16", spatial_devices=group)
-        b = batch if group is None else mh.place_global(batch, group)
-        ms, peak, losses = _time_chain(step, state, b)
-        timing[key] = dict(ms_per_step=ms, peak_mem_gb=peak, losses=losses)
-        del seg, state, step
-        torch.cuda.empty_cache()
+    # distilled: the teacher and the distiller on the blocks
+    l_ku, _ = _one_step(params, batch, dev, distill=True, remat="hires")
+    sp.reset_record()
+    st.STEP_BUFFERS.clear()
+    l_ks, _ = _one_step(params, batch, dev, distill=True, remat="hires",
+                        spatial_devices=pair)
+    kd_buffers = buffers(True)
+    teacher_convs = [r for tag, r in sp.RECORD if tag.startswith("flavr_")]
+    kd_loss_err = max(abs(l_ks[k] - l_ku[k]) / abs(l_ku[k]) for k in l_ku)
+    if kd_loss_err > tol_kd or not teacher_convs or any(
+            len(r) != 2 for r in teacher_convs):
+        raise AssertionError(f"spatial_train distilled: loss {kd_loss_err} "
+                             f"({l_ks} against {l_ku}), teacher convs' "
+                             f"blocks {teacher_convs}")
+    # the plain step in two rounds, the second in reverse order (the
+    # sharded step is paced by the host's launches, whose time varies
+    # between runs), the distilled one in one; compare_spatial_step's
+    # timing, at this phase's seeds and batch
+    seeds = dict(chain=TRAIN_CHAIN, seed=SEED, batch_seed=SEED + 70,
+                 teacher_seeds=(SEED + 8, SEED + 9),
+                 shape=(TRAIN_BATCH, *TRAIN_PATCH))
+    timing = {**step_times(rounds=2, kd=(False,), **seeds),
+              **step_times(rounds=1, kd=(True,), **seeds)}
+    timing.pop("card")
+    for key, r in timing.items():
+        if not all(np.isfinite(v) for v in r["losses"].values()):
+            raise AssertionError(f"spatial_train {key}: losses {r}")
+        r["ms_per_step"] = min(r["ms"])
+    overhead = {k: timing[f"spatial2{k}"]["ms_per_step"]
+                / timing[f"single{k}"]["ms_per_step"]
+                for k in ("", "_kd")}
     # three steps of the loop, one validation at step 3
     root = work / "spatial_loop"
     _, _, config, ds = _loop_tree(root)
@@ -3144,7 +3231,15 @@ def phase_spatial_train(params, dev, gpu, work: Path):
                                grad_rel_norm=bf16_grad_err,
                                tolerance=tol_bf16),
           "convs_sharded": sharded, "convs": n_convs,
-          "bf16_chain": timing, "loop": dict(
+          "step_buffers": step_buffers,
+          "distilled_fp32_vs_unsharded": dict(
+              loss_rel_err=kd_loss_err, tolerance=tol_kd, losses=l_ks,
+              losses_unsharded=l_ku, buffers=kd_buffers,
+              teacher_convs=len(teacher_convs)),
+          "bf16_chain": timing,
+          "overhead": {"plain": overhead[""],
+                       "distilled": overhead["_kd"]},
+          "loop": dict(
               steps=3, seconds=loop_s, validation=evals, best_dice=best,
               remat=[ln for ln in lines if ln.startswith("remat")]),
           "note": "both blocks run on the one card: neither a scaling "

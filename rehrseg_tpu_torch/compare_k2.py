@@ -107,23 +107,30 @@ def k2_times(iters=20):
     return out
 
 
-def run_tree(root: Path):
-    """:func:`k2_times` in a fresh process from ``root`` -> its dict, or
+def run_tree(fn, root: Path):
+    """``fn()`` (a function that imports what it uses inside, its result a
+    JSON-able dict with a "card") in a fresh process from ``root``, so
+    that it runs as it is against that tree's package -> its result, or
     None if the process failed."""
-    code = (inspect.getsource(k2_times)
-            + "\nimport json\nprint(json.dumps(k2_times()))\n")
+    code = (inspect.getsource(fn)
+            + f"\nimport json\nprint(json.dumps({fn.__name__}()))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        print(f"k2_times in {root} failed ({proc.returncode}):\n"
+        print(f"{fn.__name__} in {root} failed ({proc.returncode}):\n"
               f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}",
               file=sys.stderr)
         return None
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def compare(fn, summarize, argv, description: str) -> int:
+    """The command line of a two-tree comparison: ``fn`` run in the
+    parent (p) and in this tree (c) in the order ``--order`` gives, then
+    one JSON line of the order, the card and ``summarize(runs)`` (runs:
+    (tree letter, result) pairs), also written to ``--out``. 1 if a run
+    failed."""
+    ap = argparse.ArgumentParser(description=description)
     ap.add_argument("parent", type=Path)
     ap.add_argument("--order", default="pccp")
     ap.add_argument("--out", type=Path, default=None,
@@ -131,10 +138,20 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     roots = {"p": args.parent.resolve(),
              "c": Path(__file__).resolve().parent.parent}
-    runs = [(tree, run_tree(roots[tree])) for tree in args.order]
+    runs = [(tree, run_tree(fn, roots[tree])) for tree in args.order]
     if any(r is None for _, r in runs):
         return 1
-    result = {"order": args.order, "card": runs[0][1]["card"], "times": {}}
+    line = json.dumps({"order": args.order, "card": runs[0][1]["card"],
+                       **summarize(runs)})
+    print(line, flush=True)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(line + "\n")
+    return 0
+
+
+def _summary(runs) -> dict:
+    result = {"times": {}}
     for form in ("lr", "hr"):
         for metric in ("warm_ms", "paced_ms", "cold_ms"):
             by = {tree: [r[form][metric] for t, r in runs if t == tree]
@@ -149,12 +166,11 @@ def main(argv=None) -> int:
         (r["labels"]["lr"], r["labels"]["hr"])
         == (runs[0][1]["labels"]["lr"], runs[0][1]["labels"]["hr"])
         for _, r in runs)
-    line = json.dumps(result)
-    print(line, flush=True)
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(line + "\n")
-    return 0
+    return result
+
+
+def main(argv=None) -> int:
+    return compare(k2_times, _summary, argv, __doc__.splitlines()[0])
 
 
 if __name__ == "__main__":

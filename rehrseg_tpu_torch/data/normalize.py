@@ -5,8 +5,12 @@ sample of a batch."""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from ..parallel import spatial as sp
 
 
 def zscore_normalization(image: np.ndarray) -> np.ndarray:
@@ -37,10 +41,23 @@ def percentile_normalization(image: np.ndarray, p_min: float = 0.5,
     return (out - v_min) / (v_max - v_min)
 
 
-def zscore_batch(x: torch.Tensor) -> torch.Tensor:
+def zscore_batch(x):
     """Per-sample z-score of channel 0 of a (B, *spatial, C) batch; returns
     only the normalized channel-0 slab (seg_utils.py:137-149). The std is
-    the population std, as ``jnp.std``."""
+    the population std, as ``jnp.std``. An HBlocks batch (H split over a
+    spatial group) takes its two moments from fp32 sums added over blocks
+    (``spatial.total``) and normalizes each block on its device."""
+    if isinstance(x, sp.HBlocks):
+        img = sp.local(lambda t: t[..., 0:1], x)
+        dims = tuple(range(1, x.parts[0].ndim))
+        count = math.prod(img.shape[1:])
+        mean = sp.total(img, lambda t: sp.stats_dtype(t).sum(
+            dims, keepdim=True)) / count
+        var = sp.total(img, lambda t: (sp.stats_dtype(t) - mean.to(
+            t.device)).square().sum(dims, keepdim=True)) / count
+        std = var.sqrt().clamp(min=1e-8)
+        return sp.local(lambda t, m, s: (t - m.to(t.dtype)) / s.to(t.dtype),
+                        img, mean, std)
     img = x[..., 0:1]
     dims = tuple(range(1, x.ndim))
     mean = img.mean(dim=dims, keepdim=True)

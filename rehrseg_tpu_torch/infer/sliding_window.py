@@ -34,17 +34,24 @@ volume's tiles and argmax before they wait once for all label maps.
 One volume shards over several devices with ``tta_mesh=`` (a
 :class:`..parallel.mesh.Mesh`): each forward's mirror batch splits over the
 mesh's 'data' rows, and ``model_fn`` runs each block on its row's first
-device (the Segmenter keeps one weight replica per distinct device); with
-a 'spatial' extent above 1 the block goes to ``model_fn`` as an
-:class:`..parallel.spatial.HBlocks`, its tile's H split over the row's
-devices, and the forward runs H-sharded (halo exchanges, moment sums)
-and hands back its logits gathered on the row's first device. The
-accumulators stay whole on the mesh's first device (the JAX engine shards
-them along H too).
+device (the Segmenter keeps one weight replica per distinct device). With
+a 'spatial' extent S above 1 nothing the size of the volume or of a tile's
+logits is whole on one device, as in the JAX engine: the volume, the fp32
+accumulators and the label maps are :class:`..parallel.spatial.HBlocks`,
+S even H blocks over the first data row's devices; each tile is read from
+the volume's blocks straight into its own S blocks on each data row's
+devices (an H flip reverses the blocks and their rows), ``model_fn`` runs
+it H-sharded and hands its logits back as blocks, and each accumulator
+block adds the rows it owns, unmirrored and weighted on its device
+(:func:`_run_h_sharded`). The other data rows' logits go to the owners on
+the first row: one copy of the accumulators, where JAX replicates them over
+'data'. The labels' blocks are joined on the host; :data:`BUFFERS` records
+each buffer's blocks.
 """
 
 from __future__ import annotations
 
+import collections
 import itertools
 from typing import Callable, Sequence
 
@@ -56,6 +63,7 @@ from ..losses import calculate_dice
 from ..ops.gaussian import compute_gaussian
 from ..ops.tail import accumulate_tta_tile, zgrouped_combos
 from ..parallel import spatial
+from ..parallel.spatial import HBlocks
 from ..utils.device import resolve_device
 from ..utils.pad import crop, target_pad
 
@@ -103,9 +111,10 @@ def _mirror_batch(tile: torch.Tensor, combos) -> torch.Tensor:
     return torch.stack([tile.flip(c) if c else tile for c in combos])
 
 
-def _unmirror_mean(preds: torch.Tensor, combos) -> torch.Tensor:
-    """Invert each flip and average over the TTA batch (in preds' dtype,
-    summed in combo order, as the JAX engine does)."""
+def _unmirror_mean(preds, combos) -> torch.Tensor:
+    """Invert each flip and average over the TTA batch ``preds`` (a tensor,
+    or a list of each flip's output) in preds' dtype, summed in combo
+    order, as the JAX engine does."""
     acc = None
     for i, c in enumerate(combos):
         part = preds[i].flip(c) if c else preds[i]
@@ -135,19 +144,35 @@ def _argmax_uint8(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return logits.argmax(dim).to(torch.uint8)
 
 
-def _to_host(labels: Sequence[torch.Tensor]) -> list:
-    """Label maps as numpy arrays. From the card: one non-blocking copy
-    into pinned host memory per map, then one wait for all of them, before
-    any array is handed back."""
-    if not labels or labels[0].device.type != "cuda":
-        return [t.numpy() for t in labels]
+def _to_host(labels: Sequence) -> list:
+    """Label maps (tensors, or :class:`..parallel.spatial.HBlocks` whose
+    blocks are joined on the host) as numpy arrays. From the card: one
+    non-blocking copy into pinned host memory per map or block, then one
+    wait on each card for all of them, before any array is handed back."""
+    parts = [p for t in labels
+             for p in (t.parts if isinstance(t, HBlocks) else [t])]
+    cards = {p.device for p in parts if p.device.type == "cuda"}
     host = []
+    for p in parts:
+        if p.device.type == "cuda":
+            h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+            h.copy_(p, non_blocking=True)
+            host.append(h)
+        else:
+            host.append(p)
+    for dev in cards:
+        torch.cuda.current_stream(dev).synchronize()
+    out, i = [], 0
     for t in labels:
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        host.append(h)
-    torch.cuda.current_stream(labels[0].device).synchronize()
-    return [h.numpy() for h in host]
+        if isinstance(t, HBlocks):
+            n = len(t.parts)
+            out.append(np.concatenate([h.numpy() for h in host[i:i + n]],
+                                      axis=t.dim))
+            i += n
+        else:
+            out.append(host[i].numpy())
+            i += 1
+    return out
 
 
 def _mesh_groups(tta_mesh, n_batch: int):
@@ -163,6 +188,11 @@ def _mesh_groups(tta_mesh, n_batch: int):
     return groups
 
 
+def _h_sharded(tta_mesh) -> bool:
+    """Does ``tta_mesh`` split H (a 'spatial' extent above 1)?"""
+    return tta_mesh is not None and tta_mesh.shape["spatial"] > 1
+
+
 def _mesh_home(tta_mesh, device):
     """The accumulators' device: ``device``, else the mesh's first."""
     if device is None and tta_mesh is not None:
@@ -172,18 +202,14 @@ def _mesh_home(tta_mesh, device):
 
 def _sharded_forward(model_fn: Callable, batch: torch.Tensor, groups):
     """The forward of ``batch`` split into len(groups) contiguous blocks in
-    flip order, block i run on groups[i] (on its first device, or H-split
-    over the group as an HBlocks when it holds several), the outputs (a
+    flip order, block i run on the one device of groups[i], the outputs (a
     tensor or a tuple of them) gathered back on the batch's device in
     order. Every block is enqueued before any output is copied back, so
     blocks on distinct cards run side by side."""
     if groups is None:
         return model_fn(batch)
-    outs = []
-    for block, group in zip(batch.chunk(len(groups)), groups):
-        block = block.to(group[0], non_blocking=True)
-        outs.append(model_fn(block if len(group) == 1
-                             else spatial.split(block, group)))
+    outs = [model_fn(block.to(group[0], non_blocking=True))
+            for block, group in zip(batch.chunk(len(groups)), groups)]
 
     def cat(parts):
         return torch.cat([o.to(batch.device, non_blocking=True)
@@ -202,6 +228,168 @@ def _padded_starts(image_size, patch_size, tile_step_size,
     rows = [(*s, 1) for s in starts]
     rows += [(*starts[-1], 0)] * ((-len(rows)) % tiles_per_step)
     return rows
+
+
+# ------------------------------------------------- H-sharded engine buffers
+#
+# With a mesh whose 'spatial' extent S is above 1, no device holds the
+# volume, an accumulator, a label map or a tile's logits whole: each is an
+# HBlocks of its H (the volume's dim 1, a batch's dim 2) in even blocks
+# over the first data row's group, as the JAX engine's P(None, 'spatial')
+# lays them out. Its accumulators are not replicated over 'data' as JAX's
+# are: the other rows' outputs go to the owner of their rows.
+
+# (name, block starts, devices) of each engine buffer, in order, for the
+# volumes served on an H-sharded mesh since reset_buffers() (the last
+# entries only: a server's record stays bounded)
+BUFFERS: collections.deque = collections.deque(maxlen=1024)
+
+
+def reset_buffers() -> None:
+    BUFFERS.clear()
+
+
+def _record(name: str, x: HBlocks) -> HBlocks:
+    BUFFERS.append((name, *spatial.layout(x)))
+    return x
+
+
+def _upload_blocks(data: np.ndarray, input_dtype, group) -> HBlocks:
+    """The volume as even H blocks over ``group``, each block's rows
+    uploaded to its own device."""
+    starts = spatial.partition(data.shape[1], len(group))
+    return HBlocks([_upload(data[:, a:b], input_dtype, dev) for a, b, dev
+                    in zip(starts, starts[1:], group)], starts, group, dim=1)
+
+
+def _zeros_blocks(vol: HBlocks, depth: int, *channels) -> HBlocks:
+    """fp32 zeros of (depth, H, W, *channels) on ``vol``'s blocks."""
+    w = vol.parts[0].shape[2]
+    return HBlocks([torch.zeros((depth, b - a, w, *channels),
+                                dtype=torch.float32, device=p.device)
+                    for p, a, b in zip(vol.parts, vol.starts, vol.starts[1:])],
+                   vol.starts, vol.group, dim=1)
+
+
+def _mirror_blocks(vol: HBlocks, tiles, combos, patch, groups) -> list:
+    """The mirror batch of ``tiles`` ((sx, sy, sz) starts), flip-major per
+    tile as :func:`_mirror_batch` stacks it, split into len(groups)
+    contiguous blocks: block r an HBlocks of the tile's even H blocks on
+    groups[r]. Each tile block's rows come straight from the volume blocks
+    that hold them; an H flip reads the mirrored rows (block S-1-j of an
+    even partition) and reverses them, D and W flips stay in the block."""
+    pd, ph, pw = patch
+    t_starts = spatial.partition(ph, len(groups[0]))
+    n_tta = len(combos)
+    per_row = len(tiles) * n_tta // len(groups)
+    out = []
+    for r, group in enumerate(groups):
+        parts = []
+        for a, b, dev in zip(t_starts, t_starts[1:], group):
+            src, stack = {}, []
+            for i in range(r * per_row, (r + 1) * per_row):
+                (sx, sy, sz), c = tiles[i // n_tta], combos[i % n_tta]
+                g0, g1 = (ph - b, ph - a) if 1 in c else (a, b)
+                key = (i // n_tta, g0)
+                if key not in src:
+                    src[key] = spatial.rows(
+                        vol, sy + g0, sy + g1, dev,
+                        pick=lambda t, sx=sx, sz=sz:
+                        t[sx:sx + pd, :, sz:sz + pw])
+                stack.append(src[key].flip(c) if c else src[key])
+            parts.append(torch.stack(stack))
+        out.append(HBlocks(parts, t_starts, group))
+    return out
+
+
+def _accumulate_blocks(acc: HBlocks, weights, outs, tiles, combos, g,
+                       z_scale: int, patch) -> None:
+    """Unmirror, mean, gaussian-weight and add each valid tile of ``tiles``
+    ((sx, sy, sz, valid) rows) into the accumulator blocks that own its
+    rows, on their devices. ``outs``: the forward's output HBlocks of each
+    data row (the mirror batch split as :func:`_mirror_blocks` splits it);
+    each accumulator block reads the tile rows it owns from the blocks
+    that hold them (the mirrored rows for an H flip) and averages them
+    with :func:`_unmirror_mean`."""
+    pd, ph, pw = patch
+    od = pd * z_scale
+    n_tta = len(combos)
+    per_row = len(tiles) * n_tta // len(outs)
+    for k, (a0, a1, dev) in enumerate(zip(acc.starts, acc.starts[1:],
+                                          acc.group)):
+        slabs = {}
+        for t, (sx, sy, sz, valid) in enumerate(tiles):
+            r0, r1 = max(a0 - sy, 0), min(a1 - sy, ph)
+            if not valid or r0 >= r1:
+                continue
+            parts = []
+            for ci, c in enumerate(combos):
+                r, li = divmod(t * n_tta + ci, per_row)
+                g0, g1 = (ph - r1, ph - r0) if 1 in c else (r0, r1)
+                if (r, g0, g1) not in slabs:
+                    slabs[r, g0, g1] = spatial.rows(outs[r], g0, g1, dev)
+                parts.append(slabs[r, g0, g1][li])
+            gk = g[dev][:, r0:r1]
+            zo, y0 = sx * z_scale, sy + r0 - a0
+            acc.parts[k][zo:zo + od, y0:y0 + r1 - r0, sz:sz + pw] += \
+                _unmirror_mean(parts, combos).float() * gk[..., None]
+            if weights is not None:
+                weights.parts[k][zo:zo + od, y0:y0 + r1 - r0,
+                                 sz:sz + pw] += gk
+
+
+@torch.no_grad()
+def _run_h_sharded(model_fn: Callable, data: np.ndarray, patch_size,
+                   z_scales, tile_step_size, use_gaussian, mirror,
+                   num_classes, input_dtype, need_weights: bool, rows,
+                   tiles_per_step: int, tta_mesh):
+    """The tile loop on an H-sharded mesh: the volume, one fp32 logit
+    accumulator per head (``z_scales``: 1 for LR, the HR head's z factor)
+    and, for a single head with ``need_weights``, the weights, all as
+    even H blocks over the first data row's group. ``model_fn`` takes an
+    HBlocks and returns the logits (a tuple of them for two heads) as
+    HBlocks. Returns (accumulators, weights or None)."""
+    pd, ph, pw = (int(p) for p in patch_size)
+    k = int(tiles_per_step)
+    combos = _flip_axes_combinations(3) if mirror else [()]
+    groups = _mesh_groups(tta_mesh, k * len(combos))
+    home = groups[0]
+    vol = _record("volume", _upload_blocks(data, input_dtype, home))
+    d = vol.shape[0]
+    accs = [_record(f"logits_x{z}", _zeros_blocks(vol, d * z, num_classes))
+            for z in z_scales]
+    weights = (_record("weights", _zeros_blocks(vol, d * z_scales[0]))
+               if need_weights else None)
+    gs = []
+    for z in z_scales:
+        g = _gaussian((pd * z, ph, pw), bool(use_gaussian), home[0])
+        gs.append({dev: g.to(dev) for dev in set(home)})
+    if rows is None:
+        rows = _padded_starts(vol.shape[:3], (pd, ph, pw), tile_step_size, k)
+    for i in range(0, len(rows), k):
+        step = rows[i:i + k]
+        batch = _mirror_blocks(vol, [r[:3] for r in step], combos,
+                               (pd, ph, pw), groups)
+        # every row enqueued first; each row's heads as HBlocks
+        outs = [model_fn(b) for b in batch]
+        outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+        if i == 0:
+            _record("tile", batch[0])
+            for h, z in enumerate(z_scales):
+                _record(f"tile_logits_x{z}", outs[0][h])
+        for h, z in enumerate(z_scales):
+            _accumulate_blocks(accs[h], weights if h == 0 else None,
+                               [o[h] for o in outs], step, combos, gs[h], z,
+                               (pd, ph, pw))
+    return accs, weights
+
+
+def _labels(logits):
+    """The uint8 argmax of the logits, block by block on each block's
+    device for an HBlocks (recorded as ``labels``)."""
+    if isinstance(logits, HBlocks):
+        return _record("labels", spatial.local(_argmax_uint8, logits))
+    return _argmax_uint8(logits)
 
 
 @torch.no_grad()
@@ -224,7 +412,15 @@ def _run_sliding_window(model_fn: Callable, data: np.ndarray, patch_size,
     ``model_fn`` runs each block on its row (H-sharded over the row's
     devices when the 'spatial' extent is above 1), the outputs come back
     to ``device`` and are unmirrored in the same order as without a
-    mesh."""
+    mesh. With a 'spatial' extent above 1 the volume, the accumulators
+    and each tile's logits stay in even H blocks over the first data
+    row's group (:func:`_run_h_sharded`), and both come back as HBlocks."""
+    if _h_sharded(tta_mesh):
+        (logits,), weights = _run_h_sharded(
+            model_fn, data, patch_size, [int(slice_separation)],
+            tile_step_size, use_gaussian, mirror, num_classes, input_dtype,
+            need_weights, rows, tiles_per_step, tta_mesh)
+        return logits, weights
     device = resolve_device(device)
     pd, ph, pw = (int(p) for p in patch_size)
     z_scale = int(slice_separation)
@@ -284,7 +480,9 @@ def predict_sliding_window_logits(model_fn: Callable, data: np.ndarray,
         use_gaussian, mirror, num_classes, input_dtype,
         device=_mesh_home(tta_mesh, device), tiles_per_step=tiles_per_step,
         tta_mesh=tta_mesh)
-    logits = (logits / weights[..., None]).cpu().numpy()
+    # divided on the device (block by block), joined on the host
+    logits = _to_host([spatial.local(lambda lg, wt: lg / wt[..., None],
+                                     logits, weights)])[0]
     if np.any(np.isinf(logits)):
         raise RuntimeError("Encountered inf in predicted array.")
     return logits
@@ -299,7 +497,7 @@ def _labels_on_device(model_fn, data, patch_size, slice_separation,
         use_gaussian, mirror, num_classes, input_dtype, need_weights=False,
         device=_mesh_home(tta_mesh, device), tiles_per_step=tiles_per_step,
         tta_mesh=tta_mesh)
-    return _argmax_uint8(logits)
+    return _labels(logits)
 
 
 def predict_sliding_window_labels(model_fn: Callable, data: np.ndarray,
@@ -350,7 +548,13 @@ def _dual_logits(model_fn: Callable, data: np.ndarray, patch_size,
     """Dual-head tile loop: model_fn returns (lr_pred, hr_pred); both
     heads accumulate in one pass. Returns (LR, HR) logits on the device.
     rows: tile starts as in :func:`_run_sliding_window`; tta_mesh: each
-    mirror batch split over the mesh as there."""
+    mirror batch split over the mesh as there (both accumulators HBlocks
+    with a 'spatial' extent above 1)."""
+    if _h_sharded(tta_mesh):
+        return tuple(_run_h_sharded(
+            model_fn, data, patch_size, [1, int(slice_separation)],
+            tile_step_size, use_gaussian, mirror, num_classes, input_dtype,
+            False, rows, 1, tta_mesh)[0])
     device = resolve_device(_mesh_home(tta_mesh, device))
     pd, ph, pw = (int(p) for p in patch_size)
     sep = int(slice_separation)
@@ -396,7 +600,7 @@ def predict_sliding_window_dual_labels(model_fn: Callable, data: np.ndarray,
                             tile_step_size, use_gaussian, mirror,
                             num_classes, input_dtype, device,
                             tta_mesh=tta_mesh)
-    return tuple(_to_host([_argmax_uint8(llr), _argmax_uint8(lhr)]))
+    return tuple(_to_host([_labels(llr), _labels(lhr)]))
 
 
 # ------------------------------------------------------------ streamed slabs

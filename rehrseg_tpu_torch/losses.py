@@ -9,7 +9,9 @@ Channels-last like the JAX package: logits (B, *spatial, C), targets
     batch_dice=False, do_bg=False, smooth=1e-5; the NEGATIVE mean dice);
   - ``robust_cross_entropy``: CE on logits with optional per-voxel
     uncertainty weights, the label's log-prob taken as a masked select-sum
-    (a one-hot multiply would turn a ``-inf`` log-prob into NaN);
+    (a one-hot multiply would turn a ``-inf`` log-prob into NaN); both
+    take :class:`.parallel.spatial.HBlocks` of one H too, their sums added
+    over blocks (``spatial.total_of``);
   - ``dc_and_weighted_ce`` and ``build_seg_loss`` with the deep-supervision
     weights;
   - the stage-1 SR losses (train_all.py:125-134): ``sr_loss`` (L1 on the
@@ -22,8 +24,12 @@ Channels-last like the JAX package: logits (B, *spatial, C), targets
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from .parallel import spatial as sp
 
 
 def _labels(target):
@@ -32,9 +38,10 @@ def _labels(target):
     return target.to(torch.int32).to(torch.int64)
 
 
-def soft_dice_loss(logits, target, smooth: float = 1e-5, do_bg: bool = False,
-                   batch_dice: bool = False):
-    """Negative soft dice with softmax nonlinearity."""
+def _dice_sums(logits, target, do_bg: bool):
+    """(3, B, C') fp32-or-wider sums over the spatial dims: the soft dice's
+    intersection, prediction and target (one block's, for a sharded
+    batch)."""
     probs = torch.softmax(logits, dim=-1)
     num_classes = logits.shape[-1]
     if target.shape == logits.shape:
@@ -48,9 +55,18 @@ def soft_dice_loss(logits, target, smooth: float = 1e-5, do_bg: bool = False,
         probs = probs[..., 1:]
         y_onehot = y_onehot[..., 1:]
     spatial = tuple(range(1, probs.ndim - 1))
-    intersect = (probs * y_onehot).sum(spatial)
-    sum_pred = probs.sum(spatial)
-    sum_gt = y_onehot.sum(spatial)
+    return torch.stack([(probs * y_onehot).sum(spatial), probs.sum(spatial),
+                        y_onehot.sum(spatial)])
+
+
+def soft_dice_loss(logits, target, smooth: float = 1e-5, do_bg: bool = False,
+                   batch_dice: bool = False):
+    """Negative soft dice with softmax nonlinearity. ``logits`` and
+    ``target`` may be :class:`.parallel.spatial.HBlocks` of one H: each
+    block's sums are added by ``spatial.total_of`` on the group's first
+    device."""
+    intersect, sum_pred, sum_gt = sp.total_of(
+        lambda lg, tg: _dice_sums(lg, tg, do_bg), logits, target)
     if batch_dice:
         intersect, sum_pred, sum_gt = (intersect.sum(0), sum_pred.sum(0),
                                        sum_gt.sum(0))
@@ -59,9 +75,8 @@ def soft_dice_loss(logits, target, smooth: float = 1e-5, do_bg: bool = False,
     return -dc.mean()
 
 
-def robust_cross_entropy(logits, target, uncertainty=None):
-    """CE on logits with float targets; optional per-voxel weights, then
-    the mean."""
+def _nll_sum(logits, target, uncertainty=None):
+    """The (weighted) negative log-likelihood summed over every voxel."""
     if target.ndim == logits.ndim:
         target = target[..., 0]
     labels = _labels(target)
@@ -73,7 +88,16 @@ def robust_cross_entropy(logits, target, uncertainty=None):
         if uncertainty.ndim == nll.ndim + 1:
             uncertainty = uncertainty[..., 0]
         nll = nll * uncertainty
-    return nll.mean()
+    return nll.sum()
+
+
+def robust_cross_entropy(logits, target, uncertainty=None):
+    """CE on logits with float targets; optional per-voxel weights, then
+    the mean: the weighted sum over the voxel count, the sum added over
+    blocks (``spatial.total_of``) where the inputs are HBlocks."""
+    extra = () if uncertainty is None else (uncertainty,)
+    count = math.prod(logits.shape[:-1])
+    return sp.total_of(_nll_sum, logits, target, *extra) / count
 
 
 def dc_and_weighted_ce(logits, target, uncertainty=None,

@@ -9,14 +9,21 @@ Three weighted terms on channels-last (B, S, H, W, C) feature maps:
   (b) a 1x1x1-conv projection of the student, then smooth-L1;
   (c) the cosine distance of channel-normalized features (the norm not
       detached).
-The teacher is always detached.
+The teacher is always detached. Under a spatial group the maps come as
+:class:`..parallel.spatial.HBlocks`: the projection runs block by block,
+every sum is added over blocks, and only the pooled maps (a few cells) of
+the structural term are gathered.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import spatial as sp
 
 
 def _maxpool2d_ceil(x, kh: int, kw: int):
@@ -48,35 +55,74 @@ def sim_dis_compute(f_s, f_t):
     return sim_err.sum()
 
 
+def _fold(x):
+    """(B, S, H, W, C) -> (B*S, H, W, C)."""
+    b, s_, h, w, c = x.shape
+    return x.reshape(b * s_, h, w, c)
+
+
+def _maxpool_blocks(x, kh: int, kw: int):
+    """:func:`_maxpool2d_ceil` of a folded (B, S, H, W, C) HBlocks, on the
+    group's first device: each block takes the maximum of its rows of each
+    (kh, kw) cell, and the cell's maximum is the largest of the blocks'
+    (the one chosen takes the gradient, as the whole map's pool gives it).
+    Only the pooled map, a few cells, leaves the blocks."""
+    home, rows = x.group[0], []
+    for c0 in range(0, x.h, kh):
+        c1 = min(c0 + kh, x.h)
+        parts = []
+        for p, a, b in zip(x.parts, x.starts, x.starts[1:]):
+            lo, hi = max(a, c0), min(b, c1)
+            if lo < hi:
+                parts.append(_maxpool2d_ceil(
+                    _fold(p[:, :, lo - a:hi - a]), hi - lo, kw).to(home))
+        rows.append(parts[0] if len(parts) == 1
+                    else torch.stack(parts).max(0).values)
+    return torch.cat(rows, dim=1)
+
+
 def pairwise_loss_after_pool(feat_s, feat_t, scale: float = 0.5):
     """CriterionPairWiseforWholeFeatAfterPool (seg_model.py:95-113): the
-    slice dim folds into the batch, both maps pool to ``scale``."""
+    slice dim folds into the batch, both maps pool to ``scale``. HBlocks
+    inputs pool block by block (:func:`_maxpool_blocks`)."""
     b, s, h, w, cs = feat_s.shape
-    ct = feat_t.shape[-1]
-    fs = feat_s.reshape(b * s, h, w, cs)
-    ft = feat_t.detach().reshape(b * s, h, w, ct)
     kh, kw = max(int(h * scale), 1), max(int(w * scale), 1)
+    if isinstance(feat_s, sp.HBlocks):
+        return sim_dis_compute(_maxpool_blocks(feat_s, kh, kw),
+                               _maxpool_blocks(feat_t, kh, kw)) / s
+    fs = _fold(feat_s)
+    ft = _fold(feat_t.detach())
     return sim_dis_compute(_maxpool2d_ceil(fs, kh, kw),
                            _maxpool2d_ceil(ft, kh, kw)) / s
 
 
-def cosine_distance_loss(t1, t2):
-    """Mean cosine distance over per-channel spatial vectors
-    (seg_model.py:60-78). t: (B, S, H, W, C)."""
+def _cosine_sums(t1, t2):
+    """(3, B, C): the per-channel dot product and squared norms, over the
+    spatial dims, of the channel-normalized maps."""
     t1 = t1 / _l2_channel(t1)
     t2 = t2 / _l2_channel(t2)
     b, c = t1.shape[0], t1.shape[-1]
     f1 = torch.movedim(t1, -1, 1).reshape(b, c, -1)
     f2 = torch.movedim(t2, -1, 1).reshape(b, c, -1)
-    num = (f1 * f2).sum(2)
-    den = torch.linalg.norm(f1, dim=2) * torch.linalg.norm(f2, dim=2)
+    return torch.stack([(f1 * f2).sum(2), f1.square().sum(2),
+                        f2.square().sum(2)])
+
+
+def cosine_distance_loss(t1, t2):
+    """Mean cosine distance over per-channel spatial vectors
+    (seg_model.py:60-78). t: (B, S, H, W, C), or HBlocks of one H whose
+    sums are added over blocks (``spatial.total_of``)."""
+    num, n1, n2 = sp.total_of(_cosine_sums, t1, t2)
+    den = n1.sqrt() * n2.sqrt()
     return (1.0 - num / den.clamp(min=1e-8)).mean()
 
 
 def smooth_l1(pred, target, beta: float = 1.0):
-    diff = (pred - target).abs()
-    return torch.where(diff < beta, 0.5 * diff ** 2 / beta,
-                       diff - 0.5 * beta).mean()
+    def total(p, t):
+        diff = (p - t).abs()
+        return torch.where(diff < beta, 0.5 * diff ** 2 / beta,
+                           diff - 0.5 * beta).sum()
+    return sp.total_of(total, pred, target) / math.prod(pred.shape)
 
 
 class Distiller(nn.Module):
@@ -94,13 +140,17 @@ class Distiller(nn.Module):
         self.distill = nn.Conv3d(student_dim, teacher_dim, 1, bias=True)
 
     def forward(self, feature_student, feature_teacher):
+        """The loss of a (B, S, H, W, C) student and teacher map, or of two
+        HBlocks of one H (the 1x1x1 projection block by block, every sum
+        added over blocks)."""
         loss = 0.0
-        feature_teacher = feature_teacher.detach()
+        feature_teacher = sp.local(torch.Tensor.detach, feature_teacher)
         if self.lambda_structure > 0:
             loss = loss + self.lambda_structure * pairwise_loss_after_pool(
                 feature_student, feature_teacher, scale=0.5)
-        distilled = self.distill(
-            feature_student.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+        distilled = sp.local(lambda t, w, b: F.conv3d(
+            t.permute(0, 4, 1, 2, 3), w, b).permute(0, 2, 3, 4, 1),
+            feature_student, self.distill.weight, self.distill.bias)
         if self.lambda_l1 > 0:
             loss = loss + self.lambda_l1 * smooth_l1(distilled,
                                                      feature_teacher)

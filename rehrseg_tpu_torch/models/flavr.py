@@ -24,10 +24,13 @@ loads with ``load_state_dict``; flax params come in through
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial as sp
 from .layers import SEGating, conv_transpose_torch, leaky_relu
 
 NF = (512, 256, 128, 64)
@@ -86,6 +89,49 @@ class Encoder3D(nn.Module):
         x3 = self.layer3(x2)
         x4 = self.layer4(x3)
         return x0, x1, x2, x3, x4
+
+    def forward_blocks(self, x: sp.HBlocks) -> tuple:
+        """:meth:`forward` of a channels-first HBlocks (H at dim 3) run
+        H-sharded: every H-coupled conv through ``spatial.conv`` (listed in
+        ``spatial.RECORD`` as ``flavr_*``), each SEGating's pool from sums
+        added over blocks."""
+        feats = [sp.local(F.relu, _conv_blocks(x, self.stem[0], "stem"))]
+        for i in range(1, 5):
+            y = feats[-1]
+            for blk in getattr(self, f"layer{i}"):
+                y = _basic_block_blocks(y, blk, f"layer{i}")
+            feats.append(y)
+        return tuple(feats)
+
+
+def _conv_blocks(x: sp.HBlocks, conv: nn.Conv3d, tag: str) -> sp.HBlocks:
+    """``conv`` of a channels-first HBlocks (H at dim 3), its weights
+    copied to each block's device."""
+    k, s, p = conv.kernel_size[1], conv.stride[1], conv.padding[1]
+    return sp.conv(lambda t, w, b: F.conv3d(t, w, b, conv.stride,
+                                            conv.padding), x, conv.weight,
+                   conv.bias, k=k, s=s, pad=(p, p), tag=f"flavr_{tag}")
+
+
+def _gate_blocks(x: sp.HBlocks, fg: SEGating) -> sp.HBlocks:
+    """SEGating of a channels-first HBlocks: the global average pool from
+    fp32 sums added over blocks, the gate on the group's first device,
+    applied on each block's."""
+    count = x.shape[2] * x.h * x.shape[4]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    m = sp.total(x, lambda t: t.sum((2, 3, 4), keepdim=True,
+                                    dtype=acc)) / count
+    return sp.local(torch.mul, x, fg.attn_layer(m.to(x.dtype)))
+
+
+def _basic_block_blocks(x: sp.HBlocks, blk: BasicBlock3D,
+                        tag: str) -> sp.HBlocks:
+    out = sp.local(F.relu, _conv_blocks(x, blk.conv1[0], f"{tag}_conv1"))
+    out = _gate_blocks(_conv_blocks(out, blk.conv2[0], f"{tag}_conv2"),
+                       blk.fg)
+    res = x if blk.downsample is None else _conv_blocks(
+        x, blk.downsample[0], f"{tag}_downsample")
+    return sp.local(lambda a, b: F.relu(a + b), out, res)
 
 
 class Conv3dGated(nn.Module):
@@ -173,7 +219,21 @@ class UNet3D(nn.Module):
 
     def encode(self, images):
         """The stage-2 distillation teacher's interface: the mean-centered
-        encoder features (FLAVR_arch.py:180-186), channels-last."""
+        encoder features (FLAVR_arch.py:180-186), channels-last.
+        ``images`` may be an HBlocks of H (dim 2): the
+        mean then comes from sums added over blocks, the encoder runs
+        H-sharded (:meth:`Encoder3D.forward_blocks`) and the features come
+        back as HBlocks."""
+        if isinstance(images, sp.HBlocks):
+            count = math.prod(images.shape[1:4])
+            mean_ = sp.total(images, lambda t: sp.stats_dtype(
+                t[..., 0:1]).sum((1, 2, 3), keepdim=True)) / count
+            x = sp.local(lambda t, m: torch.cat(
+                [t[..., 0:1] - m.to(t.dtype), t[..., 1:]], -1).permute(
+                    0, 4, 1, 2, 3), images, mean_, dim=3)
+            return tuple(sp.local(lambda t: t.permute(0, 2, 3, 4, 1), f,
+                                  dim=2)
+                         for f in self.encoder.forward_blocks(x))
         feats = self.encoder(self._center(images)[0])
         return tuple(f.permute(0, 2, 3, 4, 1) for f in feats)
 

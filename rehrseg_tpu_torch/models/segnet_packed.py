@@ -154,14 +154,31 @@ def _unpack(x, layout, tw=None):
         return sp.local(depth_to_space_hw, x, scale=2)
     if layout == "o":
         if isinstance(x, sp.HBlocks):
-            # an offset block's unpacked rows straddle the next block's
-            # first row; no path of the forward unpacks an offset tensor
-            # at a level that runs sharded, so this gathers and splits
-            return sp.split(_unpack(sp.gather(x), layout, tw), x.group)
+            return _unpack_offset_blocks(x, tw)
         if tw is not None and tw != x.shape[3]:
             x = x[:, :, :, :tw]      # strip K1's pad columns
         return offset_to_unpacked_hw(x)
     return x
+
+
+def _unpack_offset_blocks(x, tw=None):
+    """:func:`offset_to_unpacked_hw` of an offset HBlocks. Offset cell row
+    i holds unpacked rows 2i - 1 and 2i, so each unpacked row comes from
+    one cell row: a block of cell rows [a, b) unpacks alone to rows
+    [2a - 1, 2b - 1) (the outer blocks drop the rim's row), and the result
+    is moved to the even blocks of its 2(H' - 1) rows."""
+    hp = x.h
+
+    def one(t, a, b):
+        if tw is not None and tw != t.shape[3]:
+            t = t[:, :, :, :tw]
+        y = depth_to_space_hw(t)[..., 1:-1, :]
+        lo, hi = int(a == 0), y.shape[2] - int(b == hp)
+        return y[:, :, lo:hi]
+    parts = [one(p, a, b) for p, a, b in zip(x.parts, x.starts,
+                                             x.starts[1:])]
+    starts = [max(2 * a - 1, 0) for a in x.starts[:-1]] + [2 * hp - 2]
+    return sp.even(sp.HBlocks(parts, starts, x.group, x.dim))
 
 
 def _true_hw(x, layout, tw=None):
@@ -494,7 +511,13 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
     False, "hires" or True (see :func:`_ckpt`); the same math, recomputed
     in backward. Input and params are promoted to a common dtype first,
     differentiably, so gradients reach a module's parameters through
-    ``convert.flax_tree_from_module``."""
+    ``convert.flax_tree_from_module``.
+
+    x may be a :class:`..parallel.spatial.HBlocks` (the forward runs
+    H-sharded over its group); the logits and skips then come back as
+    HBlocks on the even blocks of their H, each block unpacked on its own
+    device. plane_out (the aligned engine's, which refuses a mesh) has no
+    H-sharded form."""
     if pallas_conv not in (False, "cat", True, "fused"):
         raise ValueError(f"unknown pallas_conv {pallas_conv!r}")
     if remat not in (False, "hires", True):
@@ -507,6 +530,8 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
             f"pallas_conv={pallas_conv!r} is a port-only mode with no "
             f"spatial form: an H-sharded forward runs pallas_conv False or "
             f"'cat' (the JAX package's Segmenter runs 'cat')")
+    if isinstance(x, sp.HBlocks) and plane_out:
+        raise ValueError("plane_out has no H-sharded form")
     a = dict(arch)
     n = a["n_stages"]
     feats = a["features_per_stage"]
@@ -617,16 +642,16 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
                               cur, wp, pack_bias(bseg))
                 if layout == "o":
                     lg = _mask_offset(lg, n_cls, tw=cur_tw)
-                lg = sp.gather(lg)          # logits on the group's first
                 if plane_out:
                     # packed channel order is (cell, class)
                     seg_logits = torch.stack(
                         [_unpack(lg[..., c::n_cls], layout, cur_tw)[..., 0]
                          for c in range(n_cls)], dim=1)
                 else:
-                    seg_logits = _unpack(lg, layout, cur_tw)
+                    # H-sharded, each block unpacks its own logits
+                    seg_logits = sp.even(_unpack(lg, layout, cur_tw))
             else:
-                seg_logits = sp.gather(_conv_std(cur, wseg, bseg, (1, 1, 1)))
+                seg_logits = sp.even(_conv_std(cur, wseg, bseg, (1, 1, 1)))
                 if plane_out:
                     seg_logits = torch.movedim(seg_logits, -1, 1)
             features, features_layout, features_tw = cur, layout, cur_tw
@@ -643,7 +668,7 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
     hr = _ckpt(remat, "head", 0, n)(head)(features, w1=w1, b1=b1, w2=w2,
                                           b2=b2)
     if return_skips:
-        return seg_logits, hr, [_unpack(sp.gather(t), l, tw)
+        return seg_logits, hr, [sp.even(_unpack(t, l, tw))
                                 for t, l, tw in skips]
     return seg_logits, hr
 
@@ -651,8 +676,9 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
 def _sr_head(feats_in, *, layout, tw, w1, b1, w2, b2, upscale, plane_out,
              sr_head_form):
     """The SR head; an HBlocks input runs its convs sharded along H and
-    gathers the last conv's output (the head's logits) on the group's first
-    device."""
+    hands the head's logits back as even blocks of the HR tile's H (each
+    block's cells unpacked on its own device)."""
+    ncl = w2.shape[-1]
     if layout == "a":
         # SR head fully packed (D-upsampling commutes with in-plane packing)
         if w1.shape[0] == 3 and sr_head_form != "legacy":
@@ -665,34 +691,41 @@ def _sr_head(feats_in, *, layout, tw, w1, b1, w2, b2, upscale, plane_out,
             h1 = _packed(up, pack_conv_weights(w1), pack_bias(b1),
                          hw_pad="pad11")
         h1 = _mask_offset(sp.local(torch.relu, h1), w1.shape[-1])
-        ncl = w2.shape[-1]
         if ((h1.shape[2] - 1) % 2 == 0 and (h1.shape[3] - 1) % 2 == 0
                 and sr_head_form != "legacy"):
             if h1.shape[1] % 2 == 0 and sr_head_form != "cell4":
-                out = sp.gather(sp.conv(
+                out = sp.conv(
                     conv_packed_s2_cell4z2, h1, pack_conv_weights_cell4z2(w2),
                     pack_bias_cell4z2(b2), k=5, s=2, pad=(1, 1),
-                    tag="conv_packed_s2_cell4z2"))
-                planes = unpack_cell4z2(out, ncl)
-                return torch.stack(planes, dim=1 if plane_out else -1)
-            out = sp.gather(sp.conv(
+                    tag="conv_packed_s2_cell4z2")
+                return _head_out(out, lambda t: torch.stack(
+                    unpack_cell4z2(t, ncl), dim=1 if plane_out else -1),
+                    4)
+            out = sp.conv(
                 conv_packed_s2_cell4, h1, pack_conv_weights_cell4(w2),
                 pack_bias_cell4(b2), k=5, s=2, pad=(1, 1),
-                tag="conv_packed_s2_cell4"))
+                tag="conv_packed_s2_cell4")
             if plane_out:
-                return torch.stack(
-                    [depth_to_space_cell(out[..., c::ncl], 4)[..., 0]
-                     for c in range(ncl)], dim=1)
-            return depth_to_space_cell(out, 4)
-        out = sp.gather(_packed(h1, pack_conv_weights(w2), pack_bias(b2)))
+                return _head_out(out, lambda t: torch.stack(
+                    [depth_to_space_cell(t[..., c::ncl], 4)[..., 0]
+                     for c in range(ncl)], dim=1), 4)
+            return _head_out(out, lambda t: depth_to_space_cell(t, 4), 4)
+        out = _packed(h1, pack_conv_weights(w2), pack_bias(b2))
         if plane_out:
-            return torch.stack(
-                [depth_to_space_hw(out[..., c::ncl])[..., 0]
-                 for c in range(ncl)], dim=1)
-        return depth_to_space_hw(out)
+            return _head_out(out, lambda t: torch.stack(
+                [depth_to_space_hw(t[..., c::ncl])[..., 0]
+                 for c in range(ncl)], dim=1), 2)
+        return _head_out(out, depth_to_space_hw, 2)
     f = _unpack(feats_in, layout, tw)
     up = sp.local(lambda t: upsample_axis_linear(t, upscale, axis=1,
                                                  align_corners=True), f)
     h1 = sp.local(torch.relu, _conv_std(up, w1, b1, (1, 1, 1)))
-    hr = sp.gather(_conv_std(h1, w2, b2, (1, 1, 1)))
-    return torch.movedim(hr, -1, 1) if plane_out else hr
+    hr = _conv_std(h1, w2, b2, (1, 1, 1))
+    return _head_out(hr, (lambda t: torch.movedim(t, -1, 1)) if plane_out
+                     else (lambda t: t), 1)
+
+
+def _head_out(out, unpack, scale):
+    """The head's last conv output ``out`` unpacked (``scale`` HR rows a
+    row); an HBlocks block by block, moved to even blocks."""
+    return sp.even(sp.local(unpack, out, scale=scale))

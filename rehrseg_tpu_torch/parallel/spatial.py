@@ -2,10 +2,12 @@
 partitioner inserts for the JAX package's ``'spatial'`` mesh axis, done by
 hand.
 
-One process drives the devices of a mesh row (a *group*). A channels-last
-tensor (B, D, H, W, C) sharded over H is an :class:`HBlocks`: a list of
-contiguous row blocks, block j on ``group[j]``, with the global row where
-each starts. The ops of a forward take an HBlocks where they took a tensor:
+One process drives the devices of a mesh row (a *group*). A tensor sharded
+over H is an :class:`HBlocks`: a list of contiguous row blocks along one
+dim (``dim``, 2 for a channels-last (B, D, H, W, C) batch, 1 for an
+engine's (D, H, W, C) volume, 3 for a channels-first (N, C, D, H, W)
+encoder input), block j on ``group[j]``, with the global row where each
+starts. The ops of a forward take an HBlocks where they took a tensor:
 
   - :func:`conv` runs an H-coupled op (a conv, or any op whose output row i
     reads input rows ``s*i - lo .. s*i - lo + k - 1``, zeros outside) block
@@ -16,11 +18,14 @@ each starts. The ops of a forward take an HBlocks where they took a tensor:
     outer edges the op's own zero padding applies, as on the whole tensor.
     Output blocks split the output's H evenly (:func:`partition`);
   - :func:`local` maps an H-local op (elementwise, pointwise, channel
-    concat, a kernel == stride transposed conv) over the blocks;
+    concat, a kernel == stride transposed conv, a depth-to-space) over the
+    blocks, and :func:`even` moves a result back to the even blocks of its
+    H (the blocks a depth-to-space scales, or a level that ran gathered);
   - :func:`total` sums a per-block reduction (an instance norm's moments,
-    in fp32) on the group's first device; the result goes back to each
-    block's device;
-  - :func:`gather` concatenates the blocks on the group's first device.
+    a loss's sums, in fp32) on the group's first device; the result goes
+    back to each block's device;
+  - :func:`rows` copies global rows to one device, and :func:`gather`
+    concatenates every block there.
 
 Where a level's H cannot give every device a block of at least the op's
 halo, :func:`conv` runs that level gathered on the group's first device (a
@@ -30,6 +35,12 @@ autograd gives the backward of the halo exchange, of the moment sums and
 of the weights' copies to each block's device (whose gradients it adds
 into the leaf). :data:`RECORD` lists each conv's output rows per block,
 which tests and ``chip_smoke.py`` read to see which levels ran sharded.
+
+The sliding-window engines (``infer.sliding_window``) keep the volume, the
+accumulators and the label maps as HBlocks of the volume's H, the forward
+hands an HBlocks input's logits back as blocks, and the stage-2 step
+keeps its batch, logits, losses, teacher and distiller on blocks; nothing
+the size of a volume or a tile's logits is whole on one device.
 """
 
 from __future__ import annotations
@@ -49,21 +60,28 @@ def reset_record() -> None:
     RECORD.clear()
 
 
+def layout(x: "HBlocks") -> tuple:
+    """(block starts, each block's device as a string) of an HBlocks: the
+    entries of the engines' and the step's buffer records."""
+    return list(x.starts), [str(p.device) for p in x.parts]
+
+
 def partition(h: int, n: int) -> list:
     """Even block starts of ``h`` rows over ``n`` devices, and ``h``."""
     return [j * h // n for j in range(n)] + [h]
 
 
 class HBlocks:
-    """A (B, D, H, W, C) tensor split along H (dim 2) into blocks:
-    ``parts[j]`` holds rows ``starts[j]:starts[j + 1]`` on ``group[j]``.
-    One part on ``group[0]`` is the gathered form of a level too small to
-    split."""
+    """A tensor split along H (dim ``dim``, 2 by default: (B, D, H, W, C))
+    into blocks: ``parts[j]`` holds rows ``starts[j]:starts[j + 1]`` on
+    ``group[j]``. One part on ``group[0]`` is the gathered form of a level
+    too small to split."""
 
-    def __init__(self, parts, starts, group):
+    def __init__(self, parts, starts, group, dim: int = 2):
         self.parts = list(parts)
         self.starts = list(starts)
         self.group = list(group)
+        self.dim = dim
         assert len(self.starts) == len(self.parts) + 1
         assert len(self.parts) in (1, len(self.group))
 
@@ -74,7 +92,7 @@ class HBlocks:
     @property
     def shape(self) -> torch.Size:
         s = list(self.parts[0].shape)
-        s[2] = self.h
+        s[self.dim] = self.h
         return torch.Size(s)
 
     @property
@@ -93,35 +111,41 @@ class HBlocks:
         """The blocks cast to ``dtype`` (a dtype only: blocks keep their
         devices)."""
         return HBlocks([p.to(dtype) for p in self.parts], self.starts,
-                       self.group)
+                       self.group, self.dim)
 
     def __repr__(self):
         return (f"HBlocks(shape={tuple(self.shape)}, starts={self.starts}, "
-                f"group={self.group})")
+                f"dim={self.dim}, group={self.group})")
 
 
 def _on(t, dev):
     return t.to(dev) if isinstance(t, torch.Tensor) else t
 
 
-def split(x: torch.Tensor, group) -> HBlocks:
-    """``x`` split along H into even blocks, block j copied to
+def split(x: torch.Tensor, group, dim: int = 2) -> HBlocks:
+    """``x`` split along ``dim`` into even blocks, block j copied to
     ``group[j]``."""
     group = [torch.device(d) for d in group]
-    starts = partition(x.shape[2], len(group))
-    return HBlocks([x[:, :, a:b].to(dev) for a, b, dev in
-                    zip(starts, starts[1:], group)], starts, group)
+    starts = partition(x.shape[dim], len(group))
+    return HBlocks([x.narrow(dim, a, b - a).to(dev) for a, b, dev in
+                    zip(starts, starts[1:], group)], starts, group, dim)
 
 
-def rows(x: HBlocks, g0: int, g1: int, dev) -> torch.Tensor:
+def rows(x: HBlocks, g0: int, g1: int, dev, pick=None) -> torch.Tensor:
     """Global rows [g0, g1) of ``x`` on ``dev`` (slices of every block that
-    holds some, copied there and concatenated)."""
+    holds some, copied there and concatenated). ``pick``: a view taken of
+    each slice before its copy (say, a tile's D and W ranges), which keeps
+    the H dim where it is."""
     pieces = []
     for p, a, b in zip(x.parts, x.starts, x.starts[1:]):
         lo, hi = max(a, g0), min(b, g1)
         if lo < hi:
-            pieces.append(p[:, :, lo - a:hi - a].to(dev))
-    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=2)
+            piece = p.narrow(x.dim, lo - a, hi - lo)
+            pieces.append((pick(piece) if pick else piece).to(dev))
+    if not pieces:      # an empty range (a block of fewer rows than devices)
+        piece = x.parts[0].narrow(x.dim, 0, 0)
+        return (pick(piece) if pick else piece).to(dev)
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=x.dim)
 
 
 def gather(x):
@@ -139,7 +163,16 @@ def reshard(x: HBlocks, starts) -> HBlocks:
     if list(starts) == x.starts:
         return x
     return HBlocks([rows(x, a, b, dev) for a, b, dev in
-                    zip(starts, starts[1:], x.group)], starts, x.group)
+                    zip(starts, starts[1:], x.group)], starts, x.group,
+                   x.dim)
+
+
+def even(x):
+    """``x`` on the even blocks of its H over its whole group
+    (:func:`partition`); a tensor as it is."""
+    if not isinstance(x, HBlocks):
+        return x
+    return reshard(x, partition(x.h, len(x.group)))
 
 
 def conv(fn: Callable, x, *tensors, k: int, s: int = 1, pad=(0, 0),
@@ -155,7 +188,7 @@ def conv(fn: Callable, x, *tensors, k: int, s: int = 1, pad=(0, 0),
     if not isinstance(xs[0], HBlocks):
         return fn(x, *tensors)
     lo, hi = pad
-    group = xs[0].group
+    group, dim = xs[0].group, xs[0].dim
     n = len(group)
     h_in = xs[0].h
     h_out = (h_in + lo + hi - k) // s + 1
@@ -164,7 +197,7 @@ def conv(fn: Callable, x, *tensors, k: int, s: int = 1, pad=(0, 0),
         ins = tuple(gather(t) for t in xs)
         y = fn(ins if isinstance(x, tuple) else ins[0], *tensors)
         RECORD.append((tag, [h_out]))
-        return HBlocks([y], [0, h_out], group)
+        return HBlocks([y], [0, h_out], group, dim)
     starts = partition(h_out, n)
     parts = []
     for o0, o1, dev in zip(starts, starts[1:], group):
@@ -173,17 +206,19 @@ def conv(fn: Callable, x, *tensors, k: int, s: int = 1, pad=(0, 0),
         ins = tuple(rows(t, g0, g1, dev) for t in xs)
         y = fn(ins if isinstance(x, tuple) else ins[0],
                *[_on(t, dev) for t in tensors])
-        parts.append(y.narrow(2, o0 - g0 // s, o1 - o0))
+        parts.append(y.narrow(dim, o0 - g0 // s, o1 - o0))
     RECORD.append((tag, [b - a for a, b in zip(starts, starts[1:])]))
-    return HBlocks(parts, starts, group)
+    return HBlocks(parts, starts, group, dim)
 
 
-def local(fn: Callable, *args, scale: int = 1, **kw):
+def local(fn: Callable, *args, scale: int = 1, dim: int | None = None,
+          **kw):
     """``fn`` over the blocks of the HBlocks among ``args`` (brought to the
     starts of the first one that is split, else of the first), each call
-    with the other tensors on that block's device. ``scale``: output rows per input row (a depth-to-space, a
-    transposed conv whose kernel equals its stride). Without an HBlocks,
-    ``fn(*args)``."""
+    with the other tensors on that block's device. ``scale``: output rows
+    per input row (a depth-to-space, a transposed conv whose kernel equals
+    its stride); ``dim``: the output's H dim where fn moves it. Without an
+    HBlocks, ``fn(*args)``."""
     first = next((a for a in args if isinstance(a, HBlocks)), None)
     if first is None:
         return fn(*args, **kw)
@@ -195,26 +230,43 @@ def local(fn: Callable, *args, scale: int = 1, **kw):
     for j, dev in enumerate(ref.group[:len(ref.parts)]):
         parts.append(fn(*[a.parts[j] if isinstance(a, HBlocks)
                           else _on(a, dev) for a in args], **kw))
-    return HBlocks(parts, [scale * v for v in ref.starts], ref.group)
+    return HBlocks(parts, [scale * v for v in ref.starts], ref.group,
+                   ref.dim if dim is None else dim)
 
 
 def local_rows(fn: Callable, x):
     """``fn(block, r0, r1)`` for each block holding global rows [r0, r1)
     (an op that depends on the global row, as the offset rim mask does);
-    ``fn(x, 0, H)`` for a tensor."""
+    ``fn(x, 0, H)`` for a tensor (H at dim 2)."""
     if not isinstance(x, HBlocks):
         return fn(x, 0, x.shape[2])
     return HBlocks([fn(p, a, b) for p, a, b in
-                    zip(x.parts, x.starts, x.starts[1:])], x.starts, x.group)
+                    zip(x.parts, x.starts, x.starts[1:])], x.starts, x.group,
+                   x.dim)
 
 
 def total(x: HBlocks, fn: Callable) -> torch.Tensor:
     """The sum over blocks of ``fn(block)`` (a small reduction, e.g. an
     instance norm's moment sums), on the group's first device."""
-    home = x.group[0]
-    out = None
-    for p in x.parts:
-        r = fn(p).to(home)
+    return total_of(fn, x)
+
+
+def total_of(fn: Callable, *args) -> torch.Tensor:
+    """:func:`total` over the blocks of several HBlocks read together
+    (brought to the starts of the first that is split): ``fn(*blocks)``
+    summed on the group's first device. A tensor among ``args`` goes to
+    each block's device; without an HBlocks, ``fn(*args)``."""
+    first = next((a for a in args if isinstance(a, HBlocks)), None)
+    if first is None:
+        return fn(*args)
+    ref = next((a for a in args if isinstance(a, HBlocks) and a.sharded),
+               first)
+    args = [reshard(a, ref.starts) if isinstance(a, HBlocks) else a
+            for a in args]
+    home, out = ref.group[0], None
+    for j, dev in enumerate(ref.group[:len(ref.parts)]):
+        r = fn(*[a.parts[j] if isinstance(a, HBlocks) else _on(a, dev)
+                 for a in args]).to(home)
         out = r if out is None else out + r
     return out
 

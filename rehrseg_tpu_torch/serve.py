@@ -87,11 +87,14 @@ class Segmenter:
     :class:`.parallel.mesh.Mesh` whose 'data' axis splits each forward's
     mirror batch over its rows and whose 'spatial' axis splits each tile's
     H over a row's devices (the parity paths: LR, dual and ``_many``; the
-    JAX package meshes the LR path); the accumulators stay on the mesh's
-    first device, which ``device`` is. It composes with neither streaming
-    nor the aligned grid, and a spatial extent above 1 runs pallas_conv
-    "cat" (or False, the unpacked forward through the packed one's plain
-    path): True and "fused" have no spatial form and raise."""
+    JAX package meshes the LR path); ``device`` is the mesh's first. With
+    a 'spatial' extent above 1 the volume, the accumulators and the label
+    maps stay in even H blocks over the first data row's devices
+    (``infer.sliding_window.BUFFERS`` records them). It composes with
+    neither streaming nor the aligned grid, and a spatial extent above 1
+    runs pallas_conv "cat" (or False, the unpacked forward through the
+    packed one's plain path): True and "fused" have no spatial form and
+    raise."""
 
     model: SegModel
     patch_size: tuple
@@ -192,6 +195,8 @@ class Segmenter:
             kw.update(dual=True, upscale=self.model.upscale)
 
         def packed(batch):
+            # an H-split batch hands its logits back as blocks: the
+            # engine accumulates them on the blocks' devices
             return segmodel_apply_packed(
                 arch, self._replica(batch.device)[1],
                 batch.to(self.compute_dtype), **kw)

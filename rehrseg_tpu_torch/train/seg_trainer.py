@@ -17,13 +17,17 @@ the packed path. :func:`select_remat_mode` picks the mode by running one
 step of each candidate and reading the card's peak memory.
 
 With a spatial group (``spatial_devices``, the JAX package's
-``'spatial'`` mesh axis) the step runs the packed forward H-sharded over
-the group (:mod:`..parallel.spatial`: a halo exchange at every conv, the
-norm moments summed across blocks), the parameters on the group's first
-device and copied to each block's inside the step; the LR and HR logits
-and the student's skips come back gathered on the first device, where the
-losses, the teacher and the distiller run (the JAX package shards those
-too).
+``'spatial'`` mesh axis) the whole step runs H-sharded over the group
+(:mod:`..parallel.spatial`), as XLA keeps the JAX step sharded: the
+batch's fields stay the blocks ``multihost.place_global`` made, the packed
+forward exchanges halos at every conv and sums the norm moments across
+blocks, its LR and HR logits and the student's skips come back as blocks,
+the dice and CE add their per-block sums in fp32, the teacher runs its
+encoder on the blocks (z-score, centering and SEGating from summed
+moments) and the distiller sums its terms over blocks, gathering only the
+few cells of its pooled maps. The parameters live on the group's first
+device and are copied to each block's inside the step, and the losses land
+there; :data:`STEP_BUFFERS` records the blocks of each field.
 
 Under data parallelism (``parallel.multihost``) the step averages the
 gradients of the student and the distiller across processes before the
@@ -35,6 +39,7 @@ processes' gradients is the gradient over the global batch.
 
 from __future__ import annotations
 
+import collections
 import copy
 from typing import Callable, NamedTuple
 
@@ -64,28 +69,40 @@ def flavr_teacher_features(flavr_model, img_lr, label_lr,
                            compute_dtype=None):
     """Teacher feature volume for KD (get_intermediate_features parity).
 
-    img_lr, label_lr: (B, D, H, W, 1). Returns (B, D, H', W', C') where
-    feature_index=1 selects the 64-channel layer1 features at H/2.
-    window_chunk: encode the B*(D-1) windows in chunks of this size;
-    compute_dtype: the windows' dtype for the encoder (pass a teacher cast
-    to the same dtype). The result carries no graph."""
-    x = torch.cat([zscore_batch(img_lr), label_lr], dim=-1)
+    img_lr, label_lr: (B, D, H, W, 1), or :class:`..parallel.spatial.
+    HBlocks` of H (then every step runs block by block, the z-score and
+    centering moments added over blocks, the encoder H-sharded, and the
+    result is an HBlocks on the even blocks of H/2). Returns (B, D, H',
+    W', C') where feature_index=1 selects the 64-channel layer1 features
+    at H/2. window_chunk: encode the B*(D-1) windows in chunks of this
+    size; compute_dtype: the windows' dtype for the encoder (pass a
+    teacher cast to the same dtype). The result carries no graph."""
+    x = spatial.local(lambda a, b: torch.cat([a, b], dim=-1),
+                      zscore_batch(img_lr), label_lr)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    b, d, h, w, c = x.shape
-    padded = F.pad(x, (0, 0, 0, 0, 0, 0, 1, 1))
-    idx = torch.as_tensor(flavr_window_indices(d), device=x.device)
-    flat = padded[:, idx].reshape(b * (d - 1), 4, h, w, c)
-    n = flat.shape[0]
-    if window_chunk is not None and window_chunk < n:
-        f = torch.cat([flavr_model.encode(ch)[feature_index]
-                       for ch in torch.split(flat, int(window_chunk))])
-    else:
-        f = flavr_model.encode(flat)[feature_index]
-    _, fd, fh, fw, fc = f.shape
-    f = f.reshape(b, d - 1, fd, fh, fw, fc)
-    # slice 1 of each window -> slices 0..d-2; slice 2 of the last -> d-1
-    return torch.cat([f[:, :, 1], f[:, -1:, 2]], dim=1)
+    b, d = x.shape[0], x.shape[1]
+
+    def windows(t):
+        padded = F.pad(t, (0, 0, 0, 0, 0, 0, 1, 1))
+        idx = torch.as_tensor(flavr_window_indices(d), device=t.device)
+        return padded[:, idx].reshape(b * (d - 1), 4, *t.shape[2:])
+
+    flat = spatial.local(windows, x)
+    n = b * (d - 1)
+    chunk = n if window_chunk is None else min(int(window_chunk), n)
+    feats = [flavr_model.encode(spatial.local(lambda t: t[i:i + chunk],
+                                              flat))[feature_index]
+             for i in range(0, n, chunk)]
+    f = feats[0] if len(feats) == 1 else spatial.local(
+        lambda *ts: torch.cat(ts), *feats)
+
+    def select(t):
+        t = t.reshape(b, d - 1, *t.shape[1:])
+        # slice 1 of each window -> slices 0..d-2; slice 2 of the last
+        # -> d-1
+        return torch.cat([t[:, :, 1], t[:, -1:, 2]], dim=1)
+    return spatial.even(spatial.local(select, f))
 
 
 def ds_scales_from_arch(arch: dict) -> list[tuple]:
@@ -106,6 +123,12 @@ def downsample_label(label, scale):
     per-axis factors."""
     sd, sh, sw = (int(s) for s in scale)
     return label[:, ::sd, ::sh, ::sw]
+
+
+# (name, block starts, devices) of each H-sharded buffer of the last steps
+# on a spatial group (the batch's fields, the logits, the student's skip
+# and the teacher's features), in order
+STEP_BUFFERS: collections.deque = collections.deque(maxlen=64)
 
 
 class SegBatch(NamedTuple):
@@ -147,11 +170,12 @@ def make_seg_train_step(seg_model, *, enable_uncertainty: bool,
     sr_head_form: the packed SR head's emission ('auto' | 'cell4' |
     'legacy'). A bf16 step on the CPU runs without oneDNN
     (:func:`.precision.step_guard`). spatial_devices: a group of devices
-    (one device may be named more than once) over which the forward runs
+    (one device may be named more than once) over which the step runs
     H-sharded; the batch may come placed by
-    :func:`..parallel.multihost.place_global` (an image that comes whole is
-    split here), every other batch field is gathered on the first device.
-    Deep supervision has no spatial form (its heads are the module's)."""
+    :func:`..parallel.multihost.place_global` (a field that comes whole is
+    split here), and every field, the logits, the losses' sums, the
+    teacher and the distiller stay on the blocks. Deep supervision has no
+    spatial form (its heads are the module's)."""
     pol = _policy(precision)
     group = ([torch.device(d) for d in spatial_devices]
              if spatial_devices is not None else None)
@@ -189,7 +213,8 @@ def make_seg_train_step(seg_model, *, enable_uncertainty: bool,
     def forward(model, img):
         if use_packed or isinstance(img, spatial.HBlocks):
             # unpacked and H-sharded: the packed forward with nothing
-            # packed is the module's math
+            # packed is the module's math; H-sharded, the logits and
+            # skips come back as blocks
             params = pol.cast_compute(convert.flax_tree_from_module(model))
             return segmodel_apply_packed(
                 arch, params, pol.cast_compute(img), dual=True,
@@ -203,12 +228,18 @@ def make_seg_train_step(seg_model, *, enable_uncertainty: bool,
 
     def loss_fn(params, batch: SegBatch):
         model = params["seg"] if enable_distillation else params
+        if group is not None and len(group) > 1:
+            # every field H-split over the group (a field that comes whole
+            # is split here)
+            batch = SegBatch(*(t if isinstance(t, spatial.HBlocks)
+                               else spatial.split(t.to(group[0]), group)
+                               for t in batch))
         img = batch.img
-        if (group is not None and len(group) > 1
-                and not isinstance(img, spatial.HBlocks)):
-            img = spatial.split(img.to(group[0]), group)
-        batch = SegBatch(img, *(spatial.gather(t) for t in batch[1:]))
         lr_logits, hr_logits, skips = forward(model, img)
+        record = {**batch._asdict(), "logits_lr": lr_logits,
+                  "logits_hr": hr_logits}
+        if enable_distillation:
+            record["skip"] = skips[1]
         lr_logits = pol.cast_reduce(lr_logits)
         hr_logits = pol.cast_reduce(hr_logits)
         unc = batch.uncertainty_lr if enable_uncertainty else None
@@ -228,16 +259,19 @@ def make_seg_train_step(seg_model, *, enable_uncertainty: bool,
         metrics = {"loss_lr": loss_lr, "loss_hr": loss_hr}
         if enable_distillation:
             feats = flavr_teacher_features(
-                teacher, spatial.gather(batch.img), batch.label_lr,
+                teacher, batch.img, batch.label_lr,
                 window_chunk=teacher_window_chunk,
                 compute_dtype=(None if pol.is_identity
                                else pol.compute_dtype))
+            record["teacher_features"] = feats
             # KD math reduces in fp32; the distiller stays an fp32 module
             kd = params["distiller"](pol.cast_reduce(skips[1]),
                                      pol.cast_reduce(feats))
             loss = loss + kd
             metrics["loss_kd"] = kd
         metrics["loss"] = loss
+        STEP_BUFFERS.extend((k, *spatial.layout(v)) for k, v in record.items()
+                            if isinstance(v, spatial.HBlocks))
         return loss, metrics
 
     def step(state, batch: SegBatch):

@@ -192,7 +192,9 @@ def test_sr_head_sharded(params, form, n, dt):
               sr_head_form="auto" if form == "unpacked" else form)
     want = spk._sr_head(f, **kw)
     got = spk._sr_head(sp.split(f, _g(n)), **kw)
-    assert isinstance(got, torch.Tensor)
+    # the head's logits come back as even blocks of the HR H
+    assert isinstance(got, sp.HBlocks)
+    assert got.starts == sp.partition(want.shape[2], n)
     _close(got, want, tol=4e-6 if form == "legacy" else 1e-6)
 
 
@@ -220,8 +222,9 @@ def test_forward_sharded(params, mode, pack, n):
     want = spk.segmodel_apply_packed(SMALL_ARCH, p, x, **kw)
     got = spk.segmodel_apply_packed(SMALL_ARCH, p, sp.split(x, _g(n)), **kw)
     for g, w in zip(got[:2] + tuple(got[2]), want[:2] + tuple(want[2])):
-        # the logits and the skips come back whole, on the first device
-        assert isinstance(g, torch.Tensor)
+        # the logits and the skips come back as even blocks of their H
+        assert isinstance(g, sp.HBlocks) and len(g.parts) == n
+        assert g.starts == sp.partition(w.shape[2], n)
         _close(g, w, tol=1e-5)
     with pytest.raises(ValueError, match="no spatial form"):
         spk.segmodel_apply_packed(SMALL_ARCH, p, sp.split(x, _g(n)),
@@ -308,19 +311,35 @@ def test_engine_matches_jax_sharded(params, config):
     _labels_agree(got, single, logits)
 
 
-def test_accumulators_stay_on_the_first_device(params):
-    """The engine keeps its fp32 accumulators whole on the mesh's first
-    device (the JAX engine shards them along H): a (data 1, spatial 2)
-    mesh whose first device is the CPU and whose second is the CPU's
-    other name returns whole-volume logits there."""
+def test_accumulators_sharded_on_the_group(params):
+    """The engine keeps the volume and its fp32 accumulators in even H
+    blocks over the group (the JAX engine's ``P(None, 'spatial')``): a
+    (data 1, spatial 2) mesh whose first device is the CPU and whose
+    second is the CPU's other name holds each buffer as two blocks, one on
+    each name, as the buffer record shows, and the blocks joined equal the
+    single-device engine's logits up to fp32 summation order."""
     vol = np.random.default_rng(1).normal(size=(6, 32, 24, 1)).astype(
         np.float32)
     mesh = make_mesh(devices=[CPU, torch.device("cpu", 1)], spatial=2)
+    tsw.reset_buffers()
     logits, weights = tsw._run_sliding_window(
         _port_fn(params), vol, PATCH, 1, 0.5, True, True, 2, torch.float32,
         device=mesh.first, tta_mesh=mesh)
+    assert isinstance(logits, sp.HBlocks) and isinstance(weights, sp.HBlocks)
     assert logits.shape == (6, 32, 24, 2) and weights.shape == (6, 32, 24)
-    assert logits.device == weights.device == mesh.first
+    assert logits.group == weights.group == mesh.groups()[0]
+    names = [name for name, _, _ in tsw.BUFFERS]
+    assert names == ["volume", "logits_x1", "weights", "tile",
+                     "tile_logits_x1"]
+    for name, starts, devices in tsw.BUFFERS:
+        assert devices == ["cpu", "cpu"], name
+        assert starts == sp.partition(16 if "tile" in name else 32, 2)
+    want, wt = tsw._run_sliding_window(
+        _port_fn(params), vol, PATCH, 1, 0.5, True, True, 2, torch.float32,
+        device=CPU)
+    torch.testing.assert_close(sp.gather(logits), want, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(sp.gather(weights), wt, rtol=0, atol=0)
 
 
 def test_segmenter_spatial_matches_single_device(params):
