@@ -32,12 +32,14 @@ shard=(0, 1))`` (or its ``shard=``), whatever the number of workers.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 
 from ..io.volume import parse_image
 from ..ops.blur import blur_axis_np, parse_kernel
 from ..ops.bspline import resize_1d_np
+from ..utils import timer
 from ..utils.pad import target_pad
 from .normalize import zscore_normalization
 from .transforms import TrainingTransforms
@@ -423,17 +425,18 @@ class BatchLoader:
         self.shard = shard
 
     def next(self):
-        if self.shard is not None:
-            index, count = self.shard
-            per = self.batch_size // count
-            seeds = self.rng.integers(0, 2 ** 63, size=self.batch_size)
-            local = seeds[index * per:(index + 1) * per]
-            samples = [self.dataset.sample(rng=np.random.default_rng(int(s)))
-                       for s in local]
-        else:
-            samples = [self.dataset.sample(rng=self.rng)
-                       for _ in range(self.batch_size)]
-        return _stack_samples(samples)
+        with timer.span("rehrseg.loader.next"):
+            if self.shard is not None:
+                index, count = self.shard
+                per = self.batch_size // count
+                seeds = self.rng.integers(0, 2 ** 63, size=self.batch_size)
+                local = seeds[index * per:(index + 1) * per]
+                samples = [self.dataset.sample(
+                    rng=np.random.default_rng(int(s))) for s in local]
+            else:
+                samples = [self.dataset.sample(rng=self.rng)
+                           for _ in range(self.batch_size)]
+            return _stack_samples(samples)
 
 
 def _stack_samples(samples):
@@ -527,10 +530,18 @@ class MultiprocessBatchLoader:
             self._next_submit += 1
 
     def next(self):
-        import queue as _queue
-
         if self._closed:
             raise RuntimeError("MultiprocessBatchLoader is closed")
+        with timer.span("rehrseg.loader.next"):
+            t0 = time.perf_counter_ns()
+            out = self._take()
+            timer.count("loader.wait_ns", time.perf_counter_ns() - t0)
+            timer.count("loader.batches")
+            return out
+
+    def _take(self):
+        import queue as _queue
+
         self._pump()
         while self._next_emit not in self._buffer:
             try:
@@ -558,7 +569,6 @@ class MultiprocessBatchLoader:
         they exit: a worker cannot exit before its queued output is
         taken."""
         import queue as _queue
-        import time
 
         if self._closed:
             return
@@ -612,9 +622,13 @@ class PrefetchLoader:
     def next(self):
         if self._stop.is_set():
             raise RuntimeError("PrefetchLoader is closed")
-        item = self._q.get()
+        with timer.span("rehrseg.loader.next"):
+            t0 = time.perf_counter_ns()
+            item = self._q.get()
+            timer.count("loader.wait_ns", time.perf_counter_ns() - t0)
         if isinstance(item, Exception):
             raise item
+        timer.count("loader.batches")
         return item
 
     def close(self):

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ops import warp as W
+from ..utils.timer import span
 
 _ZOOM_FACTORS = (0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 
@@ -251,11 +252,12 @@ def augment_seg_batch(gen, img, label_lr, label_hr, uncertainty, patch_hw,
     process's slice of a global batch; the draws are the global batch's
     (so N processes reproduce one process on the same stream) and this
     slice's rows are applied."""
-    b = global_rows(img.shape[0], shard)
-    params = shard_rows(draw_seg_aug_params(gen, b, img.shape[1], patch_hw,
-                                            img.device), shard)
-    return apply_seg_aug(params, img, label_lr, label_hr, uncertainty,
-                         patch_hw, enable_uncertainty)
+    with span("rehrseg.augment"):
+        b = global_rows(img.shape[0], shard)
+        params = shard_rows(draw_seg_aug_params(gen, b, img.shape[1],
+                                                patch_hw, img.device), shard)
+        return apply_seg_aug(params, img, label_lr, label_hr, uncertainty,
+                             patch_hw, enable_uncertainty)
 
 
 def augment_sr_hr_batch(gen, hr, shard=None):
@@ -264,7 +266,8 @@ def augment_sr_hr_batch(gen, hr, shard=None):
     W, C >= 1); label channels return untouched (the reference's stage-1
     transform is intensity-only, train_set.py:259-277). shard: as
     :func:`augment_seg_batch`."""
-    p = shard_rows(_draw_intensity(gen, global_rows(hr.shape[0], shard),
-                                   hr.shape[1:4], hr.device), shard)
-    im = _intensity(p, hr[..., 0])
-    return torch.cat([im[..., None], hr[..., 1:]], dim=-1)
+    with span("rehrseg.augment"):
+        p = shard_rows(_draw_intensity(gen, global_rows(hr.shape[0], shard),
+                                       hr.shape[1:4], hr.device), shard)
+        im = _intensity(p, hr[..., 0])
+        return torch.cat([im[..., None], hr[..., 1:]], dim=-1)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.timer import span
 
 
 def _canvas_from_dataset(ds):
@@ -157,18 +158,22 @@ class DeviceSRPatchSampler:
              f1, f2, f3, t2], np.int32)
 
     def next(self):
-        if self.shard is not None:
-            index, count = self.shard
-            per = self.batch_size // count
-            seeds = self.rng.integers(0, 2 ** 63, size=self.batch_size)
-            rows = [self._decisions(np.random.default_rng(int(s)))
-                    for s in seeds[index * per:(index + 1) * per]]
-        else:
-            rows = [self._decisions(self.rng)
-                    for _ in range(self.batch_size)]
-        dec = torch.from_numpy(np.stack(rows)).to(self._canvas.device,
-                                                  non_blocking=True)
-        return gather_batch(self._canvas, dec, self._ps)
+        with span("rehrseg.sampler.next"):
+            with span("rehrseg.sampler.draw"):
+                if self.shard is not None:
+                    index, count = self.shard
+                    per = self.batch_size // count
+                    seeds = self.rng.integers(0, 2 ** 63,
+                                              size=self.batch_size)
+                    rows = [self._decisions(np.random.default_rng(int(s)))
+                            for s in seeds[index * per:(index + 1) * per]]
+                else:
+                    rows = [self._decisions(self.rng)
+                            for _ in range(self.batch_size)]
+            with span("rehrseg.sampler.gather"):
+                dec = torch.from_numpy(np.stack(rows)).to(
+                    self._canvas.device, non_blocking=True)
+                return gather_batch(self._canvas, dec, self._ps)
 
     def close(self):
         self._canvas = None

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.bspline import resize_1d
+from ..utils.timer import span
 from .device_aug import global_rows, shard_rows
 
 
@@ -35,18 +36,19 @@ def simulate_lr_batch(gen, hr_source: torch.Tensor, slice_separation: float,
     them as ``draws`` = (first, last). shard=(index, count): the batch is
     this process's slice of a global batch; the vectors are drawn for the
     global batch and this slice's rows used."""
-    img = resize_1d(hr_source[..., 0:1], slice_separation, axis=1, order=3)
-    lab = resize_1d(hr_source[..., 1:], slice_separation, axis=1, order=0)
-    out = torch.cat([img, lab], dim=-1)
-    if zero_dropout and hr_source.ndim == 5 and hr_source.shape[2] > 1:
-        b = out.shape[0]
-        if draws is None:
-            draws = tuple(shard_rows(
-                torch.rand(global_rows(b, shard), generator=gen,
-                           device=out.device), shard) for _ in range(2))
-        for idx, u in ((0, draws[0]), (-1, draws[1])):
-            u = torch.as_tensor(u, device=out.device)
-            drop = (u < 0.1)[:, None, None, None]
-            out[:, idx] = torch.where(drop, torch.zeros_like(out[:, idx]),
-                                      out[:, idx])
-    return out
+    with span("rehrseg.lr_sim"):
+        img = resize_1d(hr_source[..., 0:1], slice_separation, axis=1, order=3)
+        lab = resize_1d(hr_source[..., 1:], slice_separation, axis=1, order=0)
+        out = torch.cat([img, lab], dim=-1)
+        if zero_dropout and hr_source.ndim == 5 and hr_source.shape[2] > 1:
+            b = out.shape[0]
+            if draws is None:
+                draws = tuple(shard_rows(
+                    torch.rand(global_rows(b, shard), generator=gen,
+                               device=out.device), shard) for _ in range(2))
+            for idx, u in ((0, draws[0]), (-1, draws[1])):
+                u = torch.as_tensor(u, device=out.device)
+                drop = (u < 0.1)[:, None, None, None]
+                out[:, idx] = torch.where(drop, torch.zeros_like(out[:, idx]),
+                                          out[:, idx])
+        return out

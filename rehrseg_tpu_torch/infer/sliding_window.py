@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import collections
 import itertools
+import time
 from typing import Callable, Sequence
 
 import numpy as np
@@ -66,6 +67,7 @@ from ..parallel import spatial
 from ..parallel.spatial import HBlocks
 from ..utils.device import resolve_device
 from ..utils.pad import crop, target_pad
+from ..utils.timer import count, span
 
 
 def compute_steps_for_sliding_window(image_size, tile_size, tile_step_size):
@@ -133,46 +135,53 @@ def _gaussian(out_patch, use_gaussian: bool, device) -> torch.Tensor:
 def _upload(data: np.ndarray, input_dtype, device) -> torch.Tensor:
     """The volume on ``device``; a copy to the card is enqueued from pinned
     memory and does not wait for the work queued before it."""
-    t = torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32))
-    if device.type == "cuda":
-        t = t.pin_memory().to(device, non_blocking=True)
-    return t.to(device=device, dtype=input_dtype or torch.float32)
+    with span("rehrseg.segment.upload"):
+        t = torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        return t.to(device=device, dtype=input_dtype or torch.float32)
 
 
 def _argmax_uint8(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """The uint8 label map, on the logits' device (nothing waits)."""
-    return logits.argmax(dim).to(torch.uint8)
+    with span("rehrseg.segment.argmax"):
+        return logits.argmax(dim).to(torch.uint8)
 
 
 def _to_host(labels: Sequence) -> list:
     """Label maps (tensors, or :class:`..parallel.spatial.HBlocks` whose
     blocks are joined on the host) as numpy arrays. From the card: one
     non-blocking copy into pinned host memory per map or block, then one
-    wait on each card for all of them, before any array is handed back."""
-    parts = [p for t in labels
-             for p in (t.parts if isinstance(t, HBlocks) else [t])]
-    cards = {p.device for p in parts if p.device.type == "cuda"}
-    host = []
-    for p in parts:
-        if p.device.type == "cuda":
-            h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
-            h.copy_(p, non_blocking=True)
-            host.append(h)
-        else:
-            host.append(p)
-    for dev in cards:
-        torch.cuda.current_stream(dev).synchronize()
-    out, i = [], 0
-    for t in labels:
-        if isinstance(t, HBlocks):
-            n = len(t.parts)
-            out.append(np.concatenate([h.numpy() for h in host[i:i + n]],
-                                      axis=t.dim))
-            i += n
-        else:
-            out.append(host[i].numpy())
-            i += 1
-    return out
+    wait on each card for all of them, before any array is handed back
+    (the wait counted in ``serve.fetch_wait_ns``)."""
+    with span("rehrseg.segment.fetch"):
+        parts = [p for t in labels
+                 for p in (t.parts if isinstance(t, HBlocks) else [t])]
+        cards = {p.device for p in parts if p.device.type == "cuda"}
+        host = []
+        for p in parts:
+            if p.device.type == "cuda":
+                h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                h.copy_(p, non_blocking=True)
+                host.append(h)
+            else:
+                host.append(p)
+        t0 = time.perf_counter_ns()
+        for dev in cards:
+            torch.cuda.current_stream(dev).synchronize()
+        count("serve.fetch_wait_ns", time.perf_counter_ns() - t0)
+        out, i = [], 0
+        for t in labels:
+            if isinstance(t, HBlocks):
+                n = len(t.parts)
+                out.append(np.concatenate([h.numpy()
+                                           for h in host[i:i + n]],
+                                          axis=t.dim))
+                i += n
+            else:
+                out.append(host[i].numpy())
+                i += 1
+        return out
 
 
 def _mesh_groups(tta_mesh, n_batch: int):
@@ -368,19 +377,24 @@ def _run_h_sharded(model_fn: Callable, data: np.ndarray, patch_size,
         rows = _padded_starts(vol.shape[:3], (pd, ph, pw), tile_step_size, k)
     for i in range(0, len(rows), k):
         step = rows[i:i + k]
-        batch = _mirror_blocks(vol, [r[:3] for r in step], combos,
-                               (pd, ph, pw), groups)
-        # every row enqueued first; each row's heads as HBlocks
-        outs = [model_fn(b) for b in batch]
-        outs = [o if isinstance(o, tuple) else (o,) for o in outs]
-        if i == 0:
-            _record("tile", batch[0])
-            for h, z in enumerate(z_scales):
-                _record(f"tile_logits_x{z}", outs[0][h])
-        for h, z in enumerate(z_scales):
-            _accumulate_blocks(accs[h], weights if h == 0 else None,
-                               [o[h] for o in outs], step, combos, gs[h], z,
-                               (pd, ph, pw))
+        with span("rehrseg.segment.tile"):
+            count("serve.tiles", sum(r[3] for r in step))
+            with span("rehrseg.segment.mirror"):
+                batch = _mirror_blocks(vol, [r[:3] for r in step], combos,
+                                       (pd, ph, pw), groups)
+            with span("rehrseg.segment.forward"):
+                # every row enqueued first; each row's heads as HBlocks
+                outs = [model_fn(b) for b in batch]
+            outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+            if i == 0:
+                _record("tile", batch[0])
+                for h, z in enumerate(z_scales):
+                    _record(f"tile_logits_x{z}", outs[0][h])
+            with span("rehrseg.segment.accumulate"):
+                for h, z in enumerate(z_scales):
+                    _accumulate_blocks(accs[h], weights if h == 0 else None,
+                                       [o[h] for o in outs], step, combos,
+                                       gs[h], z, (pd, ph, pw))
     return accs, weights
 
 
@@ -441,20 +455,25 @@ def _run_sliding_window(model_fn: Callable, data: np.ndarray, patch_size,
                               k)
     for i in range(0, len(rows), k):
         group = rows[i:i + k]
-        stacks = [_mirror_batch(vol[sx:sx + pd, sy:sy + ph, sz:sz + pw],
-                                combos) for sx, sy, sz, _ in group]
-        preds = _sharded_forward(
-            model_fn, stacks[0] if k == 1 else torch.cat(stacks),
-            mesh_groups)
-        for j, (sx, sy, sz, valid) in enumerate(group):
-            if not valid:
-                continue
-            pred = _unmirror_mean(preds[j * n_tta:(j + 1) * n_tta],
-                                  combos).float() * g[..., None]
-            zo = sx * z_scale
-            logits[zo:zo + od, sy:sy + ph, sz:sz + pw] += pred
-            if need_weights:
-                weights[zo:zo + od, sy:sy + ph, sz:sz + pw] += g
+        with span("rehrseg.segment.tile"):
+            count("serve.tiles", sum(r[3] for r in group))
+            with span("rehrseg.segment.mirror"):
+                stacks = [_mirror_batch(
+                    vol[sx:sx + pd, sy:sy + ph, sz:sz + pw], combos)
+                    for sx, sy, sz, _ in group]
+                batch = stacks[0] if k == 1 else torch.cat(stacks)
+            with span("rehrseg.segment.forward"):
+                preds = _sharded_forward(model_fn, batch, mesh_groups)
+            with span("rehrseg.segment.accumulate"):
+                for j, (sx, sy, sz, valid) in enumerate(group):
+                    if not valid:
+                        continue
+                    pred = _unmirror_mean(preds[j * n_tta:(j + 1) * n_tta],
+                                          combos).float() * g[..., None]
+                    zo = sx * z_scale
+                    logits[zo:zo + od, sy:sy + ph, sz:sz + pw] += pred
+                    if need_weights:
+                        weights[zo:zo + od, sy:sy + ph, sz:sz + pw] += g
     return logits, weights
 
 
@@ -488,10 +507,12 @@ def predict_sliding_window_logits(model_fn: Callable, data: np.ndarray,
     return logits
 
 
-def _labels_on_device(model_fn, data, patch_size, slice_separation,
-                      tile_step_size, use_gaussian, mirror, num_classes,
-                      input_dtype, device, tiles_per_step,
-                      tta_mesh=None) -> torch.Tensor:
+def _labels_on_device(model_fn, data, patch_size, slice_separation=1,
+                      tile_step_size=0.5, use_gaussian=True, mirror=True,
+                      num_classes=2, input_dtype=torch.bfloat16, device=None,
+                      tiles_per_step=1, tta_mesh=None) -> torch.Tensor:
+    """The parity grid's uint8 label map of ``data`` on the device
+    (nothing waits)."""
     logits, _ = _run_sliding_window(
         model_fn, data, patch_size, slice_separation, tile_step_size,
         use_gaussian, mirror, num_classes, input_dtype, need_weights=False,
@@ -572,15 +593,21 @@ def _dual_logits(model_fn: Callable, data: np.ndarray, patch_size,
         rows = sliding_window_starts((d, h, w), (pd, ph, pw),
                                      tile_step_size).tolist()
     for sx, sy, sz, *_ in rows:
-        tile = vol[sx:sx + pd, sy:sy + ph, sz:sz + pw]
-        p_lr, p_hr = _sharded_forward(model_fn, _mirror_batch(tile, combos),
-                                      mesh_groups)
-        pred_lr = _unmirror_mean(p_lr, combos).float()
-        pred_hr = _unmirror_mean(p_hr, combos).float()
-        llr[sx:sx + pd, sy:sy + ph, sz:sz + pw] += pred_lr * g_lr[..., None]
-        zo = sx * sep
-        lhr[zo:zo + pd * sep, sy:sy + ph, sz:sz + pw] += \
-            pred_hr * g_hr[..., None]
+        with span("rehrseg.segment.tile"):
+            count("serve.tiles")
+            with span("rehrseg.segment.mirror"):
+                batch = _mirror_batch(vol[sx:sx + pd, sy:sy + ph, sz:sz + pw],
+                                      combos)
+            with span("rehrseg.segment.forward"):
+                p_lr, p_hr = _sharded_forward(model_fn, batch, mesh_groups)
+            with span("rehrseg.segment.accumulate"):
+                pred_lr = _unmirror_mean(p_lr, combos).float()
+                pred_hr = _unmirror_mean(p_hr, combos).float()
+                llr[sx:sx + pd, sy:sy + ph, sz:sz + pw] += \
+                    pred_lr * g_lr[..., None]
+                zo = sx * sep
+                lhr[zo:zo + pd * sep, sy:sy + ph, sz:sz + pw] += \
+                    pred_hr * g_hr[..., None]
     return llr, lhr
 
 
@@ -728,11 +755,12 @@ def _mirror_batch_zgrouped(tile: torch.Tensor) -> torch.Tensor:
 
 def _aligned_prep(data, patch_size, tile_step_size, input_dtype, device):
     patch_size = tuple(int(p) for p in patch_size)
-    starts, padded = aligned_sliding_window_starts(
-        data.shape[:3], patch_size, tile_step_size)
-    pads = [(0, padded[i] - data.shape[i]) for i in range(3)]
-    if any(p[1] for p in pads):
-        data = np.pad(data, pads + [(0, 0)])
+    with span("rehrseg.segment.prep"):
+        starts, padded = aligned_sliding_window_starts(
+            data.shape[:3], patch_size, tile_step_size)
+        pads = [(0, padded[i] - data.shape[i]) for i in range(3)]
+        if any(p[1] for p in pads):
+            data = np.pad(data, pads + [(0, 0)])
     return _upload(data, input_dtype, device), starts.tolist(), patch_size
 
 
@@ -761,19 +789,33 @@ def _aligned_logits(model_fn: Callable, data: np.ndarray, patch_size, *,
                           dtype=torch.float32, device=device)
     for row in starts:
         sx, sy, sz = row[:3]
-        batch = _mirror_batch_zgrouped(vol[sx:sx + pd, sy:sy + ph,
-                                           sz:sz + pw])
-        out = model_fn(batch)
-        lr = (out[0] if sep else out).contiguous()
-        # K2 rounds the gaussian to the preds' dtype: cast it once, at the
-        # first tile (a no-op from then on), not in every call
-        g_lr = g_lr.to(lr.dtype)
-        accumulate_tta_tile(llr, lr, g_lr, row, z_scale=1)
-        if sep:
-            hr = out[1].contiguous()
-            g_hr = g_hr.to(hr.dtype)
-            accumulate_tta_tile(lhr, hr, g_hr, row, z_scale=sep)
+        with span("rehrseg.segment.tile"):
+            count("serve.tiles")
+            with span("rehrseg.segment.mirror"):
+                batch = _mirror_batch_zgrouped(vol[sx:sx + pd, sy:sy + ph,
+                                                   sz:sz + pw])
+            with span("rehrseg.segment.forward"):
+                out = model_fn(batch)
+            with span("rehrseg.segment.accumulate"):
+                lr = (out[0] if sep else out).contiguous()
+                # K2 rounds the gaussian to the preds' dtype: cast it once,
+                # at the first tile (a no-op from then on), not in every call
+                g_lr = g_lr.to(lr.dtype)
+                accumulate_tta_tile(llr, lr, g_lr, row, z_scale=1)
+                if sep:
+                    hr = out[1].contiguous()
+                    g_hr = g_hr.to(hr.dtype)
+                    accumulate_tta_tile(lhr, hr, g_hr, row, z_scale=sep)
     return (llr, lhr) if sep else llr
+
+
+def _aligned_labels_on_device(model_fn: Callable, data: np.ndarray,
+                              patch_size, **kw) -> torch.Tensor:
+    """The aligned grid's uint8 label map of ``data`` on the device, still
+    padded to the grid (nothing waits); ``kw`` as :func:`_aligned_logits`
+    takes them."""
+    return _argmax_uint8(_aligned_logits(model_fn, data, patch_size, **kw),
+                         0)
 
 
 def predict_sliding_window_labels_aligned(model_fn: Callable,
@@ -799,11 +841,10 @@ def predict_sliding_window_labels_aligned_many(
     """Aligned-grid label maps of many volumes, in order; like
     :func:`predict_sliding_window_labels_many`, every volume is enqueued
     before the first fetch."""
-    labels = [_argmax_uint8(_aligned_logits(
+    labels = [_aligned_labels_on_device(
         model_fn, data, patch_size, tile_step_size=tile_step_size,
         use_gaussian=use_gaussian, num_classes=num_classes,
-        input_dtype=input_dtype, device=device), 0)
-        for data in volumes]
+        input_dtype=input_dtype, device=device) for data in volumes]
     return [lab[:d, :h, :w] for lab, (d, h, w) in zip(
         _to_host(labels), (v.shape[:3] for v in volumes))]
 

@@ -1050,7 +1050,6 @@ def stage2_segsr(cfg: Config, *, flavr_model=None, dataset=None,
                                     select_remat_mode)
     from .utils.metrics import MetricsLogger
     from .utils.preemption import PreemptionGuard, TrainingPreempted
-    from .utils.timer import StepTimer
 
     c = cfg
     ex = c.extra or {}
@@ -1098,12 +1097,12 @@ def stage2_segsr(cfg: Config, *, flavr_model=None, dataset=None,
     # the best-dice watermark survives a resume
     best_dice = _mh.broadcast_scalar(
         mlog.max_on_disk("val_dice") if _mh.is_primary() else 0.0)
-    timer = StepTimer()
     profile_dir = ex.get("profile_dir")
     prof = None
     print(f"TRAINING NETWORK REHRSeg ({total_steps} steps)")
     guard = PreemptionGuard()
     start_it = int(state.step)
+    last_log_it, last_log_t = start_it, time.perf_counter()
 
     try:
         with guard:
@@ -1123,7 +1122,6 @@ def stage2_segsr(cfg: Config, *, flavr_model=None, dataset=None,
                 if stop:
                     state.save(paths["segsr_ckpt"])
                     raise TrainingPreempted(int(state.step))
-                timer.start()
                 batch = _seg_batch(c, loader.next(), device, aug_gen,
                                    patch_xyz, shard)
                 if group is not None:
@@ -1139,10 +1137,15 @@ def stage2_segsr(cfg: Config, *, flavr_model=None, dataset=None,
                     code = _mh.broadcast_scalar(float(REMAT_WIRE[mode]))
                     step_fn = make_step(REMAT_UNWIRE[int(code)])
                 state, metrics = step_fn(state, batch)
-                timer.stop()
                 if (it + 1) % 100 == 0 or it + 1 == total_steps:
-                    mlog.log(it + 1, loss=float(metrics["loss"]),
-                             lr=float(sched(it)), step_time_s=timer.mean())
+                    # the loss read syncs: the step time is the interval
+                    # between two logged steps, over the steps in it
+                    loss = float(metrics["loss"])
+                    now = time.perf_counter()
+                    dt = (now - last_log_t) / max(it + 1 - last_log_it, 1)
+                    last_log_it, last_log_t = it + 1, now
+                    mlog.log(it + 1, loss=loss, lr=float(sched(it)),
+                             step_time_s=dt)
                 if (it + 1) % c.save_iters_segsr == 0:
                     if val_subjects:
                         val_dice = 0.0

@@ -56,6 +56,7 @@ from .pipeline import seg_arch_and_patches
 from .train import checkpoint as ckpt
 from .utils.device import resolve_device
 from .utils.pad import target_pad, crop
+from .utils.timer import count, span
 
 
 def _indexed(device) -> torch.device:
@@ -204,11 +205,17 @@ class Segmenter:
 
     # ------------------------------------------------------------- core
 
+    def _padded_shape(self, volume_zyx) -> tuple:
+        """The volume's shape padded to at least the patch."""
+        return tuple(max(s, p) for s, p in zip(volume_zyx.shape[:3],
+                                               self.patch_size))
+
     def _prep(self, volume_zyx: np.ndarray):
-        vol = zscore_normalization(volume_zyx.astype(np.float32))[..., None]
-        target_shape = [max(s, p) for s, p in zip(vol.shape[:3],
-                                                  self.patch_size)]
-        return target_pad(vol, target_shape + [1], mode="constant")
+        with span("rehrseg.segment.prep"):
+            vol = zscore_normalization(
+                volume_zyx.astype(np.float32))[..., None]
+            return target_pad(vol, [*self._padded_shape(volume_zyx), 1],
+                              mode="constant")
 
     def _aligned_ok(self, shape) -> bool:
         """The aligned grid refuses volumes where snapping cannot cover
@@ -226,19 +233,29 @@ class Segmenter:
 
     def segment(self, volume_zyx: np.ndarray, hr: bool = False):
         """volume: (z, y, x). Returns the LR uint8 mask, or (lr, hr)."""
-        vol_p, pads = self._prep(volume_zyx)
+        with span("rehrseg.segment", request=count("serve.volumes")):
+            vol_p, pads = self._prep(volume_zyx)
+            labels = self._labels(vol_p, hr)
+            with span("rehrseg.segment.crop"):
+                if hr:
+                    return (crop(labels[0], pads[:3]),
+                            crop(labels[1], self._hr_pads(pads)))
+                return crop(labels, pads[:3])
+
+    def _labels(self, vol_p: np.ndarray, hr: bool):
+        """The label map of the padded volume (and the HR one) on the
+        engine the options select, uncropped."""
         common = dict(num_classes=self.num_classes, device=self.device,
                       tile_step_size=self.tile_step_size)
-        if self.tile_grid == "aligned" and self._aligned_ok(vol_p.shape[:3]):
-            if hr:
-                lr_full, hr_full = sw.predict_sliding_window_dual_labels_aligned(
-                    self._fn(True, True), vol_p, self.patch_size,
-                    slice_separation=self.slice_separation, **common)
-                return (crop(lr_full, pads[:3]),
-                        crop(hr_full, self._hr_pads(pads)))
-            pred = sw.predict_sliding_window_labels_aligned(
-                self._fn(False, True), vol_p, self.patch_size, **common)
-            return crop(pred, pads[:3])
+        if self.tile_grid == "aligned":
+            if self._aligned_ok(vol_p.shape[:3]):
+                if hr:
+                    return sw.predict_sliding_window_dual_labels_aligned(
+                        self._fn(True, True), vol_p, self.patch_size,
+                        slice_separation=self.slice_separation, **common)
+                return sw.predict_sliding_window_labels_aligned(
+                    self._fn(False, True), vol_p, self.patch_size, **common)
+            count("serve.aligned_fallbacks")
         common["mirror"] = self.mirror
         if self.streaming:
             common["z_slab_tiles"] = int(self.streaming)
@@ -248,45 +265,47 @@ class Segmenter:
                     else sw.predict_sliding_window_dual_labels)
             if not self.streaming:
                 common["tta_mesh"] = self.mesh
-            lr_full, hr_full = dual(self._fn(True), vol_p, self.patch_size,
-                                    slice_separation=self.slice_separation,
-                                    **common)
-            return crop(lr_full, pads[:3]), crop(hr_full, self._hr_pads(pads))
+            return dual(self._fn(True), vol_p, self.patch_size,
+                        slice_separation=self.slice_separation, **common)
         if self.streaming:
-            pred = sw.predict_sliding_window_labels_streamed(
+            return sw.predict_sliding_window_labels_streamed(
                 self._fn(False), vol_p, self.patch_size, **common)
-        else:
-            pred = sw.predict_sliding_window_labels(
-                self._fn(False), vol_p, self.patch_size, slice_separation=1,
-                tta_mesh=self.mesh, **common)
-        return crop(pred, pads[:3])
+        return sw.predict_sliding_window_labels(
+            self._fn(False), vol_p, self.patch_size, slice_separation=1,
+            tta_mesh=self.mesh, **common)
 
     def segment_many(self, volumes_zyx):
         """LR masks of many volumes, all on the same engine as
         :meth:`segment` (aligned only when every volume fits it; a mesh
-        runs the parity ``_many`` engine over it). Under streaming,
-        sequential :meth:`segment` calls: that engine manages its own
-        device memory."""
-        if self.streaming:
+        runs the parity engine over it): each volume's tiles and argmax
+        are enqueued once it is prepared, and one fetch waits for every
+        label map. Under streaming (that engine manages its own device
+        memory), or on the aligned grid when some volume does not fit it,
+        sequential :meth:`segment` calls."""
+        aligned = self.tile_grid == "aligned"
+        if self.streaming or (aligned and not all(
+                self._aligned_ok(self._padded_shape(v))
+                for v in volumes_zyx)):
             return [self.segment(v) for v in volumes_zyx]
-        prepped = [self._prep(v) for v in volumes_zyx]
         common = dict(num_classes=self.num_classes, device=self.device,
                       tile_step_size=self.tile_step_size)
-        if (self.tile_grid == "aligned"
-                and all(self._aligned_ok(vol_p.shape[:3])
-                        for vol_p, _ in prepped)):
-            preds = sw.predict_sliding_window_labels_aligned_many(
-                self._fn(False, True), [vol_p for vol_p, _ in prepped],
-                self.patch_size, **common)
-        elif self.tile_grid == "aligned":
-            # mixed coverage: stay engine-consistent per volume
-            return [self.segment(v) for v in volumes_zyx]
+        if aligned:
+            fn = self._fn(False, True)
         else:
-            preds = sw.predict_sliding_window_labels_many(
-                self._fn(False), [vol_p for vol_p, _ in prepped],
-                self.patch_size, slice_separation=1, mirror=self.mirror,
-                tta_mesh=self.mesh, **common)
-        return [crop(p, pads[:3]) for p, (_, pads) in zip(preds, prepped)]
+            fn = self._fn(False)
+            common.update(mirror=self.mirror, tta_mesh=self.mesh)
+        enqueue = (sw._aligned_labels_on_device if aligned
+                   else sw._labels_on_device)
+        labels, shapes = [], []
+        for v in volumes_zyx:
+            with span("rehrseg.segment", request=count("serve.volumes")):
+                vol_p, pads = self._prep(v)
+                labels.append(enqueue(fn, vol_p, self.patch_size, **common))
+                shapes.append((vol_p.shape[:3], pads))
+        preds = sw._to_host(labels)
+        with span("rehrseg.segment.crop"):
+            return [crop(p[:d, :h, :w], pads[:3])
+                    for p, ((d, h, w), pads) in zip(preds, shapes)]
 
     # ------------------------------------------------------------- files
 

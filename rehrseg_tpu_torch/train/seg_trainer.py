@@ -53,6 +53,7 @@ from ..losses import dc_and_weighted_ce, deep_supervision_weights
 from ..models import convert
 from ..models.segnet_packed import segmodel_apply_packed
 from ..parallel import multihost, spatial
+from ..utils.timer import count, span
 from .precision import policy as _policy, step_guard
 
 
@@ -235,38 +236,45 @@ def make_seg_train_step(seg_model, *, enable_uncertainty: bool,
                                else spatial.split(t.to(group[0]), group)
                                for t in batch))
         img = batch.img
-        lr_logits, hr_logits, skips = forward(model, img)
+        with span("rehrseg.seg_step.forward"):
+            lr_logits, hr_logits, skips = forward(model, img)
         record = {**batch._asdict(), "logits_lr": lr_logits,
                   "logits_hr": hr_logits}
         if enable_distillation:
             record["skip"] = skips[1]
-        lr_logits = pol.cast_reduce(lr_logits)
-        hr_logits = pol.cast_reduce(hr_logits)
-        unc = batch.uncertainty_lr if enable_uncertainty else None
-        if deep_supervision:
-            weights = deep_supervision_weights(len(lr_logits))
-            loss_lr = 0.0
-            for w, lg, scale in zip(weights, lr_logits, ds_scales):
-                if w == 0.0:
-                    continue
-                tgt = downsample_label(batch.label_lr, scale)
-                u = downsample_label(unc, scale) if unc is not None else None
-                loss_lr = loss_lr + float(w) * _lr_loss(lg, tgt, u)
-        else:
-            loss_lr = maybe_ckpt(_lr_loss, lr_logits, batch.label_lr, unc)
-        loss_hr = maybe_ckpt(_hr_loss, hr_logits, batch.label_hr)
-        loss = loss_lr + loss_hr
+        with span("rehrseg.seg_step.loss"):
+            lr_logits = pol.cast_reduce(lr_logits)
+            hr_logits = pol.cast_reduce(hr_logits)
+            unc = batch.uncertainty_lr if enable_uncertainty else None
+            if deep_supervision:
+                weights = deep_supervision_weights(len(lr_logits))
+                loss_lr = 0.0
+                for w, lg, scale in zip(weights, lr_logits, ds_scales):
+                    if w == 0.0:
+                        continue
+                    tgt = downsample_label(batch.label_lr, scale)
+                    u = (downsample_label(unc, scale) if unc is not None
+                         else None)
+                    loss_lr = loss_lr + float(w) * _lr_loss(lg, tgt, u)
+            else:
+                loss_lr = maybe_ckpt(_lr_loss, lr_logits, batch.label_lr,
+                                     unc)
+            loss_hr = maybe_ckpt(_hr_loss, hr_logits, batch.label_hr)
+            loss = loss_lr + loss_hr
         metrics = {"loss_lr": loss_lr, "loss_hr": loss_hr}
         if enable_distillation:
-            feats = flavr_teacher_features(
-                teacher, batch.img, batch.label_lr,
-                window_chunk=teacher_window_chunk,
-                compute_dtype=(None if pol.is_identity
-                               else pol.compute_dtype))
+            with span("rehrseg.seg_step.teacher"):
+                feats = flavr_teacher_features(
+                    teacher, batch.img, batch.label_lr,
+                    window_chunk=teacher_window_chunk,
+                    compute_dtype=(None if pol.is_identity
+                                   else pol.compute_dtype))
             record["teacher_features"] = feats
-            # KD math reduces in fp32; the distiller stays an fp32 module
-            kd = params["distiller"](pol.cast_reduce(skips[1]),
-                                     pol.cast_reduce(feats))
+            with span("rehrseg.seg_step.distill"):
+                # KD math reduces in fp32; the distiller stays an fp32
+                # module
+                kd = params["distiller"](pol.cast_reduce(skips[1]),
+                                         pol.cast_reduce(feats))
             loss = loss + kd
             metrics["loss_kd"] = kd
         metrics["loss"] = loss
@@ -275,20 +283,25 @@ def make_seg_train_step(seg_model, *, enable_uncertainty: bool,
         return loss, metrics
 
     def step(state, batch: SegBatch):
-        state.optimizer.zero_grad(set_to_none=True)
-        with step_guard(pol, state.params):
-            loss, metrics = loss_fn(state.params, batch)
-            loss.backward()
-        multihost.all_reduce_grads(state.params)
-        state.apply_gradients()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if multihost.is_multihost():
-            # the global batch's means, one collective for every metric
-            keys = list(metrics)
-            means = multihost.global_mean(
-                torch.stack([metrics[k].float() for k in keys]))
-            metrics = dict(zip(keys, means.unbind()))
-        return state, metrics
+        with span("rehrseg.seg_step", step=state.step):
+            count("train.steps")
+            count("train.samples", batch.img.shape[0])
+            state.optimizer.zero_grad(set_to_none=True)
+            with step_guard(pol, state.params):
+                loss, metrics = loss_fn(state.params, batch)
+                with span("rehrseg.seg_step.backward"):
+                    loss.backward()
+            multihost.all_reduce_grads(state.params)
+            with span("rehrseg.seg_step.optimizer"):
+                state.apply_gradients()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if multihost.is_multihost():
+                # the global batch's means, one collective for every metric
+                keys = list(metrics)
+                means = multihost.global_mean(
+                    torch.stack([metrics[k].float() for k in keys]))
+                metrics = dict(zip(keys, means.unbind()))
+            return state, metrics
 
     step.loss_fn = loss_fn
     return step

@@ -19,12 +19,14 @@ global batch's. Without a group all three are no-ops.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
 
 from ..losses import sr_loss, sr_uncertainty_loss
 from ..parallel import multihost
+from ..utils.timer import count, span
 from .precision import policy as _policy, step_guard
 
 
@@ -74,14 +76,22 @@ def make_sr_train_step(model, *, enable_uncertainty: bool,
         return sr_loss(pol.cast_reduce(out), target, reduce=reduce)
 
     def step(state, patches_lr, patches_hr):
-        state.optimizer.zero_grad(set_to_none=True)
-        with step_guard(pol, model):
-            loss = loss_fn(patches_lr, patches_hr,
-                           reduce=multihost.global_sum)
-            loss.backward()
-        multihost.all_reduce_grads(state.params)
-        state.apply_gradients()
-        return state, {"loss": multihost.global_mean(loss.detach())}
+        with span("rehrseg.sr_step", step=state.step):
+            count("train.steps")
+            count("train.samples", patches_lr.shape[0])
+            state.optimizer.zero_grad(set_to_none=True)
+            with step_guard(pol, model):
+                with span("rehrseg.sr_step.forward"):
+                    loss = loss_fn(patches_lr, patches_hr,
+                                   reduce=multihost.global_sum)
+                with span("rehrseg.sr_step.backward"):
+                    loss.backward()
+            with (span("rehrseg.sr_step.all_reduce")
+                  if multihost.is_multihost() else contextlib.nullcontext()):
+                multihost.all_reduce_grads(state.params)
+            with span("rehrseg.sr_step.optimizer"):
+                state.apply_gradients()
+            return state, {"loss": multihost.global_mean(loss.detach())}
 
     step.loss_fn = loss_fn
     return step
