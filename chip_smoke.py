@@ -29,6 +29,13 @@ and nothing of the JAX package. Phases, each printing one JSON line:
            at ragged bf16 shapes (an odd height, one and a half tiles wide,
            Co = 384, Ci = 256, an image smaller than a tile; K5 with D = 1
            and 2, K4 with h = 1), K4's columns > w exact zeros;
+  packing  conv_packing at its two served sites (the stem, one channel in,
+           and encoder stage 1's conv_1, 64 channels, kd = 3), bf16: the
+           strided (kd, 4, 4) conv and the cell form conv_packing runs (a
+           stride-1 (kd, 2, 2) conv over 2x2 cells), each against fp32
+           (0.04), ms a launch, the kernels cuDNN runs (profiler) and the
+           bound; the cell form must not run the generic
+           implicit_convolveNd_sgemm;
   tile     one full-width DEFAULT_ARCH tile: the packed forward with K1
            against the unpacked SegModel, fp32 (TF32 off);
   tile_pallas  the same tile through pallas_conv=True (K1, K3, K5), and
@@ -849,6 +856,94 @@ def phase_k7(gen, dev):
         torch.cuda.empty_cache()
     emit({"phase": "k7", **out})
     return out["bf16_main"]
+
+
+# conv_packing's sites on the served path: (x (B, D, H, W, Ci), weights
+# (kd, 4, 4, Ci, 4 Co), offset output) of the stem (encoder stage 0's
+# conv_0 on an 8-way TTA batch of PATCH tiles) and encoder stage 1's conv_1
+PACKING_MAIN = {
+    "stem": ((8, 16, 320, 384, 1), (1, 4, 4, 1, 128), True),
+    "stage1_conv1": ((8, 16, 160, 192, 64), (3, 4, 4, 64, 256), False),
+}
+
+
+def _kernel_times(fn):
+    """(name, device ms) of each kernel one ``fn()`` launches, from
+    torch.profiler, longest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def phase_packing(gen, dev):
+    """conv_packing at its two served sites, bf16: the strided (kd, 4, 4)
+    conv it stands for and the cell form it runs (a stride-1 (kd, 2, 2) conv
+    over 2x2 cells), each against the strided conv in fp32 (TF32 off) on
+    the same bf16 operands (0.04), with ms a launch (bias add and cell
+    packing included), the kernels cuDNN runs and the bound (the input read
+    and the output written once; in-range taps). The cell form must not
+    run cuDNN's generic implicit_convolveNd_sgemm."""
+    from rehrseg_tpu_torch.ops import pack2d
+
+    def strided(x, w4, b, offset_out):
+        kd, p = w4.shape[0], 2 if offset_out else 1
+        y = pack2d.conv_general(x, w4, (1, 2, 2),
+                                ((kd // 2, kd // 2), (p, p), (p, p)))
+        return y + b
+
+    out = {}
+    for site, (x_shape, w_shape, off) in PACKING_MAIN.items():
+        x = torch.randn(x_shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+        w4 = (torch.randn(w_shape, generator=gen, device=dev)
+              / (16 * w_shape[0] * w_shape[3]) ** 0.5).to(torch.bfloat16)
+        b = (0.1 * torch.randn(w_shape[-1], generator=gen, device=dev)).to(
+            torch.bfloat16)
+
+        def strided_form():
+            return strided(x, w4, b, off)
+
+        def cells():
+            return pack2d.conv_packing(x, w4, b, offset_out=off)
+
+        y = cells()
+        ref = strided(x.float(), w4.float(), b.float(), off)
+        rec = {"x": list(x_shape), "w": list(w_shape), "offset_out": off,
+               "out": list(y.shape), "tolerance": 0.04,
+               "max_abs_err": check_close(f"packing {site}", y, ref, 0.04,
+                                          0.04),
+               "strided_max_abs_err": check_close(
+                   f"packing {site} strided", strided_form(), ref, 0.04,
+                   0.04)}
+        del ref
+        kd, p = w_shape[0], 2 if off else 1
+        pairs = (_tap_pairs(x_shape[1], y.shape[1], kd, 1, kd // 2, False)
+                 * _tap_pairs(x_shape[2], y.shape[2], 4, 2, p, False)
+                 * _tap_pairs(x_shape[3], y.shape[3], 4, 2, p, False))
+        flops = 2 * x_shape[0] * pairs * w_shape[3] * w_shape[4]
+        n_bytes = nbytes(x, w4, b, y)
+        rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops, BF16_FLOPS)
+        rec["tflop"], rec["gbytes"] = flops / 1e12, n_bytes / 1e9
+        del y
+        rec["strided_ms"] = cuda_ms(strided_form, iters=3 if kd > 1 else 10)
+        rec["ms"] = cuda_ms(cells)
+        rec["strided_kernels"] = _kernel_times(strided_form)[:4]
+        rec["kernels"] = _kernel_times(cells)[:6]
+        out[site] = rec
+        del x
+        torch.cuda.empty_cache()
+        if any("convolveNd_sgemm" in k for k, _ in rec["kernels"]):
+            raise AssertionError(f"packing {site}: the cell form runs "
+                                 "cuDNN's generic implicit_convolveNd_sgemm")
+    emit({"phase": "packing", **out})
+    return out
 
 
 def _fused_counts():
@@ -3652,6 +3747,8 @@ def main() -> int:
     k2 = phase_k2(gen, dev)
     torch.cuda.empty_cache()
     kp = {k: phase_pconv(k, gen, dev) for k in ("k3", "k4", "k5")}
+    phase_packing(gen, dev)
+    torch.cuda.empty_cache()
 
     params = convert.random_flax_params(DEFAULT_ARCH, SEED)
     phase_tile(params, dev)

@@ -261,3 +261,106 @@ def test_apply_norm_act_packed(dt, offset_parity, true_w):
     assert got.dtype == tdt
     _close(got.float(), np.asarray(want, np.float32), 0 if dt == "bfloat16"
            else 1e-6)
+
+
+# ------------------------------------------- conv_packing as a cell conv
+
+BF16_TOL = 2e-2
+
+
+def _strided_packing(x, w4, b, *, offset_out=False, out_w=None):
+    """conv_packing's definition: the (kd, 4, 4) stride-(1, 2, 2) conv
+    itself, H and W padded 2 (offset output) or 1 (aligned), out_w's
+    extra columns as more right padding."""
+    kd = w4.shape[0]
+    p = 2 if offset_out else 1
+    extra = 0 if out_w is None else out_w - (x.shape[3] // 2 + 1)
+    y = tp.conv_general(x, w4, (1, 2, 2),
+                        ((kd // 2, kd // 2), (p, p), (p, p + 2 * extra)))
+    return y + b if b is not None else y
+
+
+@pytest.mark.parametrize("ci", [1, 3])
+@pytest.mark.parametrize("form", ["aligned", "offset", "offset_out_w"])
+@pytest.mark.parametrize("kd", [1, 3])
+def test_conv_packing_bf16(kd, form, ci):
+    """bf16 conv_packing (a stride-1 conv over 2x2 cells) against the
+    strided conv it stands for, computed in fp32 from the same bf16
+    operands, and against JAX's conv_packing on those operands."""
+    kw = dict(offset_out=form != "aligned",
+              out_w=8 if form == "offset_out_w" else None)
+    x = torch.from_numpy(_x((2, 4, 8, 10, ci))).to(torch.bfloat16)
+    w4 = torch.from_numpy(_x((kd, 4, 4, ci, 8), 1) * 0.3).to(torch.bfloat16)
+    b = torch.from_numpy(_x((8,), 2)).to(torch.bfloat16)
+    got = tp.conv_packing(x, w4, b, **kw)
+    assert got.dtype == torch.bfloat16
+    want = _strided_packing(x.float(), w4.float(), b.float(), **kw)
+    assert got.shape == want.shape
+    _close(got.float(), want.numpy(), BF16_TOL)
+    jx = jnp.asarray(x.float().numpy(), jnp.bfloat16)
+    jw = jnp.asarray(w4.float().numpy(), jnp.bfloat16)
+    jb = jnp.asarray(b.float().numpy(), jnp.bfloat16)
+    _close(got.float(), np.asarray(jp.conv_packing(jx, jw, jb, **kw),
+                                   np.float32), BF16_TOL)
+
+
+@pytest.mark.parametrize("offset_out", [False, True])
+@pytest.mark.parametrize("kd", [1, 3])
+def test_conv_packing_odd_rows(kd, offset_out):
+    """An H block of a sharded input with an odd row count: the cell form
+    pads one zero row and drops its output, so it equals the strided conv
+    (fp64, to rounding)."""
+    x = torch.from_numpy(_x((1, 4, 7, 10, 3))).double()
+    w4 = torch.from_numpy(_x((kd, 4, 4, 3, 8), 1)).double()
+    got = tp.conv_packing(x, w4, None, offset_out=offset_out)
+    want = _strided_packing(x, w4, None, offset_out=offset_out)
+    assert got.shape == want.shape
+    _close(got, want.numpy(), 1e-12)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kd", [1, 3])
+def test_conv_packing_runs_one_stride1_cell_conv(monkeypatch, kd, dtype):
+    """In every dtype conv_packing makes one library conv, of stride 1
+    and a (2, 2) in-plane kernel over 4 Ci channels: no strided (4, 4)
+    conv, the class cuDNN ran without tensor cores."""
+    calls = []
+    for name in ("conv2d", "conv3d"):
+        orig = getattr(torch.nn.functional, name)
+
+        def spy(x, w, *a, _orig=orig, **k):
+            calls.append((tuple(w.shape), tuple(k.get("stride", (1,)))))
+            return _orig(x, w, *a, **k)
+
+        monkeypatch.setattr(torch.nn.functional, name, spy)
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy(_x((1, 4, 8, 10, 3))).to(tdt)
+    w4 = torch.from_numpy(_x((kd, 4, 4, 3, 8), 1)).to(tdt)
+    tp.conv_packing(x, w4, None, offset_out=True)
+    assert len(calls) == 1
+    (co, ci, *k), stride = calls[0]
+    assert (co, ci, k[-2:]) == (8, 12, [2, 2])
+    assert set(stride) == {1}
+
+
+@pytest.mark.parametrize("kd", [1, 3])
+def test_conv_packing_bf16_grads(kd):
+    """The cell form's input and weight gradients, bf16, against the
+    strided conv's in fp32 from the same bf16 operands (relative norm
+    within the bf16 tolerance)."""
+    x = torch.from_numpy(_x((2, 4, 8, 10, 3))).to(torch.bfloat16)
+    w4 = torch.from_numpy(_x((kd, 4, 4, 3, 8), 1) * 0.3).to(torch.bfloat16)
+    gy = torch.from_numpy(_x((2, 4, 4, 5, 8), 3))
+
+    def grads(fn, dt):
+        xg = x.to(dt).requires_grad_(True)
+        wg = w4.to(dt).requires_grad_(True)
+        y = fn(xg, wg, None)
+        return torch.autograd.grad(y, (xg, wg), gy.to(dt))
+
+    got = grads(tp.conv_packing, torch.bfloat16)
+    want = grads(_strided_packing, torch.float32)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        err = float((g.float() - w).norm() / w.norm())
+        assert err < BF16_TOL, err

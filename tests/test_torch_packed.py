@@ -24,6 +24,7 @@ from rehrseg_tpu_torch.models import convert
 from rehrseg_tpu_torch.models.segnet import SegModel
 from rehrseg_tpu_torch.models.segnet_packed import segmodel_apply_packed
 from rehrseg_tpu_torch.ops import pconv
+from rehrseg_tpu_torch.train.precision import policy
 from tests.test_packed_segmodel import ARCH_SMALL
 
 torch.set_num_threads(2)
@@ -330,3 +331,44 @@ def test_unported_options_raise(kw):
         assert len(got[2]) == len(want[2]) == ARCH_SMALL["n_stages"]
         for g, w in zip(got[2], want[2]):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+def test_default_arch_bf16_packing_sites(monkeypatch, k1_spy):
+    """One bf16 packed forward at DEFAULT_ARCH (the served configuration,
+    "cat"): conv_packing runs at its two sites, the stem (one channel,
+    offset output) and encoder stage 1's conv_1 (64 channels, kd = 3,
+    aligned), and no library conv of the forward is a strided (4, 4)
+    one, the class cuDNN ran on its generic non-tensor-core kernel (the
+    served forward's slowest operation). K1 engages as in fp32."""
+    from rehrseg_tpu_torch.models import segnet_packed
+    from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH
+
+    sites, convs = [], []
+    orig_packing = segnet_packed.conv_packing
+
+    def packing_spy(x, w4, b, **k):
+        sites.append((x.shape[-1], w4.shape[0], k.get("offset_out")))
+        return orig_packing(x, w4, b, **k)
+
+    monkeypatch.setattr(segnet_packed, "conv_packing", packing_spy)
+    for name in ("conv2d", "conv3d"):
+        orig = getattr(torch.nn.functional, name)
+
+        def conv_spy(x, w, *a, _orig=orig, **k):
+            convs.append((tuple(w.shape[2:]), tuple(k.get("stride", (1,)))))
+            return _orig(x, w, *a, **k)
+
+        monkeypatch.setattr(torch.nn.functional, name, conv_spy)
+    params, x = _setup(DEFAULT_ARCH, shape=(1, 8, 64, 64, 1))
+    tparams = policy("bf16").cast_compute(convert.tree_to_torch(params))
+    with torch.no_grad():
+        lr, hr = segmodel_apply_packed(
+            DEFAULT_ARCH, tparams, torch.from_numpy(x).to(torch.bfloat16),
+            pack_max_channels=64, dual=True, upscale=4, pallas_conv="cat")
+    assert sites == [(1, 1, True), (64, 3, False)]
+    assert not [c for c in convs if c[0][-2:] == (4, 4)
+                and c[1][-2:] == (2, 2)]
+    assert k1_spy == [True]
+    assert lr.dtype == torch.bfloat16 and lr.shape == (1, 8, 64, 64, 2)
+    assert hr.shape == (1, 32, 64, 64, 2)
+    assert bool(torch.isfinite(lr.float()).all())

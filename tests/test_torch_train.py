@@ -419,3 +419,49 @@ def test_packed_training_forward_refuses_kernels():
     out.sum().backward()
     assert all(p.grad is not None for k, p in seg.named_parameters()
                if "sr_head" not in k)
+
+
+def test_step_packing_grads_match_strided(monkeypatch):
+    """The stage-2 step's packed forward runs ``conv_packing`` (the stem
+    and each stage's conv after its strided one) as a stride-1 conv over
+    2x2 cells. Against the same step with the strided (kd, 4, 4) conv in
+    its place, on the packing convs' weight gradients: fp32 within 1e-4
+    (relative norm per leaf); bf16 (whose gradients lie 27-40 % from
+    fp32's here, by either form) no farther from the fp32 gradient than
+    the strided form's bf16 gradient, within 10 %."""
+    from rehrseg_tpu_torch.models import segnet_packed
+    from tests.test_torch_pack2d import _strided_packing
+
+    seg_np = convert.random_flax_params(SMALL_ARCH, 0)
+    tbatch = tst.SegBatch(*(torch.from_numpy(a) for a in _batch(0)))
+    sites = []
+
+    def step_grads(precision):
+        seg = SegModel(2, 4, arch=SMALL_ARCH)
+        convert.load_flax_params(seg, seg_np)
+        state = TrainState(seg, optim.nesterov_sgd(seg),
+                           optim.poly_epoch_schedule(1e-2, 4, 1))
+        step = tst.make_seg_train_step(
+            seg, enable_uncertainty=False, enable_distillation=False,
+            precision=precision)
+        step(state, tbatch)
+        return {k: p.grad.clone().numpy() for k, p in
+                seg.named_parameters()}
+
+    orig = segnet_packed.conv_packing
+
+    def spy(x, w4, b, **k):
+        sites.append(x.shape[-1])
+        return orig(x, w4, b, **k)
+
+    monkeypatch.setattr(segnet_packed, "conv_packing", spy)
+    cell32, cell16 = step_grads(None), step_grads("bf16")
+    assert sites[:4] == [1, 16, 32, 32]
+    monkeypatch.setattr(segnet_packed, "conv_packing", _strided_packing)
+    str32, str16 = step_grads(None), step_grads("bf16")
+    for k in ("encoder.stages.0.convs.0.conv.weight",
+              "encoder.stages.1.convs.1.conv.weight",
+              "encoder.stages.2.convs.1.conv.weight",
+              "encoder.stages.3.convs.1.conv.weight"):
+        assert _rel(cell32[k], str32[k]) < NORM_TOL, k
+        assert _rel(cell16[k], str32[k]) <= 1.1 * _rel(str16[k], str32[k]), k
