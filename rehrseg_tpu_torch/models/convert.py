@@ -31,6 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .segnet import is_residual, residual_blocks
+
 _TO_TORCH = (4, 3, 0, 1, 2)      # DHWIO / (*K, O, I) -> OIDHW / (I, O, *K)
 _TO_FLAX = (2, 3, 4, 1, 0)       # the inverse
 
@@ -39,22 +41,37 @@ def segmodel_mapping(arch: dict, deep_supervision: bool = False) -> dict:
     """torch state-dict key -> flax path (tuple) for a SegModel of ``arch``
     (the names of ``rehrseg_tpu.train.torch_import.segmodel_mapping``);
     with ``deep_supervision`` every decoder stage has a seg layer, else
-    only the last."""
+    only the last. A residual arch's encoder (no JAX counterpart) maps
+    ``encoder.stem.convs.0`` to ``("encoder", "stem", "conv_0")`` and
+    ``encoder.stages.{s}.blocks.{b}.{conv1,conv2,skip.i}`` to
+    ``("encoder", "stage_{s}", "block_{b}", "conv1" | "conv2" |
+    "skip")``."""
     m: dict[str, tuple] = {}
     n = arch["n_stages"]
 
-    def block(tbase, fbase):
+    def block(tbase, fbase, bias=arch["conv_bias"]):
         m[f"{tbase}.conv.weight"] = fbase + ("conv", "kernel")
-        if arch["conv_bias"]:
+        if bias:
             m[f"{tbase}.conv.bias"] = fbase + ("conv", "bias")
         if arch["norm_affine"]:
             m[f"{tbase}.norm.weight"] = fbase + ("norm", "scale")
             m[f"{tbase}.norm.bias"] = fbase + ("norm", "bias")
 
-    for s in range(n):
-        for i in range(arch["n_conv_per_stage"][s]):
-            block(f"encoder.stages.{s}.convs.{i}",
-                  ("encoder", f"stage_{s}", f"conv_{i}"))
+    if is_residual(arch):
+        block("encoder.stem.convs.0", ("encoder", "stem", "conv_0"))
+        for s, b, pool, proj in residual_blocks(arch):
+            tbase = f"encoder.stages.{s}.blocks.{b}"
+            fbase = ("encoder", f"stage_{s}", f"block_{b}")
+            block(f"{tbase}.conv1", fbase + ("conv1",))
+            block(f"{tbase}.conv2", fbase + ("conv2",))
+            if proj:
+                block(f"{tbase}.skip.{int(pool)}", fbase + ("skip",),
+                      bias=False)
+    else:
+        for s in range(n):
+            for i in range(arch["n_conv_per_stage"][s]):
+                block(f"encoder.stages.{s}.convs.{i}",
+                      ("encoder", f"stage_{s}", f"conv_{i}"))
     for s in range(n - 1):
         m[f"decoder.transpconvs.{s}.weight"] = (
             "decoder", f"transpconv_{s}", "kernel")
@@ -147,21 +164,33 @@ def flax_param_shapes(arch: dict, num_classes: int = 2,
     def k3(k):
         return (k, k, k) if isinstance(k, int) else tuple(k)
 
-    def block(cin, cout, k):
+    def block(cin, cout, k, bias=arch["conv_bias"]):
         d = {"conv": {"kernel": k3(k) + (cin, cout)}}
-        if arch["conv_bias"]:
+        if bias:
             d["conv"]["bias"] = (cout,)
         if arch["norm_affine"]:
             d["norm"] = {"scale": (cout,), "bias": (cout,)}
         return d
 
     enc = {}
-    for s in range(n):
-        enc[f"stage_{s}"] = {
-            f"conv_{i}": block(
-                (input_channels if s == 0 else feats[s - 1]) if i == 0
-                else feats[s], feats[s], arch["kernel_sizes"][s])
-            for i in range(arch["n_conv_per_stage"][s])}
+    if is_residual(arch):
+        enc["stem"] = {"conv_0": block(input_channels, feats[0],
+                                       arch["kernel_sizes"][0])}
+        for s, b, _, proj in residual_blocks(arch):
+            cin = (feats[max(s - 1, 0)] if b == 0 else feats[s])
+            k = arch["kernel_sizes"][s]
+            d = {"conv1": block(cin, feats[s], k),
+                 "conv2": block(feats[s], feats[s], k)}
+            if proj:
+                d["skip"] = block(cin, feats[s], 1, bias=False)
+            enc.setdefault(f"stage_{s}", {})[f"block_{b}"] = d
+    else:
+        for s in range(n):
+            enc[f"stage_{s}"] = {
+                f"conv_{i}": block(
+                    (input_channels if s == 0 else feats[s - 1]) if i == 0
+                    else feats[s], feats[s], arch["kernel_sizes"][s])
+                for i in range(arch["n_conv_per_stage"][s])}
     dec = {}
     for s in range(n - 1):
         cin, cout = feats[n - 1 - s], feats[n - 2 - s]

@@ -28,6 +28,15 @@ statistics or one masked reduction of a cuDNN output), the consuming K6b
 loads its input, and the aligned output finalizes in one pass from that
 kernel's statistics.
 
+A residual arch (``n_blocks_per_stage``, nnU-Net's ResEnc) runs each
+BasicBlockD as two of those convs, conv1 to offset (or unpacked, where it
+strides) and conv2 (no nonlinearity) back to aligned, so every block ends
+in the packed layout of its skip: the identity, or the skip branch
+(``AvgPool3d(stride)`` as the mean of each aligned cell's four pixels,
+and of z pairs; the 1x1x1 projection and its norm on the pooled tensor)
+re-packed at the block's resolution. Adds never meet an offset tensor.
+It runs ``pallas_conv`` False or "cat", unsharded, without remat.
+
 Training runs it with ``pallas_conv=False`` through autograd (the kernels
 have no backward; their wrappers refuse inputs that require grad):
 ``return_skips`` hands back the unpacked encoder skips (the distillation
@@ -59,6 +68,8 @@ from ..ops.pack2d import (
     stats_dtype, conv_packed_h,
 )
 from ..parallel import spatial as sp
+from ..utils.timer import count, span
+from .segnet import is_residual
 
 
 def _to3(v):
@@ -110,6 +121,9 @@ def _cat(*ts):
 
 
 def _leaky(x, slope):
+    """Leaky ReLU; ``slope`` None is none (a BasicBlockD's conv2)."""
+    if slope is None:
+        return x
     return sp.local(F.leaky_relu, x, slope)
 
 
@@ -490,6 +504,134 @@ def _ckpt(remat, kind: str, idx: int, n: int):
     return lambda f: functools.partial(checkpoint, f, use_reentrant=False)
 
 
+def _plain_encoder(x, penc, a, kernels, strides, *, pack_max_channels,
+                   pallas, remat):
+    """The plain encoder's stages, each ending ALIGNED (or unpacked);
+    returns the skips as (tensor, layout, true offset width or None)."""
+    n, feats = a["n_stages"], a["features_per_stage"]
+    # A stage's layout decisions derive from shapes; each stage function
+    # reports its final one here (strings and ints only, so a recompute in
+    # backward rewrites the same values and no tensor outlives the stage).
+    out = {}
+    cur, layout, cur_tw = x, "u", None
+    skips = []
+    for s in range(n):
+        def enc_stage(cur_in, stp, *, _s=s, _in=layout, _tw=cur_tw):
+            y, lay, tw = cur_in, _in, _tw
+            n_convs = a["n_conv_per_stage"][_s]
+            for i in range(n_convs):
+                st = strides[_s] if i == 0 else (1, 1, 1)
+                want = (("o" if n_convs - i >= 2 else "a") if lay == "u"
+                        else "a")
+                y, lay, tw = _conv_norm_act(
+                    y, lay, stp[f"conv_{i}"], kernels[_s], st, feats[_s], a,
+                    pack_max_channels=pack_max_channels, want_out=want,
+                    tw=tw, pallas=pallas)
+            if isinstance(y, _Deferred):      # a stage ends finalized
+                y = y.materialize()
+            out["layout"], out["tw"] = lay, tw
+            return y
+
+        cur = _ckpt(remat, "enc", s, n)(enc_stage)(cur, penc[f"stage_{s}"])
+        layout, cur_tw = out["layout"], out["tw"]
+        skips.append((cur, layout, cur_tw))
+    return skips
+
+
+def _refuse_residual_modes(x, pallas_conv, remat):
+    """The modes the residual encoder does not implement raise, naming
+    the mode: K3-K6's routings (their offset tensors and deferred norm
+    assume conv -> norm -> act -> conv within a stage), an H-sharded
+    input, and remat."""
+    if pallas_conv in (True, "fused"):
+        raise ValueError(
+            f"pallas_conv={pallas_conv!r} is not implemented for the "
+            f"residual encoder (n_blocks_per_stage): run False or 'cat'")
+    if isinstance(x, sp.HBlocks):
+        raise ValueError(
+            "an H-sharded (HBlocks) input is not implemented for the "
+            "residual encoder (n_blocks_per_stage)")
+    if remat:
+        raise ValueError(
+            f"remat={remat!r} is not implemented for the residual encoder "
+            f"(n_blocks_per_stage): run remat=False")
+
+
+def _avg_pool(x, layout, stride):
+    """``AvgPool3d(stride, stride)`` (floor) of x in layout 'u'/'a'/'o',
+    unpacked (B, D', H', W', C): an aligned input strided (s, 2, 2) takes
+    the mean of each cell's four pixels (and of z pairs), with no
+    unpacking."""
+    sd, sh, sw = stride
+    if layout == "a" and (sh, sw) == (2, 2):
+        b, d, h, w, c4 = x.shape
+        d2 = d // sd
+        return x[:, :d2 * sd].reshape(b, d2, sd, h, w, 4, c4 // 4).mean(
+            (2, 5))
+    x = _unpack(x, layout)
+    b, d, h, w, c = x.shape
+    d2, h2, w2 = d // sd, h // sh, w // sw
+    return x[:, :d2 * sd, :h2 * sh, :w2 * sw].reshape(
+        b, d2, sd, h2, sh, w2, sw, c).mean((2, 4, 6))
+
+
+def _relayout(x, layout, want):
+    """x moved from layout 'u'/'a' to ``want`` ('u'/'a')."""
+    if layout == want:
+        return x
+    if want == "a":
+        return space_to_depth_hw(x)
+    return depth_to_space_hw(x)
+
+
+def _skip_branch(x, layout, sk, stride, a):
+    """A BasicBlockD's skip: the identity, AvgPool3d(stride) where the
+    block strides, then the bias-free 1x1x1 projection and its instance
+    norm where ``sk`` (its params) is given. Returns (r, layout)."""
+    if tuple(stride) != (1, 1, 1):
+        x, layout = _avg_pool(x, layout, stride), "u"
+    if sk is None:
+        return x, layout
+    w = sk["conv"]["kernel"][0, 0, 0]
+    scale = sk["norm"]["scale"] if a["norm_affine"] else None
+    nbias = sk["norm"]["bias"] if a["norm_affine"] else None
+    if layout == "a":
+        y = torch.matmul(x, pack_pointwise_weights(w))
+        return _norm_packed(y, scale, nbias, a["norm_eps"]), "a"
+    x = _unpack(x, layout)
+    return _instance_norm(torch.matmul(x, w), scale, nbias,
+                          a["norm_eps"]), "u"
+
+
+def _residual_encoder(x, penc, a, kernels, strides, *, pack_max_channels,
+                      pallas):
+    """nnU-Net's residual encoder: the stem conv, then each stage's
+    BasicBlockD blocks; every block ends aligned (or unpacked), in the
+    layout of its skip. Returns the skips as :func:`_plain_encoder`'s."""
+    feats = a["features_per_stage"]
+    slope = a["nonlin_slope"]
+    kw = dict(pack_max_channels=pack_max_channels, pallas=pallas)
+    lin = dict(a, nonlin_slope=None)
+    y, lay, _ = _conv_norm_act(x, "u", penc["stem"]["conv_0"], kernels[0],
+                               (1, 1, 1), feats[0], a, want_out="a", **kw)
+    skips = []
+    for s in range(a["n_stages"]):
+        for b in range(a["n_blocks_per_stage"][s]):
+            bp = penc[f"stage_{s}"][f"block_{b}"]
+            st = strides[s] if b == 0 else (1, 1, 1)
+            h, hl, htw = _conv_norm_act(y, lay, bp["conv1"], kernels[s], st,
+                                        feats[s], a, want_out="o", **kw)
+            z, zl, _ = _conv_norm_act(h, hl, bp["conv2"], kernels[s],
+                                      (1, 1, 1), feats[s], lin,
+                                      want_out="a", tw=htw, **kw)
+            with span("rehrseg.segnet.residual"):
+                r, rl = _skip_branch(y, lay, bp.get("skip"), st, a)
+                y, lay = _leaky(z + _relayout(r, rl, zl), slope), zl
+            count("segnet.res_blocks")
+        skips.append((y, lay, None))
+    return skips
+
+
 def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
                           upscale: int = 4, pack_max_channels: int = 128,
                           dual: bool = False, return_skips: bool = False,
@@ -532,6 +674,9 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
             f"'cat' (the JAX package's Segmenter runs 'cat')")
     if isinstance(x, sp.HBlocks) and plane_out:
         raise ValueError("plane_out has no H-sharded form")
+    residual = is_residual(arch)
+    if residual:
+        _refuse_residual_modes(x, pallas_conv, remat)
     a = dict(arch)
     n = a["n_stages"]
     feats = a["features_per_stage"]
@@ -544,34 +689,22 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
     p = _map(p, lambda t: t.to(common))
     penc, pdec = p["encoder"], p["decoder"]
 
-    # A stage's layout decisions derive from shapes; each stage function
-    # reports its final one here (strings and ints only, so a recompute in
-    # backward rewrites the same values and no tensor outlives the stage).
+    # A decoder stage's layout decisions derive from shapes; each stage
+    # function reports its final one here (strings and ints only, so a
+    # recompute in backward rewrites the same values and no tensor
+    # outlives the stage).
     out = {}
 
     # ---------------- encoder: each stage ends ALIGNED (or unpacked)
-    cur, layout, cur_tw = x, "u", None
-    skips = []  # (tensor, layout, true offset width or None)
-    for s in range(n):
-        def enc_stage(cur_in, stp, *, _s=s, _in=layout, _tw=cur_tw):
-            y, lay, tw = cur_in, _in, _tw
-            n_convs = a["n_conv_per_stage"][_s]
-            for i in range(n_convs):
-                st = strides[_s] if i == 0 else (1, 1, 1)
-                want = (("o" if n_convs - i >= 2 else "a") if lay == "u"
-                        else "a")
-                y, lay, tw = _conv_norm_act(
-                    y, lay, stp[f"conv_{i}"], kernels[_s], st, feats[_s], a,
-                    pack_max_channels=pack_max_channels, want_out=want,
-                    tw=tw, pallas=pallas_conv)
-            if isinstance(y, _Deferred):      # a stage ends finalized
-                y = y.materialize()
-            out["layout"], out["tw"] = lay, tw
-            return y
-
-        cur = _ckpt(remat, "enc", s, n)(enc_stage)(cur, penc[f"stage_{s}"])
-        layout, cur_tw = out["layout"], out["tw"]
-        skips.append((cur, layout, cur_tw))
+    with span("rehrseg.segnet.encoder"):
+        if residual:
+            skips = _residual_encoder(x, penc, a, kernels, strides,
+                                      pack_max_channels=pack_max_channels,
+                                      pallas=pallas_conv)
+        else:
+            skips = _plain_encoder(x, penc, a, kernels, strides,
+                                   pack_max_channels=pack_max_channels,
+                                   pallas=pallas_conv, remat=remat)
 
     # ---------------- decoder
     lres, lres_layout, lres_tw = skips[-1]
@@ -660,6 +793,12 @@ def segmodel_apply_packed(arch: dict, params, x, *, num_classes: int = 2,
     if not dual and not return_skips:
         return seg_logits
 
+    if residual and features_layout == "o":
+        # one decoder conv a stage ends offset: re-pack aligned, so the
+        # SR head takes its packed path
+        features = space_to_depth_hw(offset_to_unpacked_hw(
+            features[:, :, :, :features_tw] if features_tw else features))
+        features_layout, features_tw = "a", None
     w1, b1 = p["sr_head_conv1"]["kernel"], p["sr_head_conv1"]["bias"]
     w2, b2 = p["sr_head_conv2"]["kernel"], p["sr_head_conv2"]["bias"]
     head = functools.partial(_sr_head, layout=features_layout,

@@ -68,7 +68,7 @@ from .infer.sliding_window import evaluate_case_volume
 from .io import nifti
 from .losses import calculate_dice
 from .models import convert
-from .models.segnet import arch_from_plans
+from .models.segnet import arch_from_plans, is_residual
 from .models.segnet_packed import segmodel_apply_packed
 from .parallel import multihost as _mh
 from .utils.device import resolve_device
@@ -164,7 +164,9 @@ def evaluate(seg_model, patch_size, val_img_path, val_label_path, split,
 def seg_arch_and_patches(cfg: Config):
     """Arch kwargs and patch sizes (``Pipeline._seg_arch_and_patches``):
     from ``extra["arch_override"]`` and ``extra["patch_size_zyx"]``, or
-    from ``plans.json`` under ``cfg.seg_path``. Returns (arch,
+    from ``plans.json`` under ``cfg.seg_path``. An override names its
+    encoder by ``n_conv_per_stage`` (plain) or ``n_blocks_per_stage``
+    (nnU-Net's residual encoder), never both. Returns (arch,
     patch_size_zyx, patch_xyz, patch_ori); the reference's patch math
     (train_all.py:469-470): patch (x, y, z) = reversed plans patch, crop
     patch (x + 64, y + 64, z)."""
@@ -173,10 +175,11 @@ def seg_arch_and_patches(cfg: Config):
         arch = dict(arch_override)
         arch["kernel_sizes"] = tuple(tuple(k) for k in arch["kernel_sizes"])
         arch["strides"] = tuple(tuple(s) for s in arch["strides"])
-        arch["features_per_stage"] = tuple(arch["features_per_stage"])
-        arch["n_conv_per_stage"] = tuple(arch["n_conv_per_stage"])
-        arch["n_conv_per_stage_decoder"] = tuple(
-            arch["n_conv_per_stage_decoder"])
+        for key in ("features_per_stage", "n_conv_per_stage",
+                    "n_blocks_per_stage", "n_conv_per_stage_decoder"):
+            if key in arch:
+                arch[key] = tuple(arch[key])
+        is_residual(arch)
         patch_size_zyx = list(cfg.extra["patch_size_zyx"])
     else:
         arch, patch_size_zyx = arch_from_plans(load_plans(cfg.seg_path))

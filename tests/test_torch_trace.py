@@ -37,7 +37,8 @@ SERVING = {"rehrseg.segment", "rehrseg.segment.prep",
            "rehrseg.segment.upload", "rehrseg.segment.tile",
            "rehrseg.segment.mirror", "rehrseg.segment.forward",
            "rehrseg.segment.accumulate", "rehrseg.segment.argmax",
-           "rehrseg.segment.fetch", "rehrseg.segment.crop"}
+           "rehrseg.segment.fetch", "rehrseg.segment.crop",
+           "rehrseg.segnet.encoder"}
 
 
 def _traced(fn):
@@ -149,6 +150,8 @@ def test_segment_spans_and_counters(segmenters, grid, hr):
         if e.name in ("rehrseg.segment.mirror", "rehrseg.segment.forward",
                       "rehrseg.segment.accumulate"):
             assert _parent(e) == "rehrseg.segment.tile"
+        elif e.name == "rehrseg.segnet.encoder":
+            assert _parent(e) == "rehrseg.segment.forward"
         elif e.name != "rehrseg.segment":
             assert _parent(e) == "rehrseg.segment", e.name
     assert moved["serve.volumes"] == 1
@@ -244,6 +247,8 @@ def test_seg_step_spans_and_counters():
     _, events, moved = _traced(lambda: step(state, batch))
     parents = {e.name: _parent(e) for e in events}
     assert parents.pop("rehrseg.seg_step") is None
+    assert parents.pop("rehrseg.segnet.encoder") == \
+        "rehrseg.seg_step.forward"
     assert parents == {f"rehrseg.seg_step.{c}": "rehrseg.seg_step"
                        for c in ("forward", "loss", "backward",
                                  "optimizer")}
