@@ -946,6 +946,84 @@ def phase_packing(gen, dev):
     return out
 
 
+# the norm-act tail's served shapes (B, D, h, w, C4), true width, form:
+# the stem's offset output, stage 0's aligned tensor, stage 1's unpacked one
+NORM_ACT_MAIN = {
+    "stage0_offset": ((8, 16, 161, 193, 128), None, "offset"),
+    "stage0_aligned": ((8, 16, 160, 192, 128), None, "aligned"),
+    "stage1_unpacked": ((8, 16, 160, 192, 64), None, "unpacked"),
+}
+
+
+def phase_norm_act(gen, dev):
+    """The norm-act tail's two kernels (ops/norm_act.py) at the served
+    shapes, bf16, with the conv bias, the affine and the leaky ReLU: ms of
+    both launches and of each, beside the bound (the tensor read twice and
+    written once at the card's rate; the moment pass one read, the apply
+    one read and one write) and the plain chain's ms (the eager passes the
+    forward ran before); against the plain chain, the share of elements
+    equal bit for bit and the largest difference in bf16 ulps at the
+    element's magnitude floored at 1. library_ms is null: no single
+    PyTorch call computes the chain."""
+    from rehrseg_tpu_torch.ops import norm_act as na
+
+    out = {}
+    for site, (shape, tw, form) in NORM_ACT_MAIN.items():
+        c4 = shape[-1]
+        c = c4 if form == "unpacked" else c4 // 4
+        y = (0.7 + 1.3 * torch.randn(shape, generator=gen, device=dev)).to(
+            torch.bfloat16)
+        b = (0.3 * torch.randn(c4, generator=gen, device=dev)).to(
+            torch.bfloat16)
+        scale = (1 + 0.2 * torch.randn(c, generator=gen, device=dev)).to(
+            torch.bfloat16)
+        bias = (0.2 * torch.randn(c, generator=gen, device=dev)).to(
+            torch.bfloat16)
+        kw = dict(eps=1e-5, slope=0.01, form=form, true_w=tw)
+
+        def kernels():
+            return na.norm_act(y, b, scale, bias, **kw)
+
+        def plain():
+            return na.norm_act_plain(y, b, scale, bias, **kw)
+
+        want, got = plain(), kernels()
+        mag = want.float().abs().clamp_min(1.0)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        rec = {"shape": list(shape), "true_w": tw, "form": form,
+               "gbytes": nbytes(y) / 1e9,
+               "equal_share": float((got.view(torch.int16)
+                                     == want.view(torch.int16)).double()
+                                    .mean()),
+               "max_ulps_at_scale": float(((got.float() - want.float()).abs()
+                                           / ulp).max()),
+               "max_abs_err": float((got.float() - want.float()).abs()
+                                    .max())}
+        del want, got, mag, ulp
+        if rec["equal_share"] < 0.99 or rec["max_ulps_at_scale"] > 2:
+            raise AssertionError(f"norm_act {site}: against the plain "
+                                 f"chain {rec}")
+        m, k = na.norm_stats(y, b, eps=1e-5, form=form, true_w=tw)
+        rec["bound_ms"], rec["bound_by"] = bound(3 * nbytes(y), 0,
+                                                 BF16_FLOPS)
+        rec["ms"] = cuda_ms(kernels)
+        rec["stats_ms"] = cuda_ms(lambda: na.norm_stats(
+            y, b, eps=1e-5, form=form, true_w=tw))
+        rec["stats_bound_ms"] = nbytes(y) / HBM_BYTES_PER_S * 1e3
+        rec["apply_ms"] = cuda_ms(lambda: na.norm_act_apply(
+            y, b, m, k, scale, bias, slope=0.01, form=form, true_w=tw))
+        rec["apply_bound_ms"] = 2 * nbytes(y) / HBM_BYTES_PER_S * 1e3
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
+        rec["library_ms"] = None
+        rec["kernels"] = _kernel_times(kernels)[:3]
+        out[site] = rec
+        del y
+        torch.cuda.empty_cache()
+    emit({"phase": "norm_act", **out})
+    return out
+
+
 def _fused_counts():
     """The K6 forms' launch counts and the plain forms' of K1/K3/K4/K5."""
     from rehrseg_tpu_torch.ops import pconv
@@ -1113,11 +1191,20 @@ def phase_tile_pallas(params, dev):
     return out
 
 
+def _n_norms(tree) -> int:
+    """ConvNormActs of a params tree: its "norm" groups."""
+    if not isinstance(tree, dict):
+        return 0
+    return sum(1 if k == "norm" else _n_norms(v) for k, v in tree.items())
+
+
 def phase_main(params, dev, gpu):
     from rehrseg_tpu_torch.models.segnet import DEFAULT_ARCH
+    from rehrseg_tpu_torch.ops.norm_act import norm_act
     from rehrseg_tpu_torch.ops.pconv import pconv_pad11_cat
     from rehrseg_tpu_torch.ops.tail import accumulate_tta_tile
     from rehrseg_tpu_torch.serve import Segmenter
+    from rehrseg_tpu_torch.utils.timer import counters
 
     rng = np.random.default_rng(SEED)
     vols = [rng.normal(size=VOLUME).astype(np.float32) for _ in range(2)]
@@ -1143,13 +1230,17 @@ def phase_main(params, dev, gpu):
 
     pconv_pad11_cat.launches = 0
     accumulate_tta_tile.launches = 0
+    norm_act.launches = 0
+    tiles0 = counters().get("serve.tiles", 0)
     (lr_a, hr_a), t_dual, k1_dual, k2_dual = timed(
         lambda: aligned.segment(vols[0], hr=True))
     lr_p, t_par, k1_par, k2_par = timed(lambda: parity.segment(vols[0]))
     many, t_many, k1_many, k2_many = timed(
         lambda: aligned.segment_many(vols))
     launches = {"pconv_pad11_cat": pconv_pad11_cat.launches,
-                "accumulate_tta_tile": accumulate_tta_tile.launches}
+                "accumulate_tta_tile": accumulate_tta_tile.launches,
+                "norm_act": norm_act.launches}
+    tiles = counters()["serve.tiles"] - tiles0
 
     d, h, w = VOLUME
     for name, arr, shape in (("aligned lr", lr_a, VOLUME),
@@ -1161,9 +1252,16 @@ def phase_main(params, dev, gpu):
             raise AssertionError(f"{name}: {arr.shape} {arr.dtype}")
     if not np.array_equal(many[0], aligned.segment(vols[0])):
         raise AssertionError("segment_many differs from segment")
-    if min(k1_dual, k1_par, k1_many, k2_dual, k2_many) == 0:
+    if min(k1_dual, k1_par, k1_many, k2_dual, k2_many,
+           launches["norm_act"]) == 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
+    # one forward a tile (tiles_per_step 1), the norm-act kernels at every
+    # ConvNormAct of it: none fell back to the plain chain
+    if launches["norm_act"] != tiles * _n_norms(params):
+        raise AssertionError(f"norm_act launched {launches['norm_act']} "
+                             f"times over {tiles} tiles of "
+                             f"{_n_norms(params)} ConvNormActs")
     lr_vox, hr_vox = d * h * w, 4 * d * h * w
     rec = dict(
         card=gpu, volume=list(VOLUME), patch=list(PATCH), dtype="bf16",
@@ -1176,7 +1274,7 @@ def phase_main(params, dev, gpu):
                            voxps=2 * lr_vox / t_many, k1=k1_many,
                            k2=k2_many),
         aligned_vs_parity_lr_agree=float(np.mean(lr_a == lr_p)),
-        lr_foreground=float(lr_a.mean()), launches=launches,
+        lr_foreground=float(lr_a.mean()), launches=launches, tiles=tiles,
         # the aligned dual labels' bytes, to hold against another tree's
         label_sha256={"lr": hashlib.sha256(lr_a.tobytes()).hexdigest(),
                       "hr": hashlib.sha256(hr_a.tobytes()).hexdigest()},
@@ -3749,6 +3847,8 @@ def main() -> int:
     kp = {k: phase_pconv(k, gen, dev) for k in ("k3", "k4", "k5")}
     phase_packing(gen, dev)
     torch.cuda.empty_cache()
+    na = phase_norm_act(gen, dev)
+    torch.cuda.empty_cache()
 
     params = convert.random_flax_params(DEFAULT_ARCH, SEED)
     phase_tile(params, dev)
@@ -3900,6 +4000,14 @@ def main() -> int:
              launches=tile_fused["launches"]["pconv3_valid_fused"],
              launches_in="tile_fused",
              **{k: fp32["k6c"][k] for k in keys}),
+        # the norm-act tail: no TPU kernel (XLA fuses the chain there);
+        # the stage-0 offset shape at the top level, the others beside it
+        dict(name="norm_act", route="cuda",
+             source="rehrseg_tpu_torch/csrc/norm_act.cu", replaces=None,
+             launches=launches["norm_act"],
+             **{k: na["stage0_offset"][k] for k in keys},
+             **{site: {k: rec[k] for k in (*keys, "stats_ms", "apply_ms")}
+                for site, rec in na.items() if site != "stage0_offset"}),
         # K7: nothing on any path calls it, in the port as in the JAX
         # package (0 launches in main, main_pallas and main_fused); bf16
         # runs K3's kernel

@@ -27,6 +27,7 @@ SOURCES = {
     "pconv3_valid_sm90": "pconv3_valid_sm90.cu",
     "pconv_pad11_cat_sm90": "pconv_pad11_cat_sm90.cu",
     "pconv2d_sm90": "pconv2d_sm90.cu",
+    "norm_act": "norm_act.cu",
 }
 # measuring probes: built on request (``build(["l2_feed_probe"])``), on no
 # path of the port

@@ -28,6 +28,15 @@ statistics or one masked reduction of a cuDNN output), the consuming K6b
 loads its input, and the aligned output finalizes in one pass from that
 kernel's statistics.
 
+Under any truthy ``pallas_conv``, on an unsharded input with no gradient
+needed, every ConvNormAct's tail that is not deferred (bias, instance
+norm, affine, leaky ReLU, offset rim) is one call of
+:func:`rehrseg_tpu_torch.ops.norm_act.norm_act`: two kernels on the card
+where they take its dtypes and width, its plain version (the eager
+chain, bit for bit) on the CPU; a cuDNN conv then leaves its bias to that
+call. Every other tail of an unsharded tensor is that plain version,
+the conv adding its bias.
+
 A residual arch (``n_blocks_per_stage``, nnU-Net's ResEnc) runs each
 BasicBlockD as two of those convs, conv1 to offset (or unpacked, where it
 strides) and conv2 (no nonlinearity) back to aligned, so every block ends
@@ -54,18 +63,21 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import pconv
 from ..ops.bspline import upsample_axis_linear
+from ..ops.norm_act import (FORMS as NORM_ACT_FORMS, norm_act,
+                            norm_act_plain, norm_act_takes)
 from ..ops.pack2d import (
     space_to_depth_hw, depth_to_space_hw, offset_to_unpacked_hw,
     pack_conv_weights, pack_conv_weights_from_unpacked,
     pack_transpconv_weights, pack_pointwise_weights, pack_bias,
     conv_general, conv_packed, conv_packing, pointwise_packed_transpconv,
-    instance_norm_packed, offset_rim_mask,
+    instance_norm_packed, instance_norm_moments, instance_norm_apply,
+    offset_rim_mask,
     pack_conv_weights_cell4, pack_bias_cell4, conv_packed_s2_cell4,
     depth_to_space_cell,
     pack_conv_weights_cell4z2, conv_packed_s2_cell4z2, unpack_cell4z2,
     pack_bias_cell4z2, fused_upsample_conv1,
     norm_scale_shift_from_stats, offset_stats_xla, apply_norm_act_packed,
-    stats_dtype, conv_packed_h,
+    conv_packed_h,
 )
 from ..parallel import spatial as sp
 from ..utils.timer import count, span
@@ -82,14 +94,8 @@ def _instance_norm(x, scale, bias, eps):
     serving numerics)."""
     if isinstance(x, sp.HBlocks):
         return sp.instance_norm(x, scale, bias, eps)
-    spatial = tuple(range(1, x.ndim - 1))
-    x32 = stats_dtype(x)
-    m = x32.mean(spatial, keepdim=True)
-    v = x32.var(spatial, correction=0, keepdim=True)
-    y = (x - m.to(x.dtype)) * torch.rsqrt(v + eps).to(x.dtype)
-    if scale is not None:
-        y = y * scale + bias
-    return y
+    m, k = instance_norm_moments(x, eps, packed=False)
+    return instance_norm_apply(x, m, k, scale, bias)
 
 
 def _conv_std(x, w, b, strides):
@@ -161,6 +167,57 @@ def _norm_packed(y, scale, nbias, eps, **kw):
     if isinstance(y, sp.HBlocks):
         return sp.instance_norm_packed(y, scale, nbias, eps, **kw)
     return instance_norm_packed(y, scale, nbias, eps, **kw)
+
+
+def _norm_act_route(pallas, feats, inputs, params):
+    """The forms of a ConvNormAct's output ("offset", "aligned",
+    "unpacked") whose tail runs as :func:`..ops.norm_act.norm_act` (its
+    conv then takes no bias; the op adds it): none unless pallas_conv is
+    truthy, the input unsharded and no gradient needed; then every form
+    on the CPU (the op's plain version), and on the card each form whose
+    dtypes and width the kernels take (:func:`..ops.norm_act.
+    norm_act_takes`; fp64, say, keeps the eager chain). inputs: the conv's
+    input tensors, the first giving device and dtype; params: the conv
+    weight, its bias and the norm's scale and bias (None where absent)."""
+    x = inputs[0]
+    if (not pallas or isinstance(x, sp.HBlocks)
+            or (torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for t in (*inputs, *params)))):
+        return frozenset()
+    return frozenset(f for f in NORM_ACT_FORMS
+                     if x.device.type == "cpu"
+                     or norm_act_takes(x.dtype, feats, f, *params[1:]))
+
+
+def _split_bias(routes, form, bias):
+    """(the bias a cuDNN conv adds, the bias its norm-act tail adds)."""
+    return (None, bias) if form in routes else (bias, None)
+
+
+def _norm_act_tail(y, b, scale, nbias, eps, slope, form, feats, tw=None,
+                   routes=frozenset()):
+    """A ConvNormAct's tail after its conv. form: "offset" (rim zeroed
+    around the norm and the activation; tw the true width), "aligned" or
+    "unpacked". Where ``routes`` holds the form, the norm-act op (b: the
+    bias it adds, or None); else ``b`` is None (the conv added its bias)
+    and the tail is the op's plain version, or, for an H-sharded tensor,
+    :mod:`..parallel.spatial`'s norms."""
+    with span("rehrseg.segnet.norm_act"):
+        kw = dict(eps=eps, slope=slope, form=form, true_w=tw)
+        if form in routes:
+            return norm_act(y, b, scale, nbias, **kw)
+        assert b is None
+        if not isinstance(y, sp.HBlocks):
+            return norm_act_plain(y, None, scale, nbias, **kw)
+        if form == "unpacked":
+            return _leaky(_instance_norm(y, scale, nbias, eps), slope)
+        if form == "aligned":
+            return _leaky(_norm_packed(y, scale, nbias, eps), slope)
+        y = _mask_offset(y, feats, tw=tw)
+        y = _norm_packed(y, scale, nbias, eps, offset_parity=True,
+                         true_w=tw)
+        return _mask_offset(_leaky(y, slope), feats, tw=tw)
 
 
 def _unpack(x, layout, tw=None):
@@ -276,7 +333,10 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
     comes back as a :class:`_Deferred` (K6a emits its statistics; a cuDNN
     output gets one masked reduction), the consuming K6b/K6c applies the
     norm as it loads, and the aligned output finalizes from its
-    statistics in one pass. x may be a :class:`_Deferred`."""
+    statistics in one pass. x may be a :class:`_Deferred`.
+    Every other tail runs in :func:`_norm_act_tail`: as the norm-act op
+    where :func:`_norm_act_route` says so (a cuDNN conv's bias then rides
+    the op; a kernel conv keeps its own), else as its plain version."""
     pallas_all = pallas is True
     pallas_fused = pallas == "fused"
     pallas_cat = bool(pallas)
@@ -292,6 +352,12 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
     scale = cp["norm"]["scale"] if a["norm_affine"] else None
     nbias = cp["norm"]["bias"] if a["norm_affine"] else None
     eps, slope = a["norm_eps"], a["nonlin_slope"]
+
+    routes = _norm_act_route(pallas, feats, (x0, *(x if pair else ())),
+                             (w, b, scale, nbias))
+    tail = functools.partial(_norm_act_tail, scale=scale, nbias=nbias,
+                             eps=eps, slope=slope, feats=feats,
+                             routes=routes)
 
     h, wd = _true_hw(x0, layout, tw)
     strided = stride[1] == 2 and stride[2] == 2
@@ -322,23 +388,24 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
             if pair:
                 x = sp.local(_cat, *x)
                 pair = False
+            cb, y_b = _split_bias(routes, "unpacked", b)
             if layout == "a":
                 wp = pack_conv_weights(w, in_splits=in_splits,
                                        packed_out=False,
                                        aligned_in_strided=True)
-                y = _packed(x, wp, b, d_stride=stride[0], hw_pad="pad10")
+                y = _packed(x, wp, cb, d_stride=stride[0], hw_pad="pad10")
             else:
                 wp = pack_conv_weights(w, in_splits=in_splits,
                                        packed_out=False)
-                y = _packed(x, wp, b, d_stride=stride[0], in_w=otw)
-            y = _instance_norm(y, scale, nbias, eps)
-            return _leaky(y, slope), "u", None
+                y = _packed(x, wp, cb, d_stride=stride[0], in_w=otw)
+            return tail(y, y_b, form="unpacked"), "u", None
 
         if not strided:
             kd = int(kernel[0])
             out_tw = None
             out_stats = None      # kernel-emitted moment partials
             defer_out = False     # fused: return the raw offset + sa/ta
+            y_b = None            # the cuDNN conv's bias, for the tail
             if layout == "u":
                 w4 = pack_conv_weights_from_unpacked(w)
                 out = want_out
@@ -346,13 +413,16 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                 fuse_emit = (pallas_fused and out == "o"
                              and _fused_consumable(feats, x.shape[3] // 2 + 1,
                                                    kd))
+                cb, y_b = _split_bias(() if fuse_emit else routes,
+                                      "offset" if out == "o" else "aligned",
+                                      pb)
                 if out == "o" and (pallas_all or fuse_emit):
                     out_tw = x.shape[3] // 2 + 1
-                    y = _packing(x, w4, pb, offset_out=True,
+                    y = _packing(x, w4, cb, offset_out=True,
                                  out_w=_round8(out_tw))
                     defer_out = fuse_emit
                 else:
-                    y = _packing(x, w4, pb, offset_out=(out == "o"))
+                    y = _packing(x, w4, cb, offset_out=(out == "o"))
             elif layout == "a":
                 wp = pack_conv_weights(w, in_splits=in_splits)
                 pb = pack_bias(b) if b is not None else None
@@ -387,17 +457,20 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                         wp[0], pb)
                     if r is not None:
                         y = r.reshape(bsz, d, *r.shape[1:])
-                if y is None and (pallas_all or fuse_emit):
-                    # kd=3 (or uncovered): the cuDNN conv emits the
-                    # widened layout; its pad columns hold the bias until
-                    # the rim mask (here, or in the fused consumer) zeroes
-                    # them
-                    y = conv_packed(x, wp, pb, hw_pad="pad11",
-                                    out_w=_round8(out_tw))
-                    defer_out = fuse_emit
-                elif y is None:
-                    y = _packed(x, wp, pb, hw_pad="pad11")
-                    out_tw = None
+                if y is None:
+                    cb, y_b = _split_bias(() if fuse_emit else routes,
+                                          "offset", pb)
+                    if pallas_all or fuse_emit:
+                        # kd=3 (or uncovered): the cuDNN conv emits the
+                        # widened layout; its pad columns hold the bias
+                        # (or zeros) until the rim mask (here, or in the
+                        # fused consumer) zeroes them
+                        y = conv_packed(x, wp, cb, hw_pad="pad11",
+                                        out_w=_round8(out_tw))
+                        defer_out = fuse_emit
+                    else:
+                        y = _packed(x, wp, cb, hw_pad="pad11")
+                        out_tw = None
             else:  # offset -> aligned
                 wp = pack_conv_weights(w, in_splits=in_splits)
                 pb = pack_bias(b) if b is not None else None
@@ -443,17 +516,15 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                 if y is None:
                     # a widened offset input: the conv reads only its
                     # true columns
-                    y = _packed(x, wp, pb, in_w=otw)
+                    cb, y_b = _split_bias(routes, "aligned", pb)
+                    y = _packed(x, wp, cb, in_w=otw)
             if out == "o":
                 if defer_out:
                     if out_stats is None:
                         out_stats = offset_stats_xla(y, true_w=out_tw)
                     return (_defer_offset(y, out_stats, scale, nbias, eps,
                                           slope, out_tw), out, out_tw)
-                y = _mask_offset(y, feats, tw=out_tw)
-                y = _norm_packed(y, scale, nbias, eps, offset_parity=True,
-                                 true_w=out_tw)
-                y = _mask_offset(_leaky(y, slope), feats, tw=out_tw)
+                y = tail(y, y_b, form="offset", tw=out_tw)
             elif out_stats is not None:
                 # fused aligned finalize: one apply pass from the kernel's
                 # moments
@@ -463,16 +534,16 @@ def _conv_norm_act(x, layout, cp, kernel, stride, feats, a, *,
                     y.dtype)
                 y = apply_norm_act_packed(y, sa, ta, slope)
             else:
-                y = _leaky(_norm_packed(y, scale, nbias, eps), slope)
+                y = tail(y, y_b, form="aligned")
             return y, out, out_tw
 
     # ---------------- standard path
     if pair:
         x = sp.local(_cat, *x)
     x = _unpack(x, layout, otw)
-    y = _conv_std(x, w, b, stride)
-    y = _instance_norm(y, scale, nbias, eps)
-    return _leaky(y, slope), "u", None
+    cb, y_b = _split_bias(routes, "unpacked", b)
+    y = _conv_std(x, w, cb, stride)
+    return tail(y, y_b, form="unpacked"), "u", None
 
 
 def _leaves(tree):
@@ -584,7 +655,7 @@ def _relayout(x, layout, want):
     return depth_to_space_hw(x)
 
 
-def _skip_branch(x, layout, sk, stride, a):
+def _skip_branch(x, layout, sk, stride, a, pallas=False):
     """A BasicBlockD's skip: the identity, AvgPool3d(stride) where the
     block strides, then the bias-free 1x1x1 projection and its instance
     norm where ``sk`` (its params) is given. Returns (r, layout)."""
@@ -595,12 +666,15 @@ def _skip_branch(x, layout, sk, stride, a):
     w = sk["conv"]["kernel"][0, 0, 0]
     scale = sk["norm"]["scale"] if a["norm_affine"] else None
     nbias = sk["norm"]["bias"] if a["norm_affine"] else None
+    tail = functools.partial(
+        _norm_act_tail, b=None, scale=scale, nbias=nbias, eps=a["norm_eps"],
+        slope=None, feats=None, routes=_norm_act_route(
+            pallas, w.shape[-1], (x,), (w, None, scale, nbias)))
     if layout == "a":
-        y = torch.matmul(x, pack_pointwise_weights(w))
-        return _norm_packed(y, scale, nbias, a["norm_eps"]), "a"
+        return tail(torch.matmul(x, pack_pointwise_weights(w)),
+                    form="aligned"), "a"
     x = _unpack(x, layout)
-    return _instance_norm(torch.matmul(x, w), scale, nbias,
-                          a["norm_eps"]), "u"
+    return tail(torch.matmul(x, w), form="unpacked"), "u"
 
 
 def _residual_encoder(x, penc, a, kernels, strides, *, pack_max_channels,
@@ -625,7 +699,8 @@ def _residual_encoder(x, penc, a, kernels, strides, *, pack_max_channels,
                                       (1, 1, 1), feats[s], lin,
                                       want_out="a", tw=htw, **kw)
             with span("rehrseg.segnet.residual"):
-                r, rl = _skip_branch(y, lay, bp.get("skip"), st, a)
+                r, rl = _skip_branch(y, lay, bp.get("skip"), st, a,
+                                     pallas)
                 y, lay = _leaky(z + _relayout(r, rl, zl), slope), zl
             count("segnet.res_blocks")
         skips.append((y, lay, None))

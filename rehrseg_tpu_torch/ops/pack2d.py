@@ -456,24 +456,28 @@ def stats_dtype(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-def instance_norm_packed(xp: torch.Tensor, scale, bias,
-                         epsilon: float = 1e-5,
-                         offset_parity: bool = False,
-                         true_w: int | None = None) -> torch.Tensor:
-    """InstanceNorm over the true spatial extent of a packed tensor
-    (B, D, h, w, 4C): per-channel moments are the group-averaged moments of
-    the four (dy, dx) groups, taken in fp32 (fp64 for fp64 input,
-    :func:`stats_dtype`); the normalize runs in
-    ``xp.dtype``. offset_parity: rim already masked to zero, (h-1)*(w-1)
-    real pixels per group, var = E[x^2] - E[x]^2. true_w: true offset width
-    of a widened tensor (pad columns are zeros and do not count)."""
-    b_, d, h, w, c4 = xp.shape
+def instance_norm_moments(x: torch.Tensor, epsilon: float = 1e-5,
+                          packed: bool = True, offset_parity: bool = False,
+                          true_w: int | None = None) -> tuple:
+    """An instance norm's moments: per-(image, channel) mean m and inverse
+    std k = rsqrt(var + epsilon), each (B, C4), taken in fp32 (fp64 for
+    fp64 input, :func:`stats_dtype`). packed: x is (B, D, h, w, 4C) and a
+    channel's moments are the group-averaged moments of the four (dy, dx)
+    groups (repeated over them); else x is (B, *spatial, C), one group.
+    offset_parity: rim already masked to zero, (h-1)*(w-1) real pixels per
+    group, var = E[x^2] - E[x]^2 (else two-pass). true_w: true offset
+    width of a widened tensor (pad columns are zeros and do not count)."""
+    x32 = stats_dtype(x)
+    if not packed:
+        spatial = tuple(range(1, x.ndim - 1))
+        return (x32.mean(spatial),
+                torch.rsqrt(x32.var(spatial, correction=0) + epsilon))
+    b_, d, h, w, c4 = x.shape
     c = c4 // 4
 
     def group_mean(t):
         return t.reshape(b_, 4, c).mean(1).repeat(1, 4)
 
-    x32 = stats_dtype(xp)
     if offset_parity:
         n = d * (h - 1) * ((true_w if true_w is not None else w) - 1)
         m1 = group_mean(x32.sum((1, 2, 3)) / n)
@@ -483,12 +487,33 @@ def instance_norm_packed(xp: torch.Tensor, scale, bias,
         m1 = group_mean(x32.mean((1, 2, 3)))
         vg = (x32 - m1[:, None, None, None, :]).square().mean((1, 2, 3))
         v = group_mean(vg)
-    k = torch.rsqrt(v + epsilon)
-    y = (xp - m1[:, None, None, None, :].to(xp.dtype)) \
-        * k[:, None, None, None, :].to(xp.dtype)
+    return m1, torch.rsqrt(v + epsilon)
+
+
+def instance_norm_apply(x: torch.Tensor, m, k, scale, bias) -> torch.Tensor:
+    """``(x - m) * k`` in x.dtype (m and k, each (B, C4), rounded to it),
+    then the affine: scale and bias (C,), repeated over the C4 // C
+    groups, or None."""
+    shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    y = (x - m.reshape(shape).to(x.dtype)) * k.reshape(shape).to(x.dtype)
     if scale is not None:
-        y = y * scale.repeat(4) + bias.repeat(4)
+        g = x.shape[-1] // scale.shape[-1]
+        if g > 1:
+            scale, bias = scale.repeat(g), bias.repeat(g)
+        y = y * scale + bias
     return y
+
+
+def instance_norm_packed(xp: torch.Tensor, scale, bias,
+                         epsilon: float = 1e-5,
+                         offset_parity: bool = False,
+                         true_w: int | None = None) -> torch.Tensor:
+    """InstanceNorm over the true spatial extent of a packed tensor
+    (B, D, h, w, 4C): :func:`instance_norm_moments` (packed), then
+    :func:`instance_norm_apply`; the normalize runs in ``xp.dtype``."""
+    m, k = instance_norm_moments(xp, epsilon, offset_parity=offset_parity,
+                                 true_w=true_w)
+    return instance_norm_apply(xp, m, k, scale, bias)
 
 
 # ------------------------------------------- deferred (fused) instance norm

@@ -16,7 +16,8 @@ and counters of the work done.
 - :func:`count` adds to a plain dict of ints, always on;
   :func:`counters` returns a snapshot of it with the hand kernels' launch
   counts (``k1.launches`` ...), read from the ops' own ``.launches`` /
-  ``.fused_launches`` attributes and not counted a second time.
+  ``.fused_launches`` attributes and not counted a second time, and the
+  norm-act op's (``norm_act.launches``: tails that ran its two kernels).
 
 Spans (all named ``rehrseg.*``):
 
@@ -25,6 +26,9 @@ Spans (all named ``rehrseg.*``):
   ``segment.upload``, ``segment.tile`` (one forward of the sliding window,
   with ``segment.mirror``, ``segment.forward`` and ``segment.accumulate``
   under it), ``segment.argmax``, ``segment.fetch``, ``segment.crop``;
+- the packed forward: ``segnet.encoder``, ``segnet.residual`` and
+  ``segnet.norm_act`` (every ConvNormAct's norm-act tail, whichever route
+  it takes);
 - stage 1: ``sampler.next`` (``sampler.draw``, ``sampler.gather``),
   ``augment``, ``lr_sim``, ``sr_step`` (``.forward``, ``.backward``,
   ``.all_reduce`` with a process group, ``.optimizer``);
@@ -83,6 +87,7 @@ def count(name: str, n: int = 1) -> int:
 def counters() -> dict:
     """A snapshot of every counter, with the hand kernels' launches."""
     from ..ops.conv2x2 import conv2x2_valid_bias
+    from ..ops.norm_act import norm_act
     from ..ops.pconv import (pconv3_valid, pconv_pad11, pconv_pad11_cat,
                              pconv_valid)
     from ..ops.tail import accumulate_tta_tile
@@ -97,6 +102,7 @@ def counters() -> dict:
             ("k6a", pconv_pad11_cat, "fused_launches"),
             ("k6b", pconv_valid, "fused_launches"),
             ("k6c", pconv3_valid, "fused_launches"),
-            ("k7", conv2x2_valid_bias, "launches")):
+            ("k7", conv2x2_valid_bias, "launches"),
+            ("norm_act", norm_act, "launches")):
         out[f"{k}.launches"] = getattr(op, attr)
     return out

@@ -38,7 +38,7 @@ SERVING = {"rehrseg.segment", "rehrseg.segment.prep",
            "rehrseg.segment.mirror", "rehrseg.segment.forward",
            "rehrseg.segment.accumulate", "rehrseg.segment.argmax",
            "rehrseg.segment.fetch", "rehrseg.segment.crop",
-           "rehrseg.segnet.encoder"}
+           "rehrseg.segnet.encoder", "rehrseg.segnet.norm_act"}
 
 
 def _traced(fn):
@@ -152,6 +152,9 @@ def test_segment_spans_and_counters(segmenters, grid, hr):
             assert _parent(e) == "rehrseg.segment.tile"
         elif e.name == "rehrseg.segnet.encoder":
             assert _parent(e) == "rehrseg.segment.forward"
+        elif e.name == "rehrseg.segnet.norm_act":
+            assert _parent(e) in ("rehrseg.segnet.encoder",
+                                  "rehrseg.segment.forward")
         elif e.name != "rehrseg.segment":
             assert _parent(e) == "rehrseg.segment", e.name
     assert moved["serve.volumes"] == 1
@@ -246,6 +249,10 @@ def test_seg_step_spans_and_counters():
                                    enable_distillation=False, remat=False)
     _, events, moved = _traced(lambda: step(state, batch))
     parents = {e.name: _parent(e) for e in events}
+    assert {_parent(e) for e in events
+            if e.name == "rehrseg.segnet.norm_act"} == {
+        "rehrseg.segnet.encoder", "rehrseg.seg_step.forward"}
+    parents.pop("rehrseg.segnet.norm_act")
     assert parents.pop("rehrseg.seg_step") is None
     assert parents.pop("rehrseg.segnet.encoder") == \
         "rehrseg.seg_step.forward"
